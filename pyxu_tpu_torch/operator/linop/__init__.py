@@ -1,0 +1,10 @@
+from pyxu_tpu_torch.operator.linop.base import (  # noqa: F401
+    ExplicitLinFunc,
+    HomothetyOp,
+    IdentityOp,
+    NullFunc,
+    NullOp,
+)
+from pyxu_tpu_torch.operator.linop.diff import Gradient, PartialDerivative  # noqa: F401
+from pyxu_tpu_torch.operator.linop.pad import Pad  # noqa: F401
+from pyxu_tpu_torch.operator.linop.stencil import Correlate, Stencil  # noqa: F401
