@@ -6,36 +6,61 @@
 Phases:
 
 1. device line (name and power limit from ``nvidia-smi``, torch and CUDA
-   versions) and the build of the CUDA kernels from ``pyxu_tpu_torch/csrc``;
-2. kernels at 2160x3840 with the workload's taps and step sizes: each
-   kernel (f32 state, and bf16 dual storage) against its plain PyTorch
-   version on the card, timed with CUDA events;
-3. the main path: ``tv_deconvolution((2160, 3840))`` solved by
+   versions) and the build of the CUDA kernels from ``pyxu_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together);
+2. kernels at 2160x3840: the fused-TV kernels with the workload's taps and
+   step sizes (f32 state, and bf16 dual storage) and the separable stencil
+   kernel with the workload's blur (apply and adjoint, constant and
+   symmetric mode), each against its plain PyTorch version on the card,
+   timed with CUDA events; the stencil beside one ``conv2d`` call;
+3. the TV path: ``tv_deconvolution((2160, 3840))`` solved by
    ``CondatVu.fit(stop_crit=MaxIter(300))`` with ``stop_rate=100``, which
-   must run through both kernels (launch counts checked), then 30
+   must run through both fused-TV kernels (launch counts checked), then 30
    iterations of the fused and of the generic operator path, which must
-   agree within 2e-4.
+   agree within 2e-4; the generic path runs its Stencils through the
+   stencil kernel (launches checked);
+4. the LASSO path: ``lasso_deconvolution((2160, 3840))`` solved by
+   ``PGD.fit(stop_crit=MaxIter(300))`` with ``stop_rate=100`` through the
+   stencil kernel (two launches per iteration, checked), then the 256x256
+   leg of the JAX bench (2000 iterations in one segment), each with the
+   device time of one iteration and the stencil's part of it, and 100
+   iterations at 256x256 on the card against the same solve on the CPU.
 
-It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so
+Each phase prints its host time (``[time]``).  It prints one
+``{"kernels": [...]}`` line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the exit code is non-zero and no result line is printed.  Without a CUDA
 device it exits with code 2.
 """
 
-import json
-import os
-import statistics
-import subprocess
-import sys
 import time
 
-import torch
+T_START = time.perf_counter()
+
+import concurrent.futures  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+
+import torch  # noqa: E402
 
 SHAPE = (2160, 3840)
 PATH_ITERS, STOP_RATE = 300, 100
 PARITY_ITERS, PARITY_RATE = 30, 10
+BENCH_SHAPE, BENCH_ITERS = (256, 256), 2000     # bench.py's LASSO leg
+CHECK_ITERS = 100                               # LASSO card vs CPU
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
+                               # takes to enqueue one timed run
+
+
+def _mark(phase):
+    """Print the host time since the script started, after ``phase``."""
+    print(f"[time] {phase} done at {time.perf_counter() - T_START:.2f} s",
+          flush=True)
 
 
 def _smi():
@@ -45,19 +70,27 @@ def _smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps=20, warmup=3):
-    """Median of ``reps`` CUDA-event timings of ``fn()`` (ms)."""
+def _time_ms(fn, reps=20, runs=5, warmup=3):
+    """Device time of one ``fn()`` (ms): the median over ``runs`` of CUDA
+    events around ``reps`` back-to-back calls, divided by ``reps`` (the
+    plain versions, 1-11 ms a call, take 5).  A
+    ``torch.cuda._sleep`` ahead of each run keeps the device busy while the
+    host enqueues the calls, so the host's launch overhead stays out of the
+    events' span."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         t0.record()
-        fn()
+        for _ in range(reps):
+            fn()
         t1.record()
         t1.synchronize()
-        times.append(t0.elapsed_time(t1))
+        times.append(t0.elapsed_time(t1) / reps)
     return statistics.median(times)
 
 
@@ -126,8 +159,7 @@ def kernel_phase(ft, p, x, z, b):
             if not ok:
                 raise SystemExit(f"{name}[{tag}] disagrees with its plain "
                                  "version")
-            ms = _time_ms(kern)
-            plain_ms = _time_ms(plain)
+            ms, plain_ms = _time_ms(kern), _time_ms(plain, reps=5)
             bound_ms, bound_by = _bound(H, W, p, n_steps,
                                         4 if zdt == torch.float32 else 2)
             print(f"[kernel] {name}[{tag}] ms={ms:.4f} plain_ms={plain_ms:.4f}"
@@ -138,30 +170,169 @@ def kernel_phase(ft, p, x, z, b):
     return out
 
 
+def stencil_phase(st, p, x):
+    """The stencil kernel against its plain version, apply and adjoint in
+    both modes, at the workload's shape and taps; returns per-variant
+    records and the time of one ``conv2d`` of the same constant-mode
+    apply (cuDNN, TF32 off)."""
+    H, W = x.shape
+    tol = 1e-5 * float(x.abs().max())
+    nbytes = 2 * H * W * x.element_size()
+    ops = 2 * (len(p.k0) + len(p.k1)) * H * W
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    bound_ms, bound_by = max(t_b, t_o) * 1e3, (
+        "bytes" if t_b >= t_o else "operations")
+    out = {}
+    for mode in ("constant", "symmetric"):
+        q = st.SepTaps(p.k0, p.c0, p.k1, p.c1, mode)
+        for adj in (False, True):
+            tag = f"{mode}{'-adjoint' if adj else ''}"
+
+            def kern(q=q, adj=adj):
+                return st.separable_correlate2d(x, q, adj)
+
+            def plain(q=q, adj=adj):
+                return st.separable_correlate2d_plain(x, q, adj)
+            err = float((kern() - plain()).abs().max())
+            torch.cuda.synchronize()
+            ok = err <= tol
+            print(f"[kernel] stencil[{tag}] max_abs_err={err:.3e} tol "
+                  f"1e-5*max|x| = {tol:.3e}: {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise SystemExit(f"stencil[{tag}] disagrees with its plain "
+                                 "version")
+            ms, plain_ms = _time_ms(kern), _time_ms(plain, reps=5)
+            print(f"[kernel] stencil[{tag}] ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
+                  flush=True)
+            out[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+    assert not torch.backends.cudnn.allow_tf32
+    w = torch.outer(torch.tensor(p.k0), torch.tensor(p.k1)).to(x)[None, None]
+    x4 = x[None, None]
+
+    def lib():
+        return torch.nn.functional.conv2d(x4, w, padding=(p.c0, p.c1))
+    err = float((lib()[0, 0] - st.separable_correlate2d(
+        x, st.SepTaps(p.k0, p.c0, p.k1, p.c1, "constant"))).abs().max())
+    library_ms = _time_ms(lib)
+    print(f"[kernel] stencil conv2d library_ms={library_ms:.4f} "
+          f"(max_abs_diff to the kernel {err:.3e})", flush=True)
+    return out, library_ms
+
+
+def _breakdown(st, slv, p, wall_ms, tag):
+    """Device time of one solver iteration (``_time_ms`` around back-to-back
+    ``m_step`` calls, 10 of them fit behind the sleep), the stencil
+    kernel's part of it (one apply and one adjoint of ``p`` on the
+    iterate), and the device's idle share of the timed solve (1 - device /
+    host time per iteration)."""
+    state = slv._mstate
+    x = state["x"]
+    with torch.no_grad():
+        dev_ms = _time_ms(lambda: slv.m_step(state), reps=10)
+        sten_ms = sum(_time_ms(lambda adj=adj: st.separable_correlate2d(
+            x, p, adj)) for adj in (False, True))
+    print(f"[breakdown] {tag}: per iteration device {dev_ms:.4f} ms, stencil "
+          f"kernel {sten_ms:.4f} ms ({sten_ms / dev_ms:.1%}), other "
+          f"kernels {dev_ms - sten_ms:.4f} ms; host {wall_ms:.4f} ms, "
+          f"device idle {1 - dev_ms / wall_ms:.1%}", flush=True)
+
+
+def _reset(counters):
+    for c in counters:
+        c.launches = 0
+
+
+def lasso_phase(st, lasso_deconvolution, MaxIter):
+    """The LASSO path at 4K and the bench's 256x256 leg, with their
+    stencil launch counts and iteration breakdowns; then 256x256 on the
+    card against the CPU."""
+    rates = {}
+    for shape, iters, rate in ((SHAPE, PATH_ITERS, STOP_RATE),
+                               (BENCH_SHAPE, BENCH_ITERS, BENCH_ITERS)):
+        # set-up launches, none of them in the timed fit: the factory's
+        # y = K x_true (1) and, in the warm fit, the constant-gradient cache
+        # c = K^T grad (1), which later fits reuse
+        slv, fit, ex = lasso_deconvolution(shape, device="cuda",
+                                           stop_rate=rate)
+        assert ex["K"].kernel_path == "kernel", ex["K"].kernel_path
+        slv.fit(stop_crit=MaxIter(rate), max_iter=rate, **fit)        # warm
+        torch.cuda.synchronize()
+        _reset([st.separable_correlate2d])
+        t0 = time.perf_counter()
+        slv.fit(stop_crit=MaxIter(iters), max_iter=iters, **fit)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = st.separable_correlate2d.launches
+        assert launches == 2 * iters, (launches, 2 * iters)
+        xs = slv.solution()
+        assert xs.shape == shape and bool(torch.isfinite(xs).all())
+        obj0 = float(slv.objective_func({"x": fit["x0"]}))
+        obj = float(slv.objective_func(slv._mstate))
+        assert obj < obj0, (obj, obj0)
+        rates[shape] = iters / dt
+        print(f"[lasso] {shape[0]}x{shape[1]}: {iters} iterations in "
+              f"{dt:.4f} s: {rates[shape]:.2f} it/s; stencil launches "
+              f"{launches} (2 per iteration, 0 set-up); objective "
+              f"{obj0:.6e} -> {obj:.6e}; nnz {int((xs != 0).sum())}",
+              flush=True)
+        if shape == SHAPE:
+            path_launches = launches
+        _breakdown(st, slv, ex["K"]._taps, 1e3 * dt / iters,
+                   f"lasso {shape[0]}x{shape[1]}")
+    # the same 256x256 solve on the card (kernel) and the CPU (plain)
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        slv, fit, _ = lasso_deconvolution(BENCH_SHAPE, device=dev,
+                                          stop_rate=CHECK_ITERS)
+        slv.fit(stop_crit=MaxIter(CHECK_ITERS), max_iter=CHECK_ITERS, **fit)
+        sols[dev] = slv.solution().cpu()
+    diff = float((sols["cuda"] - sols["cpu"]).abs().max())
+    print(f"[lasso] {CHECK_ITERS} iterations at 256x256, card vs CPU: "
+          f"max_abs_diff={diff:.3e} (atol 2e-4)", flush=True)
+    assert diff <= 2e-4, diff
+    return rates, path_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pyxu_tpu_torch.models import tv_deconvolution
+    from pyxu_tpu_torch.models import lasso_deconvolution, tv_deconvolution
     from pyxu_tpu_torch.ops import fused_tv as ft
+    from pyxu_tpu_torch.ops import stencil as st
     from pyxu_tpu_torch.opt.stop import MaxIter
 
-    smi = _smi()
-    name = torch.cuda.get_device_name(0)
-    print(f"[device] {smi} | torch {torch.__version__} CUDA "
-          f"{torch.version.cuda}", flush=True)
+    def timed_build(mod):
+        t0 = time.perf_counter()
+        return mod.build(), time.perf_counter() - t0
+
+    # the builds run while the device is queried
     t0 = time.perf_counter()
-    log = ft.build()
-    print(f"[build] fused_tv.cu built in {time.perf_counter() - t0:.2f} s",
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {src: pool.submit(timed_build, mod) for src, mod in
+                  (("fused_tv.cu", ft), ("stencil.cu", st))}
+        smi = _smi()
+        name = torch.cuda.get_device_name(0)
+        print(f"[device] {smi} | torch {torch.__version__} CUDA "
+              f"{torch.version.cuda}", flush=True)
+        _mark("imports and device query")
+        builds = {src: f.result() for src, f in builds.items()}
+    for src, (log, sec) in builds.items():
+        print(f"[build] {src} built in {sec:.2f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"[build] {line.strip()}", flush=True)
+    print(f"[build] both sources in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    _mark("build")
 
     # ---- phase 2: kernels vs plain at the workload's shape -------------
     H, W = SHAPE
-    slv, fit, _ = tv_deconvolution(SHAPE, device="cuda", stop_rate=STOP_RATE)
+    slv, fit, ex = tv_deconvolution(SHAPE, device="cuda", stop_rate=STOP_RATE)
     slv.m_init(**fit)
     assert slv.fused_path == "kernel", slv.fused_path
     p, b = slv._fused.params, slv._fused.b
@@ -169,12 +340,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     z = 0.01 * torch.randn((2, H, W), generator=gen, device="cuda")
     recs = kernel_phase(ft, p, x, z, b)
+    st_recs, st_library_ms = stencil_phase(st, ex["K"]._taps, x)
+    _mark("kernel phase")
 
-    # ---- phase 3: the main path ----------------------------------------
+    # ---- phase 3: the TV path ------------------------------------------
+    counters = [ft.tv_step, ft.tv_stepk, st.separable_correlate2d]
     slv.fit(stop_crit=MaxIter(STOP_RATE), max_iter=STOP_RATE, **fit)  # warm
     torch.cuda.synchronize()
-    ft.tv_step.launches = 0
-    ft.tv_stepk.launches = 0
+    _reset(counters)
     t0 = time.perf_counter()
     slv.fit(stop_crit=MaxIter(PATH_ITERS), max_iter=PATH_ITERS, **fit)
     torch.cuda.synchronize()
@@ -205,17 +378,29 @@ def main() -> int:
                                     stop_rate=PARITY_RATE, fuse=fuse)
         s.fit(stop_crit=MaxIter(PARITY_RATE), max_iter=PARITY_RATE, **fk)
         torch.cuda.synchronize()
+        _reset(counters)
         t0 = time.perf_counter()
         s.fit(stop_crit=MaxIter(PARITY_ITERS), max_iter=PARITY_ITERS, **fk)
         torch.cuda.synchronize()
         rates[fuse] = PARITY_ITERS / (time.perf_counter() - t0)
         assert s.fused_path == ("kernel" if fuse else None), s.fused_path
+        if not fuse:
+            # K^T K x (2), D^T z (2) and D v (2): six Stencils an iteration
+            n = st.separable_correlate2d.launches
+            assert n == 6 * PARITY_ITERS, n
+            assert ft.tv_step.launches == ft.tv_stepk.launches == 0
         sols[fuse] = s.solution()
     diff = float((sols[True] - sols[False]).abs().max())
     print(f"[parity] {PARITY_ITERS} iterations fused vs generic: "
           f"max_abs_diff={diff:.3e} (atol 2e-4); fused {rates[True]:.2f} it/s,"
-          f" generic {rates[False]:.2f} it/s on {smi}", flush=True)
+          f" generic {rates[False]:.2f} it/s through the stencil kernel "
+          f"(219 it/s before the stencil kernel) on {smi}", flush=True)
     assert diff <= 2e-4, diff
+    _mark("TV path and parity")
+
+    # ---- phase 4: the LASSO path ---------------------------------------
+    lasso_rates, st_launches = lasso_phase(st, lasso_deconvolution, MaxIter)
+    _mark("LASSO path")
 
     kernels = []
     for kname, replaces, n_steps in (
@@ -233,9 +418,27 @@ def main() -> int:
             "bf16z": {k: rb[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms")},
         })
+    # the LASSO path's launches are symmetric applies and adjoints, half each
+    path_mix = [st_recs[t] for t in ("symmetric", "symmetric-adjoint")]
+    kernels.append({
+        "name": "stencil", "route": "cuda",
+        "source": "pyxu_tpu_torch/csrc/stencil.cu",
+        "replaces": "pyxu_tpu/ops/pallas_stencil.py:76",
+        "launches": st_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in st_recs.values()),
+        "ms": statistics.fmean(r["ms"] for r in path_mix),
+        "plain_ms": statistics.fmean(r["plain_ms"] for r in path_mix),
+        "bound_ms": path_mix[0]["bound_ms"],
+        "bound_by": path_mix[0]["bound_by"], "library_ms": st_library_ms,
+        "variants": {k: {f: v[f] for f in ("ms", "plain_ms", "max_abs_err")}
+                     for k, v in st_recs.items()},
+    })
     print(json.dumps({"kernels": kernels, "path_it_per_s": rate,
                       "fused_it_per_s": rates[True],
-                      "generic_it_per_s": rates[False]}), flush=True)
+                      "generic_it_per_s": rates[False],
+                      "lasso_4k_it_per_s": lasso_rates[SHAPE],
+                      "lasso_256_it_per_s": lasso_rates[BENCH_SHAPE]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,7 +10,8 @@ linear operator: those rules rebuild a genuine ``QuadraticFunc`` whose
 constants propagate through every rule.
 
 Ported rules: Scale, ArgShift, Add, Chain (with ``compose``), Transpose and
-Cast.  ArgScale and Power are not ported yet; the TV path reaches neither.
+Cast, each with its Lipschitz estimators.  ArgScale and Power are not
+ported yet; neither the TV nor the LASSO path reaches them.
 """
 
 from __future__ import annotations
@@ -83,6 +84,15 @@ class ScaleMixin:
             return arr - tau * self.grad(arr)
         raise NotImplementedError
 
+    def estimate_lipschitz(self, **kw):
+        self._lipschitz = abs(self._cst) * self._op.estimate_lipschitz(**kw)
+        return self._lipschitz
+
+    def estimate_diff_lipschitz(self, **kw):
+        self._diff_lipschitz = abs(self._cst) * \
+            self._op.estimate_diff_lipschitz(**kw)
+        return self._diff_lipschitz
+
 
 def _scale_properties(op: Operator, cst: float) -> frozenset:
     p = set(op.properties())
@@ -140,6 +150,14 @@ class ArgShiftMixin:
     def prox(self, arr, tau):
         return self._op.prox(arr + self._shift, tau) - self._shift
 
+    def estimate_lipschitz(self, **kw):
+        self._lipschitz = self._op.estimate_lipschitz(**kw)
+        return self._lipschitz
+
+    def estimate_diff_lipschitz(self, **kw):
+        self._diff_lipschitz = self._op.estimate_diff_lipschitz(**kw)
+        return self._diff_lipschitz
+
 
 def _argshift_properties(op: Operator) -> frozenset:
     p = set(op.properties())
@@ -193,6 +211,19 @@ class AddMixin:
         else:
             raise NotImplementedError
         return f.prox(arr - tau * lin.grad(arr), tau)
+
+    def estimate_lipschitz(self, **kw):
+        if self.has(P.LINEAR):      # tight estimate on the composite
+            self._lipschitz = LinOp.estimate_lipschitz(self, **kw)
+        else:
+            self._lipschitz = (self._lhs.estimate_lipschitz(**kw)
+                               + self._rhs.estimate_lipschitz(**kw))
+        return self._lipschitz
+
+    def estimate_diff_lipschitz(self, **kw):
+        self._diff_lipschitz = (self._lhs.estimate_diff_lipschitz(**kw)
+                                + self._rhs.estimate_diff_lipschitz(**kw))
+        return self._diff_lipschitz
 
 
 def _add_properties(lhs: Operator, rhs: Operator) -> frozenset:
@@ -297,6 +328,30 @@ class ChainMixin:
             return LinFunc.prox(self, arr, tau)
         raise NotImplementedError
 
+    def estimate_lipschitz(self, **kw):
+        if self.has(P.LINEAR):
+            self._lipschitz = LinOp.estimate_lipschitz(self, **kw)
+        else:
+            self._lipschitz = (self._lhs.estimate_lipschitz(**kw)
+                               * self._rhs.estimate_lipschitz(**kw))
+        return self._lipschitz
+
+    def estimate_diff_lipschitz(self, **kw):
+        """Linear chain: 0; f o K with K linear: dL_f ||K||^2; K o g with
+        K linear: ||K|| dL_g; non-linear o non-linear: no finite bound."""
+        if self.has(P.LINEAR):
+            dL = 0.0
+        elif self._rhs.has(P.LINEAR):
+            Lr = self._rhs.estimate_lipschitz(**kw)
+            dL = self._lhs.estimate_diff_lipschitz(**kw) * Lr ** 2
+        elif self._lhs.has(P.LINEAR):
+            dL = (self._lhs.estimate_lipschitz(**kw)
+                  * self._rhs.estimate_diff_lipschitz(**kw))
+        else:
+            dL = _math.inf
+        self._diff_lipschitz = dL
+        return dL
+
 
 def _chain_properties(lhs: Operator, rhs: Operator) -> frozenset:
     lp, rp = lhs.properties(), rhs.properties()
@@ -381,6 +436,10 @@ class TransposeMixin:
     def adjoint(self, arr):
         return self._op.apply(arr)
 
+    def estimate_lipschitz(self, **kw):
+        self._lipschitz = self._op.estimate_lipschitz(**kw)
+        return self._lipschitz
+
 
 def transpose(op: Operator) -> Operator:
     if not op.has(P.LINEAR):
@@ -446,6 +505,20 @@ class CastMixin:
             return self._op._quad_spec()
         raise NotImplementedError(
             f"{self._name}: the inner operator carries no quadratic spec")
+
+    def estimate_lipschitz(self, **kw):
+        if self.has(P.LINEAR) and not self._op.has(P.LINEAR):
+            L = LinOp.estimate_lipschitz(self, **kw)
+        else:
+            L = self._op.estimate_lipschitz(**kw)
+        self._lipschitz = L
+        return L
+
+    def estimate_diff_lipschitz(self, **kw):
+        # the inner operator's: the cast class's own estimator may read
+        # fields (QuadraticFunc._Q) that a cast never sets
+        self._diff_lipschitz = self._op.estimate_diff_lipschitz(**kw)
+        return self._diff_lipschitz
 
 
 def cast_op(op: Operator, cast_to: type) -> Operator:

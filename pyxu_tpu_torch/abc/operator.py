@@ -193,6 +193,13 @@ class Map(Operator):
     def lipschitz(self, L: float):
         self._lipschitz = float(L)
 
+    def estimate_lipschitz(self, **kwargs) -> float:
+        if _math.isfinite(self._lipschitz):
+            return self._lipschitz      # a declared constant is an estimate
+        raise NotImplementedError(
+            f"{self._name}: no generic Lipschitz estimator for non-linear "
+            "maps")
+
 
 class Func(Map):
     """Real-valued functional (``codim_shape == ()``)."""
@@ -227,6 +234,13 @@ class DiffMap(Map):
     @diff_lipschitz.setter
     def diff_lipschitz(self, dL: float):
         self._diff_lipschitz = float(dL)
+
+    def estimate_diff_lipschitz(self, **kwargs) -> float:
+        if _math.isfinite(self._diff_lipschitz):
+            return self._diff_lipschitz  # a declared constant is an estimate
+        raise NotImplementedError(
+            f"{self._name}: no generic diff-Lipschitz estimator for "
+            "non-linear maps")
 
 
 class DiffFunc(DiffMap, Func):
@@ -298,6 +312,10 @@ class QuadraticFunc(ProxDiffFunc):
     def grad(self, arr):
         return self._Q.apply(arr) + self._c.grad(arr)
 
+    def estimate_diff_lipschitz(self, **kwargs) -> float:
+        self._diff_lipschitz = self._Q.estimate_lipschitz(**kwargs)
+        return self._diff_lipschitz
+
 
 class LinOp(DiffMap):
     """Linear operator."""
@@ -324,6 +342,37 @@ class LinOp(DiffMap):
         from pyxu_tpu_torch.abc import arithmetic
         return arithmetic.transpose(self)
 
+    def estimate_diff_lipschitz(self, **kwargs) -> float:
+        """Linear maps have constant Jacobians: exactly 0."""
+        self._diff_lipschitz = 0.0
+        return 0.0
+
+    def estimate_lipschitz(self, method: str = "power", generator=None,
+                           maxiter: int = 64, **kwargs) -> float:
+        """Spectral-norm estimate.  ``power``: power iteration on the Gram;
+        ``trace``: the Frobenius bound sqrt(tr(A^T A)) by Hutch++.
+        ``kwargs`` (``dtype``, ``device``) go to :mod:`pyxu_tpu_torch.math.
+        linalg`."""
+        from pyxu_tpu_torch.math import linalg
+        if method == "power":
+            L = linalg.spectral_norm(self, generator=generator,
+                                     maxiter=maxiter, **kwargs)
+        elif method == "trace":
+            L = _math.sqrt(max(linalg.hutchpp(self.gram(),
+                                              generator=generator, **kwargs),
+                               0.0))
+        else:
+            raise ValueError(f"method {method!r} not in ('power', 'trace')")
+        self._lipschitz = float(L)
+        return self._lipschitz
+
+    def svdvals(self, k: int = 1, generator=None, maxiter: int = 96,
+                **kwargs):
+        """Top-k singular values in ascending order."""
+        from pyxu_tpu_torch.math import linalg
+        return linalg.svdvals(self, k=k, generator=generator,
+                              maxiter=maxiter, **kwargs)
+
     def gram(self) -> "SelfAdjointOp":
         """A^T A."""
         return _GramOp(self)
@@ -342,6 +391,13 @@ class SquareOp(LinOp):
             raise ValueError(f"square operator with dim {dim_shape} != "
                              f"codim {codim_shape}")
         super().__init__(dim_shape, codim_shape)
+
+    def trace(self, method: str = "explicit", **kwargs) -> float:
+        """Trace, exact (basis probing) or by Hutch++."""
+        from pyxu_tpu_torch.math import linalg
+        if method in ("explicit", "exact"):
+            return linalg.trace(self, **kwargs)
+        return linalg.hutchpp(self, **kwargs)
 
 
 class NormalOp(SquareOp):
@@ -395,6 +451,13 @@ class LinFunc(ProxDiffFunc, LinOp):
     def fenchel_prox(self, arr, sigma):
         return self._w(arr).expand(arr.shape)
 
+    def estimate_lipschitz(self, dtype=None, device=None, **kwargs) -> float:
+        """||w||_2, exactly."""
+        from pyxu_tpu_torch.info.dtypes import default_fdtype
+        one = torch.ones((), dtype=dtype or default_fdtype(), device=device)
+        self._lipschitz = float(torch.linalg.vector_norm(self._w(one)))
+        return self._lipschitz
+
 
 class _GramOp(SelfAdjointOp):
     """A^T A: self-adjoint composition without wrapper chains (the
@@ -409,6 +472,11 @@ class _GramOp(SelfAdjointOp):
 
     def apply(self, arr):
         return self._op.adjoint(self._op.apply(arr))
+
+    def estimate_lipschitz(self, **kwargs) -> float:
+        L = self._op.estimate_lipschitz(**kwargs)
+        self._lipschitz = L * L
+        return self._lipschitz
 
 
 def core_operators() -> tuple:

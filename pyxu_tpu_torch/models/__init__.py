@@ -1,1 +1,4 @@
-from pyxu_tpu_torch.models.workloads import tv_deconvolution  # noqa: F401
+from pyxu_tpu_torch.models.workloads import (  # noqa: F401
+    lasso_deconvolution,
+    tv_deconvolution,
+)

@@ -1,8 +1,8 @@
 """Benchmark workloads as one-call factories (counterpart of
 ``pyxu_tpu/models/workloads.py``).
 
-Ported: ``tv_deconvolution`` (the north-star workload).  The other four
-factories are not ported yet.
+Ported: ``lasso_deconvolution`` (workload 1) and ``tv_deconvolution`` (the
+north-star workload).  The other three factories are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import torch
 
 from pyxu_tpu_torch.runtime import resolve_device
 
-__all__ = ["tv_deconvolution"]
+__all__ = ["lasso_deconvolution", "tv_deconvolution"]
 
 
 def _gauss1d(sigma, n):
@@ -26,6 +26,33 @@ def _blur_op(shape, sigma=2.0, ksize=9, mode="symmetric"):
     k1 = _gauss1d(sigma, ksize)
     c = (ksize - 1) // 2
     return Stencil(shape, [k1, k1], [c, c], mode=mode)
+
+
+def lasso_deconvolution(shape=(256, 256), lam=0.05, seed=0, device=None,
+                        **solver_kwargs):
+    """Workload 1: Gaussian-blur deconvolution with an L1 prior, by FISTA.
+
+    The sparse ground truth comes from ``numpy.random.default_rng(seed)``
+    (the same bits as the JAX package's factory).  Runs on ``device``
+    (default ``cuda``; raises when there is none).  ``solver_kwargs`` go to
+    :class:`PGD` (e.g. ``stop_rate``).  Returns ``(solver, fit kwargs,
+    extras)``; x0 = 0.
+    """
+    from pyxu_tpu_torch.operator.func import L1Norm, SquaredL2Norm
+    from pyxu_tpu_torch.opt.solver import PGD
+
+    dev = resolve_device(device)
+    shape = tuple(shape)
+    rng = np.random.default_rng(seed)
+    x_true = torch.from_numpy(
+        (rng.random(shape) < 0.01).astype(np.float32)).to(dev)
+    K = _blur_op(shape)
+    y = K.apply(x_true)
+    f = 0.5 * SquaredL2Norm(shape).asloss(y) * K
+    g = lam * L1Norm(shape)
+    slv = PGD(f=f, g=g, **solver_kwargs)
+    return (slv, dict(x0=torch.zeros(shape, dtype=torch.float32, device=dev)),
+            dict(x_true=x_true, y=y, K=K))
 
 
 def tv_deconvolution(shape=(2160, 3840), lam=0.01, seed=0, device=None,

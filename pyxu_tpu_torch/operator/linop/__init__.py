@@ -7,4 +7,18 @@ from pyxu_tpu_torch.operator.linop.base import (  # noqa: F401
 )
 from pyxu_tpu_torch.operator.linop.diff import Gradient, PartialDerivative  # noqa: F401
 from pyxu_tpu_torch.operator.linop.pad import Pad  # noqa: F401
-from pyxu_tpu_torch.operator.linop.stencil import Correlate, Stencil  # noqa: F401
+from pyxu_tpu_torch.operator.linop.stencil import (  # noqa: F401
+    Convolve,
+    Correlate,
+    Stencil,
+)
+from pyxu_tpu_torch.operator.linop.filter import (  # noqa: F401
+    DifferenceOfGaussians,
+    DoG,
+    Gaussian,
+    Laplace,
+    MovingAverage,
+    Prewitt,
+    Scharr,
+    Sobel,
+)

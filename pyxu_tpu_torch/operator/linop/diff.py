@@ -46,6 +46,22 @@ def _fd_coeffs(deriv: int, scheme: str = "forward", accuracy: int = 1):
     return offsets, coeffs
 
 
+def _gauss_deriv_kernel(deriv: int, sigma: float, truncate: float = 3.0):
+    """Offsets and taps of the order-``deriv`` Gaussian derivative, by the
+    Hermite recurrence p_{n+1} = p_n' - (x / sigma^2) p_n on
+    g(x) = exp(-x^2 / 2 sigma^2).  The taps are flipped: a Stencil
+    correlates, and the derivative is a convolution kernel."""
+    radius = max(int(truncate * sigma + 0.5), 1)
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    g = np.exp(-0.5 * (x / sigma) ** 2)
+    g /= g.sum()
+    p = np.polynomial.Polynomial([1.0])
+    dgauss = np.polynomial.Polynomial([0.0, -1.0 / sigma ** 2])
+    for _ in range(deriv):
+        p = p.deriv() + p * dgauss
+    return x.astype(np.int64), (p(x) * g)[::-1]
+
+
 def _per_axis(v, rank: int) -> tuple:
     if isinstance(v, (list, tuple)):
         if len(v) != rank:

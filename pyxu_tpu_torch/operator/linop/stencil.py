@@ -1,17 +1,27 @@
-"""Stencil / correlation operators (counterpart of ``pyxu_tpu/operator/linop/stencil.py``).
+"""Stencil / correlation / convolution operators (counterpart of
+``pyxu_tpu/operator/linop/stencil.py``).
 
 A Stencil is::
 
     apply   = valid-correlation( Pad_mode(x) )        # same-size output
     adjoint = Pad_mode^T( full-correlation(y, flip(kernel)) )
 
-Separable kernels are chained 1-D correlations.  Each correlation is a
-weighted sum of shifted slices: plain tensor code, outside any hand-written
-kernel, as the JAX package keeps it outside Pallas.  Taps live on the host
-as numpy arrays (the fused-TV matcher reads them there) and are applied as
-Python scalars, so they take the input's dtype.
+A 2-D separable Stencil (one 1-D kernel per axis) in ``constant`` or
+``symmetric`` mode with at most 32 taps per axis runs through
+:func:`pyxu_tpu_torch.ops.stencil.separable_correlate2d`: the hand-written
+CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.  The rule
+is applied once, at construction, and recorded in ``kernel_path``
+(``"kernel"`` or ``None``).  Every other separable Stencil (another rank,
+the wrap/reflect/edge modes) runs that plain version's per-axis
+correlation, :func:`~pyxu_tpu_torch.ops.stencil.fwd_axis` /
+:func:`~pyxu_tpu_torch.ops.stencil.adj_axis`, axis by axis; a full kernel
+is one N-D correlation written as a weighted sum of shifted slices of the
+padded input.  Taps live on the host as numpy arrays (the fused-TV matcher
+reads them there) and are applied as Python scalars, so they take the
+input's dtype.
 
 Lipschitz via Young's inequality: ``L <= L_pad * prod ||k_i||_1``.
+Closed-form trace in constant mode: ``tr = N * prod k_i[center_i]``.
 """
 
 from __future__ import annotations
@@ -21,9 +31,10 @@ import torch
 
 from pyxu_tpu_torch.abc.operator import SquareOp
 from pyxu_tpu_torch.operator.linop.pad import Pad
+from pyxu_tpu_torch.ops import stencil as _kern
 from pyxu_tpu_torch.utils.misc import as_canonical_shape
 
-__all__ = ["Stencil", "Correlate"]
+__all__ = ["Stencil", "Correlate", "Convolve"]
 
 
 def _host(k) -> np.ndarray:
@@ -32,10 +43,11 @@ def _host(k) -> np.ndarray:
     return np.asarray(k)
 
 
-def _corr(x: torch.Tensor, kernel: np.ndarray, padding, dim_rank: int):
-    """Correlation over the trailing ``dim_rank`` axes of ``x`` as
+def _corr(x: torch.Tensor, kernel: np.ndarray, padding):
+    """Correlation over the trailing ``kernel.ndim`` axes of ``x`` as
     ``sum_t k[t] * x[shifted slice]``; ``padding`` is per-axis (lo, hi)
     zero padding."""
+    dim_rank = kernel.ndim
     nb = x.ndim - dim_rank
     if any(p != (0, 0) for p in padding):
         flat = []
@@ -78,6 +90,23 @@ def _canonical_kernels(kernel, center, dim_rank: int):
     return [(k, center)]
 
 
+def _sep_taps(kernels, centers, mode: str):
+    """The kernel's :class:`SepTaps` when the Stencil is 2-D separable with
+    real floating taps and the kernel takes it, else None."""
+    if len(kernels) != 2 or any(k.ndim != 2 for k in kernels):
+        return None
+    k0, k1 = kernels
+    if k0.shape[1] != 1 or k1.shape[0] != 1:
+        return None
+    if not all(np.issubdtype(k.dtype, np.floating) for k in kernels):
+        return None
+    p = _kern.SepTaps(k0=tuple(float(v) for v in k0.ravel()),
+                      c0=int(centers[0][0]),
+                      k1=tuple(float(v) for v in k1.ravel()),
+                      c1=int(centers[1][1]), mode=mode)
+    return p if _kern.kernel_takes(p) else None
+
+
 class Stencil(SquareOp):
     """Correlation with boundary handling."""
 
@@ -85,6 +114,7 @@ class Stencil(SquareOp):
         dim_shape = as_canonical_shape(dim_shape)
         super().__init__(dim_shape)
         D = len(dim_shape)
+        mode = mode.lower()
         kc = _canonical_kernels(kernel, center, D)
         self._kernels = tuple(k for k, _ in kc)
         self._centers = tuple(c for _, c in kc)
@@ -101,20 +131,103 @@ class Stencil(SquareOp):
             l1 *= float(np.sum(np.abs(k), dtype=k.dtype))
         self._lipschitz = self._pad.lipschitz * l1
         self._name = f"Stencil[{mode}]"
+        self._taps = _sep_taps(self._kernels, self._centers, mode)
+        self.kernel_path = "kernel" if self._taps is not None else None
+        # separable: (1-D taps, centre, axis) per axis, for the plain path
+        self._axes = None if len(kc) == 1 else tuple(
+            (k.ravel(), c[ax], ax) for ax, (k, c) in enumerate(kc))
+
+    @property
+    def kernel(self):
+        return self._kernels if len(self._kernels) > 1 else self._kernels[0]
+
+    @property
+    def center(self):
+        return self._centers if len(self._centers) > 1 else self._centers[0]
+
+    def _axis_centers(self) -> tuple:
+        """Per-axis scalar center, collapsing the separable representation."""
+        if len(self._centers) == 1:
+            return self._centers[0]
+        return tuple(self._centers[ax][ax] for ax in range(self.dim_rank))
+
+    @property
+    def relative_indices(self) -> list:
+        """Relative kernel indices per dimension."""
+        ctr = self._axis_centers()
+        if len(self._kernels) == 1:
+            sizes = self._kernels[0].shape
+        else:
+            sizes = tuple(self._kernels[ax].shape[ax]
+                          for ax in range(self.dim_rank))
+        return [np.arange(s) - c for c, s in zip(ctr, sizes)]
+
+    def visualize(self) -> str:
+        """Stringified D-dimensional kernel with the center in parentheses."""
+        kernel = np.asarray(self._kernels[0])
+        for k in self._kernels[1:]:
+            kernel = kernel * np.asarray(k)
+        kernel = kernel.astype(str)
+        ctr = self._axis_centers()
+        kernel[ctr] = "(" + kernel[ctr] + ")"
+        return np.array2string(kernel).replace("'", "")
+
+    def configure_dispatcher(self, **kwargs):
+        """No-op (the reference tunes a CuPy dispatcher here); returns self
+        for call-chaining."""
+        return self
 
     def apply(self, arr):
-        x = self._pad.apply(arr)
-        for k in self._kernels:
-            x = _corr(x, k, ((0, 0),) * self.dim_rank, self.dim_rank)
-        return x
+        if self.kernel_path == "kernel":
+            return _kern.separable_correlate2d(arr.contiguous(), self._taps)
+        if self._axes is not None:
+            nb = arr.ndim - self.dim_rank
+            for k, c, ax in self._axes:
+                arr = _kern.fwd_axis(arr, k, c, nb + ax, self._mode)
+            return arr
+        return _corr(self._pad.apply(arr), self._kernels[0],
+                     ((0, 0),) * self.dim_rank)
 
     def adjoint(self, arr):
-        y = arr
-        for k in reversed(self._kernels):
-            kf = np.flip(k, axis=tuple(range(k.ndim)))
-            y = _corr(y, kf, tuple((s - 1, s - 1) for s in k.shape),
-                      self.dim_rank)
+        if self.kernel_path == "kernel":
+            return _kern.separable_correlate2d(arr.contiguous(), self._taps,
+                                               adjoint=True)
+        if self._axes is not None:
+            nb = arr.ndim - self.dim_rank
+            for k, c, ax in reversed(self._axes):
+                arr = _kern.adj_axis(arr, k, c, nb + ax, self._mode)
+            return arr
+        k = self._kernels[0]
+        y = _corr(arr, np.flip(k), tuple((s - 1, s - 1) for s in k.shape))
         return self._pad.adjoint(y)
+
+    def trace(self, method: str = "explicit", **kwargs):
+        if self._mode == "constant":
+            tap = 1.0
+            for k, c in zip(self._kernels, self._centers):
+                tap *= float(k[tuple(c)])
+            return tap * self.dim_size
+        return super().trace(method=method, **kwargs)
 
 
 Correlate = Stencil
+
+
+class Convolve(Stencil):
+    """True convolution: correlation with the flipped kernel and the
+    mirrored center."""
+
+    def __init__(self, dim_shape, kernel, center, mode: str = "constant"):
+        D = len(as_canonical_shape(dim_shape))
+        kc = _canonical_kernels(kernel, center, D)
+        flipped, centers = [], []
+        for k, c in kc:
+            flipped.append(np.flip(k, axis=tuple(range(k.ndim))))
+            centers.append(tuple(s - 1 - ci for s, ci in zip(k.shape, c)))
+        if len(flipped) == 1:
+            super().__init__(dim_shape, flipped[0], centers[0], mode=mode)
+        else:
+            super().__init__(dim_shape, [kf.ravel() for kf in flipped],
+                             [cf[ax] for ax, cf in enumerate(centers)],
+                             mode=mode)
+        self._name = f"Convolve[{mode}]"

@@ -34,16 +34,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 
-from pyxu_tpu_torch.operator.linop.pad import pad_axis, pad_axis_adjoint
+from pyxu_tpu_torch.ops._build import compile_and_load
+from pyxu_tpu_torch.ops.stencil import adj_axis, fwd_axis
 
 __all__ = [
     "TVParams",
@@ -61,29 +57,6 @@ _F32_TINY = float(np.finfo(np.float32).tiny)
 
 
 # ------------------------------------------------------------ plain version --
-
-def _fwd_axis(x, k, c, ax, mode):
-    """Stencil forward along one axis: pad(mode) -> valid correlation."""
-    L, n = len(k), x.shape[ax]
-    xp = pad_axis(x, ax, c, L - 1 - c, mode)
-    out = None
-    for t in range(L):
-        term = float(k[t]) * xp.narrow(ax, t, n)
-        out = term if out is None else out + term
-    return out
-
-
-def _adj_axis(r, k, c, ax, mode):
-    """Stencil adjoint along one axis: full correlation with the flipped
-    taps, then the Pad fold-back."""
-    L, n = len(k), r.shape[ax]
-    rp = pad_axis(r, ax, L - 1, L - 1, "constant")
-    out = None
-    for t in range(L):
-        term = float(k[L - 1 - t]) * rp.narrow(ax, t, n + L - 1)
-        out = term if out is None else out + term
-    return pad_axis_adjoint(out, ax, c, L - 1 - c, n, mode)
-
 
 def _fdiff(v, ax, mode):
     """Forward difference with boundary pad (Gradient semantics)."""
@@ -120,8 +93,8 @@ def tv_step_ref(x, z0, z1, b, k0, k1, c0, c1, *, cst, lam, tau, sigma, rho,
                 mode_k="symmetric", mode_d="symmetric"):
     """One Condat-Vu iteration of the TV family, full-frame, in the inputs'
     dtype; the counterpart of ``tv_step_xla``."""
-    Kx = _fwd_axis(_fwd_axis(x, k0, c0, 0, mode_k), k1, c1, 1, mode_k)
-    KtKx = _adj_axis(_adj_axis(Kx, k1, c1, 1, mode_k), k0, c0, 0, mode_k)
+    Kx = fwd_axis(fwd_axis(x, k0, c0, 0, mode_k), k1, c1, 1, mode_k)
+    KtKx = adj_axis(adj_axis(Kx, k1, c1, 1, mode_k), k0, c0, 0, mode_k)
     gf = cst * KtKx + b
     dtz = _fdiff_adjoint(z0, 0, mode_d) + _fdiff_adjoint(z1, 1, mode_d)
     xp = x - tau * (gf + dtz)
@@ -192,11 +165,6 @@ def tv_stepk_plain(x, z, b, p: TVParams, n_steps: int):
 
 # ------------------------------------------------------------ CUDA kernels --
 
-_CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-_SOURCE = _CSRC / "fused_tv.cu"
-_BUILD_DIR = _CSRC / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _TILES = {1: (32, 32), "k": (48, 64)}   # output tile (rows, cols) of a
                                         # block: TV_TR/TV_TC, TV_TR_K/TV_TC_K
 _MAX_TAPS = 32         # TV_MAXL
@@ -227,33 +195,10 @@ def window_fits(shape, p: TVParams, n_steps: int) -> bool:
             and smem_bytes(p, n_steps) <= _MAX_SMEM)
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the fused TV kernels cannot be "
-                           "built")
-    return path
-
-
 @functools.cache
 def _library():
     """Compile ``csrc/fused_tv.cu`` (once per source hash) and load it."""
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD_DIR / f"fused_tv_{digest[:16]}.so"
-    log = ""
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, log = compile_and_load("fused_tv.cu")
     common = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,

@@ -26,6 +26,11 @@ slv, fit, _ = tv_deconvolution((32, 32), device="cpu", stop_rate=5)
 slv.fit(stop_crit=MaxIter(10), max_iter=10, **fit)
 x = slv.solution()
 assert x.shape == (32, 32) and bool(x.isfinite().all())
+from pyxu_tpu_torch.models import lasso_deconvolution
+import pyxu_tpu_torch.math.linalg, pyxu_tpu_torch.operator.linop.filter
+slv, fit, _ = lasso_deconvolution((32, 32), device="cpu", stop_rate=5)
+slv.fit(stop_crit=MaxIter(10), max_iter=10, **fit)
+assert bool(slv.solution().isfinite().all())
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu")]
 assert not bad, bad
 print("ok")
@@ -55,17 +60,23 @@ def test_no_forbidden_imports(path):
 
 
 def test_no_device_and_no_gpu_raises(monkeypatch):
-    from pyxu_tpu_torch.models import tv_deconvolution
-    from pyxu_tpu_torch.opt.solver import CondatVu
+    from pyxu_tpu_torch.models import lasso_deconvolution, tv_deconvolution
+    from pyxu_tpu_torch.opt.solver import PGD, CondatVu
     from pyxu_tpu_torch.runtime import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tv_deconvolution((32, 32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        lasso_deconvolution((32, 32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     # a host array without a device does not go to the CPU either
     slv, fit, _ = tv_deconvolution((32, 32), device="cpu")
     assert isinstance(slv, CondatVu) and fit["x0"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        slv.fit(x0=fit["x0"].numpy(), max_iter=1)
+    slv, fit, _ = lasso_deconvolution((32, 32), device="cpu")
+    assert isinstance(slv, PGD) and fit["x0"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         slv.fit(x0=fit["x0"].numpy(), max_iter=1)
 

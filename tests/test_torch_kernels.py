@@ -13,9 +13,11 @@ anywhere.
 
 import numpy as np
 import pytest
+import scipy.ndimage as snd
 import torch
 
 from pyxu_tpu_torch.ops import fused_tv as ft
+from pyxu_tpu_torch.ops import stencil as st
 
 
 def _gauss(n=9, sig=2.0):
@@ -136,3 +138,140 @@ def test_kernel_counts_launches(cuda):
     assert (ft.tv_step.launches, ft.tv_stepk.launches) == (n0 + 1, nk + 1)
     with pytest.raises(ValueError):
         ft.tv_step(x.double(), z.double(), b.double(), p)   # no f64 kernel
+
+
+# ------------------------------------------------------- separable stencil --
+
+# shapes and tap counts of tests/test_pallas_ops.py, an image narrower than
+# a tile whose pad width equals its length, and off-centre centres
+ST_SHAPES = [(50, 70), (64, 128), (33, 257), (4, 9)]
+ST_TAPS = {"3x4": (3, 4, 1, 2), "9x9": (9, 9, 4, 4), "1x5": (1, 5, 0, 1),
+           "4x3off": (4, 3, 3, 0)}
+
+
+def _sep(taps, mode, seed=1):
+    lh, lw, ch, cw = ST_TAPS[taps]
+    rng = np.random.default_rng(seed)
+    return st.SepTaps(k0=tuple(rng.standard_normal(lh)), c0=ch,
+                      k1=tuple(rng.standard_normal(lw)), c1=cw, mode=mode)
+
+
+def _fits(shape, p):
+    return p.halo[0] <= shape[0] and p.halo[1] <= shape[1]
+
+
+def _scipy_apply(x, p):
+    """Reference apply: scipy's correlate1d per axis (numpy 'symmetric' is
+    scipy's 'reflect')."""
+    mode = "reflect" if p.mode == "symmetric" else "constant"
+    out = x
+    for ax, k, c in ((0, p.k0, p.c0), (1, p.k1, p.c1)):
+        out = snd.correlate1d(out, np.asarray(k), axis=ax, mode=mode,
+                              origin=c - len(k) // 2)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["constant", "symmetric"])
+@pytest.mark.parametrize("taps", sorted(ST_TAPS))
+def test_stencil_plain_matches_scipy_and_dot_test(taps, mode):
+    rng = np.random.default_rng(3)
+    for shape in ST_SHAPES:
+        p = _sep(taps, mode)
+        if not _fits(shape, p):
+            continue
+        x = rng.standard_normal(shape)
+        y = rng.standard_normal(shape)
+        xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+        got = st.separable_correlate2d_plain(xt, p).numpy()
+        np.testing.assert_allclose(got, _scipy_apply(x, p), rtol=0,
+                                   atol=1e-12)
+        adj = st.separable_correlate2d_plain(yt, p, adjoint=True).numpy()
+        assert abs(np.sum(got * y) - np.sum(x * adj)) < 1e-10 * x.size
+
+
+def test_stencil_cpu_wrapper_runs_the_plain_version():
+    p = _sep("9x9", "symmetric")
+    x = torch.from_numpy(np.random.default_rng(0).random((3, 40, 30),
+                                                         np.float32))
+    n0 = st.separable_correlate2d.launches
+    for adj in (False, True):
+        assert torch.equal(st.separable_correlate2d(x, p, adj),
+                           st.separable_correlate2d_plain(x, p, adj))
+    assert st.separable_correlate2d.launches == n0
+
+
+def test_stencil_wrapper_raises_off_cpu_without_kernel():
+    p = _sep("3x4", "constant")
+    n0 = st.separable_correlate2d.launches
+    with pytest.raises(ValueError):
+        st.separable_correlate2d(torch.zeros((16, 16), device="meta"), p)
+    assert st.separable_correlate2d.launches == n0
+
+
+def test_stencil_kernel_rule():
+    assert st.kernel_takes(_sep("9x9", "symmetric"))
+    assert not st.kernel_takes(st.SepTaps((1.0,) * 33, 0, (1.0,), 0))
+    assert not st.kernel_takes(st.SepTaps((1.0,), 0, (1.0,), 0, "wrap"))
+    assert _sep("4x3off", "constant").halo == (3, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("mode", ["constant", "symmetric"])
+@pytest.mark.parametrize("taps", sorted(ST_TAPS))
+@pytest.mark.parametrize("shape", ST_SHAPES, ids=str)
+def test_stencil_kernel_matches_plain(cuda, shape, taps, mode, adjoint,
+                                      dtype):
+    p = _sep(taps, mode)
+    assert _fits(shape, p)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(shape)).to(
+        getattr(torch, dtype)).to(cuda)
+    n0 = st.separable_correlate2d.launches
+    got = st.separable_correlate2d(x, p, adjoint)
+    want = st.separable_correlate2d_plain(x, p, adjoint)
+    torch.cuda.synchronize()
+    assert st.separable_correlate2d.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    # sums of up to (4+1) x (4+1) products per output in another order
+    tol = (1e-5 if dtype == "float32" else 1e-12) * float(x.abs().max()) \
+        * max(1.0, float(np.sum(np.abs(p.k0)) * np.sum(np.abs(p.k1))))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ST_SHAPES, ids=str)
+def test_stencil_kernel_reads_stay_in_the_image(cuda, shape):
+    """A build that counts window reads outside the image plane (and loads
+    zero there instead) counts none, in a batch whose images sit back to
+    back, and agrees with the plain version."""
+    lib = st._library(("ST_COUNT_STRAY_READS",))[0]
+    assert lib.stencil_stray_reads() == 0
+    x = torch.randn((3,) + shape, device=cuda, dtype=torch.float64)
+    for taps in sorted(ST_TAPS):
+        for mode in ("constant", "symmetric"):
+            p = _sep(taps, mode)
+            for adjoint in (False, True):
+                got = st._launch(lib, x, p, adjoint)
+                want = st.separable_correlate2d_plain(x, p, adjoint)
+                torch.cuda.synchronize()
+                assert lib.stencil_stray_reads() == 0, (taps, mode, adjoint)
+                assert float((got - want).abs().max()) <= 1e-12 * float(
+                    x.abs().max()) * float(np.sum(np.abs(p.k0))
+                                           * np.sum(np.abs(p.k1)))
+
+
+@pytest.mark.cuda
+def test_stencil_kernel_batch_and_errors(cuda):
+    p = _sep("9x9", "symmetric")
+    x = torch.randn((2, 3, 70, 90), device=cuda)
+    got = st.separable_correlate2d(x, p, adjoint=True)
+    want = st.separable_correlate2d_plain(x, p, adjoint=True)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(x.abs().max()) \
+        * float(np.sum(np.abs(p.k0)) * np.sum(np.abs(p.k1)))
+    with pytest.raises(ValueError):
+        st.separable_correlate2d(x.half(), p)            # no f16 kernel
+    with pytest.raises(ValueError):
+        st.separable_correlate2d(x[..., ::2], p)         # not contiguous
