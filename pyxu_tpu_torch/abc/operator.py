@@ -170,6 +170,19 @@ class Operator:
         from pyxu_tpu_torch.abc import arithmetic
         return arithmetic.argshift(self, shift)
 
+    # -- batch helper ------------------------------------------------------
+    def _map_batched(self, fn, arr, in_rank: int, out_shape: tuple):
+        """Apply ``fn`` over any leading batch axes of ``arr``: the batch is
+        flattened to one leading axis, ``fn`` maps ``(B, *core)`` to ``(B,
+        *out_shape)`` (the JAX package vmaps a single-sample ``fn``; here
+        ``fn`` takes the stacked batch, so a kernel sees it in one launch),
+        and the batch shape is restored.  An unbatched input goes through
+        as a batch of one."""
+        batch = tuple(arr.shape[: arr.ndim - in_rank])
+        core = tuple(arr.shape[arr.ndim - in_rank:])
+        out = fn(arr.reshape((_math.prod(batch),) + core))
+        return out.reshape(batch + tuple(out_shape))
+
 
 class Map(Operator):
     """Anything evaluable: f : R^dim_shape -> R^codim_shape."""
@@ -285,9 +298,17 @@ class ProxDiffFunc(ProxFunc, DiffFunc):
 class QuadraticFunc(ProxDiffFunc):
     r"""f(x) = (1/2) <x, Qx> + <c, x> + t with Q positive semi-definite.
 
-    ``prox`` (a conjugate-gradient solve in ``pyxu_tpu``) is not ported yet:
-    the TV path never calls it.
+    ``prox`` solves ``(I + tau Q) p = x - tau c`` by conjugate gradient
+    (:func:`pyxu_tpu_torch.math.cg.cg_solve`), started at ``x``.  Per
+    instance, ``_prox_rtol``, ``_prox_maxiter`` and ``_prox_precond`` (a
+    callable ``(r, tau) -> M^{-1} r``) override the defaults: rtol
+    ``max(100 eps(dtype), 1e-6)`` and ``min(max(2 dim_size, 20), 500)``
+    iterations.
     """
+
+    _prox_rtol = None
+    _prox_maxiter = None
+    _prox_precond = None
 
     @classmethod
     def properties(cls) -> frozenset:
@@ -311,6 +332,23 @@ class QuadraticFunc(ProxDiffFunc):
 
     def grad(self, arr):
         return self._Q.apply(arr) + self._c.grad(arr)
+
+    def prox(self, arr, tau):
+        from pyxu_tpu_torch.math.cg import cg_solve
+        tau = float(tau)
+        b = arr - tau * self._c.grad(arr)
+        pre = self._prox_precond
+        precond = None if pre is None else (lambda r: pre(r, tau))
+        # an rtol below working precision never fires and burns maxiter;
+        # floored at 1e-6 so that float64 does not tighten it 8 orders
+        rtol = self._prox_rtol
+        if rtol is None:
+            rtol = max(100.0 * torch.finfo(arr.dtype).eps, 1e-6)
+        maxiter = self._prox_maxiter
+        if maxiter is None:
+            maxiter = min(max(2 * self.dim_size, 20), 500)
+        return cg_solve(lambda p: p + tau * self._Q.apply(p), b, x0=arr,
+                        rtol=rtol, maxiter=maxiter, precond=precond)
 
     def estimate_diff_lipschitz(self, **kwargs) -> float:
         self._diff_lipschitz = self._Q.estimate_lipschitz(**kwargs)
@@ -376,6 +414,10 @@ class LinOp(DiffMap):
     def gram(self) -> "SelfAdjointOp":
         """A^T A."""
         return _GramOp(self)
+
+    def cogram(self) -> "SelfAdjointOp":
+        """A A^T."""
+        return _GramOp(self, cogram=True)
 
 
 class SquareOp(LinOp):
@@ -460,17 +502,20 @@ class LinFunc(ProxDiffFunc, LinOp):
 
 
 class _GramOp(SelfAdjointOp):
-    """A^T A: self-adjoint composition without wrapper chains (the
-    ``cogram`` A A^T of the reference is not ported yet)."""
+    """A^T A (or, with ``cogram``, A A^T): self-adjoint composition
+    without wrapper chains."""
 
-    def __init__(self, op: LinOp):
-        super().__init__(op.dim_shape)
+    def __init__(self, op: LinOp, cogram: bool = False):
+        super().__init__(op.codim_shape if cogram else op.dim_shape)
         self._op = op
+        self._cogram = bool(cogram)
         if op.lipschitz != _math.inf:
             self._lipschitz = op.lipschitz ** 2
-        self._name = f"Gram[{op.name}]"
+        self._name = f"{'CoGram' if cogram else 'Gram'}[{op.name}]"
 
     def apply(self, arr):
+        if self._cogram:
+            return self._op.apply(self._op.adjoint(arr))
         return self._op.adjoint(self._op.apply(arr))
 
     def estimate_lipschitz(self, **kwargs) -> float:

@@ -1,7 +1,8 @@
 """Carry a deconvolution problem across from its numpy data.
 
 :func:`tv_problem` builds the port's ``(f, h, K)`` and a :class:`CondatVu`,
-:func:`lasso_problem` its ``(f, g)`` and a :class:`PGD`, from the arrays
+:func:`lasso_problem` its ``(f, g)`` and a :class:`PGD`, :func:`ri_problem`
+the radio-interferometry ``(f, h, A)`` and an :class:`ADMM`, from the arrays
 that define the problem, so that the JAX package and this port can solve
 the same problem side by side.  Step sizes not given come
 from the closed-form Lipschitz constants (Stencil ``L_pad * prod ||k||_1``,
@@ -16,7 +17,7 @@ import torch
 
 from pyxu_tpu_torch.runtime import resolve_device
 
-__all__ = ["lasso_problem", "tv_problem"]
+__all__ = ["lasso_problem", "ri_problem", "tv_problem"]
 
 
 def _data(y, dtype, device):
@@ -87,3 +88,33 @@ def tv_problem(y, taps, centers, mode="symmetric", lam=0.01, *, x0=None,
     fit.update({k: float(v) for k, v in
                 (("tau", tau), ("sigma", sigma), ("rho", rho)) if v is not None})
     return f, h, K, slv, fit
+
+
+def ri_problem(uv, y, shape, lam=0.02, real_sky: bool = True, eps=1e-6, *,
+               x0=None, tau=0.05, dtype=None, device=None, **solver_kwargs):
+    """The problem ``min_x 0.5||A x - y||^2 + lam ||x||_1`` with ``A`` the
+    2-D type-2 NUFFT at the points ``uv``, solved by ADMM with an inner CG
+    of 3 iterations (the workload's settings).
+
+    ``uv``: (M, 2) numpy points; ``y``: (M, 2) numpy visibilities (real
+    view); ``shape``: the image; ``real_sky``: a real image and a
+    real-input NUFFT, else a ``(..., 2)`` complex view.  ``dtype`` defaults
+    to ``y``'s.  Returns ``(f, h, A, solver, fit_kwargs)`` where
+    ``fit_kwargs`` holds ``x0`` (default 0) and ``tau``.
+    """
+    from pyxu_tpu_torch.operator.func import L1Norm, SquaredL2Norm
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    from pyxu_tpu_torch.opt.solver import ADMM
+
+    dev, dt, yt = _data(y, dtype, device)
+    shape = tuple(shape)
+    A = NUFFT.type2(np.asarray(uv), shape, eps=eps, real=real_sky, dtype=dt,
+                    device=dev)
+    dom = shape if real_sky else shape + (2,)
+    f = 0.5 * SquaredL2Norm(tuple(yt.shape)).asloss(yt) * A
+    h = lam * L1Norm(dom)
+    slv = ADMM(f=f, h=h, solver_kwargs=dict(maxiter=3), **solver_kwargs)
+    fit = {"x0": torch.zeros(dom, dtype=dt, device=dev) if x0 is None
+           else torch.from_numpy(np.array(x0)).to(device=dev, dtype=dt),
+           "tau": float(tau)}
+    return f, h, A, slv, fit

@@ -1,4 +1,5 @@
 from pyxu_tpu_torch.models.workloads import (  # noqa: F401
     lasso_deconvolution,
+    radio_interferometry,
     tv_deconvolution,
 )

@@ -5,12 +5,14 @@ gradient beta), g and h proximable, K linear.  Step sizes are derived on
 the host at ``m_init`` from beta and ``||K||`` with the three tuning
 strategies of the reference.
 
-Ported: ``_PrimalDualSplitting`` and ``CondatVu`` (with its fusion pass).
-The other eleven solvers of the family are not ported yet.
+Ported: ``_PrimalDualSplitting``, ``CondatVu`` (with its fusion pass) and
+``ADMM`` (all three x-updates).  The other ten solvers of the family are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import math as _math
 
 import numpy as np
@@ -22,7 +24,7 @@ from pyxu_tpu_torch.opt.stop import RelError
 from pyxu_tpu_torch.runtime import resolve_device
 from pyxu_tpu_torch.utils.misc import asarray_astype
 
-__all__ = ["CondatVu", "CV"]
+__all__ = ["CondatVu", "CV", "ADMM"]
 
 
 class _PrimalDualSplitting(Solver):
@@ -220,3 +222,106 @@ class CondatVu(_PrimalDualSplitting):
 
 
 CV = CondatVu
+
+
+class ADMM(_PrimalDualSplitting):
+    r"""ADMM for ``min_x f(x) + h(K x)``.
+
+    K = None (classical prox-ADMM)::
+
+        x+ = prox_{tau f}(z - u)
+        z+ = prox_{tau h}(x+ + u)
+        u+ = u + x+ - z+
+
+    With K, the x-update is ``argmin_x f(x) + ||K x - (z - u)||^2 / (2 tau)``,
+    solved by a nested fixed-iteration CG when f is quadratic, else by a
+    fixed number of gradient steps whose step is set once, in ``m_init``.
+    ``solver_kwargs`` (``maxiter``, ``rtol``) tune the nested solve; with
+    K = None and a quadratic f they go to ``f.prox``'s CG on a private
+    shallow copy of f, so the caller's operator keeps its own settings.
+    """
+
+    def __init__(self, f=None, h=None, K=None, solver_kwargs=None, **kwargs):
+        if f is None:
+            from pyxu_tpu_torch.operator.linop.base import NullFunc
+            f = NullFunc(K.dim_shape if K is not None else h.dim_shape)
+        super().__init__(f=f, h=h, K=K, **kwargs)
+        self._dim_shape = f.dim_shape
+        self._solver_kwargs = dict(solver_kwargs or {})
+        if K is not None:
+            if not (f.has(Property.QUADRATIC)
+                    or f.has(Property.DIFFERENTIABLE)):
+                raise ValueError("with K, the x-update needs f quadratic "
+                                 "(CG) or differentiable (gradient steps)")
+        elif self._solver_kwargs and f.has(Property.QUADRATIC):
+            self._f = f = copy.copy(f)
+            if "maxiter" in self._solver_kwargs:
+                f._prox_maxiter = int(self._solver_kwargs["maxiter"])
+            if "rtol" in self._solver_kwargs:
+                f._prox_rtol = float(self._solver_kwargs["rtol"])
+
+    def m_init(self, x0, z0=None, u0=None, tau: float = None, device=None):
+        """``x0`` as a tensor runs on its device; a host array goes to
+        ``device`` (default ``cuda``).  ``tau`` defaults to 1."""
+        dev = resolve_device(device, like=x0)
+        if not isinstance(x0, torch.Tensor):
+            x0 = torch.from_numpy(np.ascontiguousarray(x0))
+        x0 = x0.to(dev)
+        self._tau = 1.0 if tau is None else float(tau)
+        needs_gd = (not self._f.has(Property.QUADRATIC)
+                    and not (self._K is None
+                             and self._f.has(Property.PROXIMABLE)))
+        if needs_gd and self._f.has(Property.DIFFERENTIABLE):
+            kw = dict(dtype=x0.dtype, device=dev)
+            beta = self._f.diff_lipschitz
+            if not _math.isfinite(beta):
+                beta = self._f.estimate_diff_lipschitz(**kw)
+            LK = 1.0
+            if self._K is not None:
+                LK = self._K.lipschitz
+                if not _math.isfinite(LK):
+                    LK = self._K.estimate_lipschitz(**kw)
+            self._gd_step = 1.0 / (max(float(beta), 1e-12)
+                                   + float(LK) ** 2 / self._tau)
+        Kx = self._Kf(x0)
+        z0 = Kx if z0 is None else asarray_astype(z0, x0.dtype, dev)
+        u0 = torch.zeros_like(z0) if u0 is None \
+            else asarray_astype(u0, x0.dtype, dev)
+        return {"x": x0, "z": z0, "u": u0}
+
+    def _x_update(self, x, v):
+        """argmin_x f(x) + ||K x - v||^2 / (2 tau)."""
+        tau = self._tau
+        if self._K is None and self._f.has(Property.PROXIMABLE):
+            # cold start at v = z - u, as the JAX package does (measured
+            # there: more accurate than warm-starting at the previous x)
+            return self._f.prox(v, tau)
+        if self._f.has(Property.QUADRATIC):
+            from pyxu_tpu_torch.math.cg import cg_solve
+            Q, c, _ = self._f._quad_spec()
+            # (Q + K^T K / tau) x = K^T v / tau - c
+            b = self._Kt(v) / tau - c.grad(torch.zeros_like(x))
+            return cg_solve(
+                lambda p: Q.apply(p) + self._Kt(self._Kf(p)) / tau, b, x0=x,
+                rtol=self._solver_kwargs.get("rtol", 1e-6),
+                maxiter=self._solver_kwargs.get("maxiter", 50),
+                core_ndim=len(self._dim_shape))
+        step = self._gd_step
+        for _ in range(self._solver_kwargs.get("maxiter", 20)):
+            x = x - step * (self._f.grad(x)
+                            + self._Kt(self._Kf(x) - v) / tau)
+        return x
+
+    def m_step(self, mst):
+        x, z, u = mst["x"], mst["z"], mst["u"]
+        xp = self._x_update(x, z - u)
+        Kx = self._Kf(xp)
+        zp = self._h.prox(Kx + u, self._tau)
+        return {"x": xp, "z": zp, "u": u + Kx - zp}
+
+    def default_stop_crit(self):
+        return RelError(eps=1e-4, var="x", rank=len(self._dim_shape))
+
+    def objective_func(self, mstate):
+        x = mstate["x"]
+        return self._f.apply(x) + self._h.apply(self._Kf(x))

@@ -3,10 +3,12 @@
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-__all__ = ["as_canonical_shape", "asarray_astype"]
+__all__ = ["as_canonical_shape", "asarray_astype", "next_fast_len"]
 
 
 def as_canonical_shape(shape) -> tuple:
@@ -28,3 +30,31 @@ def asarray_astype(arr, dtype, device=None) -> torch.Tensor:
                       dtype=dtype)
     host = torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
     return host.to(dtype=dtype).to(device if device is not None else "cpu")
+
+
+def next_fast_len(n: int) -> int:
+    """Smallest 5-smooth number >= n (the JAX package's rule, so that fine
+    grids and circulant sizes match it)."""
+    if n <= 1:
+        return 1
+    best = None
+    a_max = int(math.ceil(math.log2(n))) + 1
+    for a in range(a_max + 1):
+        pa = 2 ** a
+        if pa >= 8 * n:
+            break
+        b = 0
+        while True:
+            pb = pa * 3 ** b
+            if pb >= 8 * n:
+                break
+            c = 0
+            while True:
+                p = pb * 5 ** c
+                if p >= n:
+                    if best is None or p < best:
+                        best = p
+                    break
+                c += 1
+            b += 1
+    return best

@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +32,14 @@ import pyxu_tpu_torch.math.linalg, pyxu_tpu_torch.operator.linop.filter
 slv, fit, _ = lasso_deconvolution((32, 32), device="cpu", stop_rate=5)
 slv.fit(stop_crit=MaxIter(10), max_iter=10, **fit)
 assert bool(slv.solution().isfinite().all())
+from pyxu_tpu_torch.models import radio_interferometry
+import pyxu_tpu_torch.convert, pyxu_tpu_torch.math.cg, pyxu_tpu_torch.ops.nufft
+for real_sky in (True, False):
+    slv, fit, ex = radio_interferometry((24, 20), n_vis=300, device="cpu",
+                                        real_sky=real_sky, stop_rate=5)
+    slv.fit(stop_crit=MaxIter(10), max_iter=10, **fit)
+    assert bool(slv.solution().isfinite().all())
+    assert ex["A"].kernel_path == "kernel"
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu")]
 assert not bad, bad
 print("ok")
@@ -60,14 +69,23 @@ def test_no_forbidden_imports(path):
 
 
 def test_no_device_and_no_gpu_raises(monkeypatch):
-    from pyxu_tpu_torch.models import lasso_deconvolution, tv_deconvolution
-    from pyxu_tpu_torch.opt.solver import PGD, CondatVu
+    from pyxu_tpu_torch.models import (
+        lasso_deconvolution,
+        radio_interferometry,
+        tv_deconvolution,
+    )
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    from pyxu_tpu_torch.opt.solver import ADMM, PGD, CondatVu
     from pyxu_tpu_torch.runtime import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tv_deconvolution((32, 32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lasso_deconvolution((32, 32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        radio_interferometry((32, 32), n_vis=100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NUFFT.type2(np.zeros((10, 2)), (8, 8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     # a host array without a device does not go to the CPU either
@@ -79,6 +97,10 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
     assert isinstance(slv, PGD) and fit["x0"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         slv.fit(x0=fit["x0"].numpy(), max_iter=1)
+    slv, fit, _ = radio_interferometry((16, 16), n_vis=50, device="cpu")
+    assert isinstance(slv, ADMM) and fit["x0"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        slv.fit(x0=fit["x0"].numpy(), tau=0.05, max_iter=1)
 
 
 def test_tf32_off():

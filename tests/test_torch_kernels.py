@@ -275,3 +275,179 @@ def test_stencil_kernel_batch_and_errors(cuda):
         st.separable_correlate2d(x.half(), p)            # no f16 kernel
     with pytest.raises(ValueError):
         st.separable_correlate2d(x[..., ::2], p)         # not contiguous
+
+
+# ------------------------------------------------------------- 2-D NUFFT --
+
+from pyxu_tpu_torch.ops import nufft as nu  # noqa: E402
+
+NU_SETS = ["uniform", "gauss", "cluster", "edges", "onebin"]
+
+
+def _nu_points(kind, M, seed=0):
+    """(M, 2) points in [-pi, pi]: the three point sets of the RI path
+    (uniform, the workload's Gaussian uv, a clustered set), points at 0
+    and just below 2 pi, and a set inside one 32x32 bin (split into
+    subproblems)."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return rng.uniform(-np.pi, np.pi, (M, 2))
+    if kind == "gauss":
+        return rng.normal(0, np.pi / 3, (M, 2)).clip(-np.pi, np.pi)
+    if kind == "cluster":
+        return np.clip(rng.normal(0.3, 0.35, (M, 2)), -np.pi, np.pi)
+    if kind == "edges":
+        vals = np.array([0.0, -0.0, np.nextafter(2 * np.pi, 0), -1e-300,
+                         np.pi, -np.pi, np.nextafter(np.pi, 0), 1e-300])
+        return rng.choice(vals, (M, 2))
+    if kind == "onebin":
+        return 0.5 + 0.01 * rng.random((M, 2))
+    raise ValueError(kind)
+
+
+def _nu_plan(kind, M, nf, w, dtype, device="cpu", seed=0):
+    x = torch.remainder(torch.from_numpy(_nu_points(kind, M, seed)),
+                        2 * np.pi).to(device)
+    return nu.plan2(x, nf, w, 2.3 * w, dtype)
+
+
+def test_nufft_plan_covers_every_point_once():
+    for kind in NU_SETS:
+        p = _nu_plan(kind, 3000, (50, 45), 7, torch.float64)
+        assert sorted(p.perm.tolist()) == list(range(3000))
+        sub = p.sub.long()
+        assert int(sub[:, 2].sum()) == 3000
+        assert int(sub[:, 2].max()) <= nu.MAX_SUB and int(sub[:, 2].min()) > 0
+        # subproblems tile the sorted points in order, each inside one bin
+        assert sub[0, 1] == 0 and torch.equal(sub[1:, 1],
+                                              sub[:-1, 1] + sub[:-1, 2])
+        base = p.i0.long() + p.w // 2
+        assert int(base.min()) >= 0 and all(
+            int(base[a].max()) < p.nf[a] for a in range(2))
+        bins = (base[0] // nu.BIN) * p.nbins[1] + base[1] // nu.BIN
+        owner = torch.repeat_interleave(sub[:, 0], sub[:, 2])
+        assert torch.equal(bins, owner)
+        assert float(p.off.min()) > p.w / 2 - 1
+        assert float(p.off.max()) <= p.w / 2
+    p = _nu_plan("onebin", 3000, (50, 45), 7, torch.float64)
+    assert p.sub.shape[0] == 3
+
+
+@pytest.mark.parametrize("kind", NU_SETS)
+def test_nufft_plain_spread_interp_are_adjoint(kind):
+    p = _nu_plan(kind, 700, (40, 36), 7, torch.float64)
+    rng = np.random.default_rng(1)
+    c = torch.from_numpy(rng.standard_normal((2, 700, 2)))
+    g = torch.from_numpy(rng.standard_normal((2, 40, 36, 2)))
+    lhs = float(torch.sum(nu.nufft_spread2_plain(c, p) * g))
+    rhs = float(torch.sum(c * nu.nufft_interp2_plain(g, p)))
+    assert abs(lhs - rhs) <= 1e-12 * max(abs(lhs), 1.0)
+
+
+def test_nufft_plain_matches_a_loop():
+    """The plain spread against a point-by-point loop in numpy."""
+    p = _nu_plan("edges", 40, (20, 24), 5, torch.float64)
+    rng = np.random.default_rng(2)
+    c = rng.standard_normal((1, 40, 2))
+    got = nu.nufft_spread2_plain(torch.from_numpy(c), p).numpy()[0]
+    want = np.zeros((20, 24, 2))
+    perm, i0, off = p.perm.numpy(), p.i0.numpy(), p.off.numpy()
+    for j in range(40):
+        w1 = nu.es_weights(torch.tensor(off[0, j]), 5, p.beta).numpy()
+        w2 = nu.es_weights(torch.tensor(off[1, j]), 5, p.beta).numpy()
+        for a in range(5):
+            for b in range(5):
+                want[(i0[0, j] + a) % 20, (i0[1, j] + b) % 24] += \
+                    c[0, perm[j]] * w1[a] * w2[b]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-13)
+
+
+def test_nufft_wrappers_cpu_plain_and_meta_raise():
+    p = _nu_plan("uniform", 300, (40, 36), 7, torch.float32)
+    c = torch.randn((1, 300, 2))
+    g = torch.randn((1, 40, 36, 2))
+    n0 = (nu.nufft_spread2.launches, nu.nufft_interp2.launches)
+    assert torch.equal(nu.nufft_spread2(c, p), nu.nufft_spread2_plain(c, p))
+    assert torch.equal(nu.nufft_interp2(g, p), nu.nufft_interp2_plain(g, p))
+    with pytest.raises(ValueError):
+        nu.nufft_spread2(c.to("meta"), p)
+    with pytest.raises(ValueError):
+        nu.nufft_interp2(g.to("meta"), p)
+    assert (nu.nufft_spread2.launches, nu.nufft_interp2.launches) == n0
+    with pytest.raises(ValueError):
+        nu.plan2(torch.zeros((3, 2), dtype=torch.float64), (40, 36), 17, 1.0,
+                 torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("w", [2, 7, 16])
+@pytest.mark.parametrize("nf", [(64, 80), (50, 45), (20, 33)], ids=str)
+@pytest.mark.parametrize("kind", NU_SETS)
+def test_nufft_kernels_match_plain(cuda, kind, nf, w, dtype):
+    """Spread and interp on the card against their plain versions, over
+    the point sets, grid sides that are not multiples of the bin (and one
+    smaller than a subgrid), 2-16 taps, both dtypes and a batch of 2."""
+    dt = getattr(torch, dtype)
+    p = _nu_plan(kind, 2500, nf, w, dt, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    c = torch.randn((2, 2500, 2), generator=gen, device=cuda, dtype=dt)
+    g = torch.randn((2,) + nf + (2,), generator=gen, device=cuda, dtype=dt)
+    n0 = (nu.nufft_spread2.launches, nu.nufft_interp2.launches)
+    gk, gp = nu.nufft_spread2(c, p), nu.nufft_spread2_plain(c, p)
+    vk, vp = nu.nufft_interp2(g, p), nu.nufft_interp2_plain(g, p)
+    torch.cuda.synchronize()
+    assert (nu.nufft_spread2.launches, nu.nufft_interp2.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    # float atomics (spread) and the taps' summation order differ from the
+    # plain version's, run to run
+    rel = 1e-5 if dtype == "float32" else 1e-12
+    assert float((gk - gp).abs().max()) <= rel * float(gp.abs().max())
+    assert float((vk - vp).abs().max()) <= rel * float(vp.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("M", [0, 1, 3])
+def test_nufft_kernels_few_points(cuda, M, dtype):
+    dt = getattr(torch, dtype)
+    p = _nu_plan("edges", M, (64, 80), 7, dt, cuda)
+    c = torch.randn((1, M, 2), device=cuda, dtype=dt)
+    g = torch.randn((1, 64, 80, 2), device=cuda, dtype=dt)
+    gk, vk = nu.nufft_spread2(c, p), nu.nufft_interp2(g, p)
+    gp, vp = nu.nufft_spread2_plain(c, p), nu.nufft_interp2_plain(g, p)
+    torch.cuda.synchronize()
+    assert gk.shape == (1, 64, 80, 2) and vk.shape == (1, M, 2)
+    rel = 1e-5 if dtype == "float32" else 1e-12
+    assert float((gk - gp).abs().max()) <= rel * max(float(gp.abs().max()), 1)
+    if M == 0:
+        assert not gk.any()
+    else:
+        assert float((vk - vp).abs().max()) <= rel * float(vp.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("upsampfac", [2.0, 1.25])
+@pytest.mark.parametrize("real", [False, True])
+def test_nufft_operator_on_the_card(cuda, upsampfac, real):
+    """NUFFT type 2 and its gram on the card against the same operator on
+    the CPU (plain versions), float64.  cuFFT and the CPU's FFT round in
+    another order, and at upsampfac 1.25 the deconvolution amplifies that
+    by up to max 1/phihat: 1e-9 of the largest value."""
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    x = _nu_points("gauss", 4000)
+    ops = {dev: NUFFT.type2(x, (48, 40), eps=1e-8, real=real,
+                            upsampfac=upsampfac, dtype=torch.float64,
+                            device=dev) for dev in ("cpu", cuda)}
+    assert ops[cuda].kernel_path == "kernel"
+    f = torch.randn((3,) + ops["cpu"].dim_shape, dtype=torch.float64)
+    y = torch.randn((3, 4000, 2), dtype=torch.float64)
+    for name in ("apply", "adjoint"):
+        a = f if name == "apply" else y
+        want = getattr(ops["cpu"], name)(a)
+        got = getattr(ops[cuda], name)(a.to(cuda)).cpu()
+        assert float((got - want).abs().max()) <= 1e-9 * float(
+            want.abs().max())
+    want = ops["cpu"].gram().apply(f)
+    got = ops[cuda].gram().apply(f.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-9 * float(want.abs().max())
