@@ -7,7 +7,8 @@ Phases:
 
 1. device line (name and power limit from ``nvidia-smi``, torch and CUDA
    versions) and the build of the CUDA kernels from ``pyxu_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together before torch is
+   imported);
 2. kernels at 2160x3840: the fused-TV kernels with the workload's taps and
    step sizes (f32 state, and bf16 dual storage) and the separable stencil
    kernel with the workload's blur (apply and adjoint, constant and
@@ -39,7 +40,24 @@ Phases:
    ``ADMM.fit(stop_crit=MaxIter(150))`` in one segment, with the NUFFT
    kernels' launch counts of the whole path checked and an event-timed
    iteration breakdown; then the JAX bench's 256x256 / 20000-visibility
-   leg, 150 iterations on the card against the same solve on the CPU.
+   leg, 150 iterations on the card against the same solve on the CPU;
+8. the 3-D NUFFT kernels at full size (a 256^3 fine grid, 2^21 points,
+   w = 7) on three point sets (uniform, the MRI path's kooshball of 8192
+   radial spokes through the origin, a clustered set), and the spread of
+   ones that builds the MRI path's Toeplitz kernel (the kooshball on its
+   512^3 grid), each against its plain version in float32 and float64,
+   timed in float32; the ``kernels`` line gives each kernel's times as the
+   MRI path's launch-weighted mix of these cases;
+9. the 3-D NUFFT's type 1 and type 2 at N = 32^3, M = 4000 against a
+   direct NUDFT in float64 on the card;
+10. the MRI path: a 128^3 single-coil non-Cartesian reconstruction from a
+   kooshball (8192 spokes x 256 samples), ``A = NUFFT.type2(k, N)``,
+   ``CG(A.gram() + lam * IdentityOp).fit(b=A^H y)`` (set-up timed: the
+   plan, the Toeplitz build, y, A^H y), a warm fit, then 100 iterations in
+   one segment, with the 3-D NUFFT kernels' launch counts of the whole
+   path checked and an event-timed iteration breakdown; then the same
+   problem at 32^3 (512 spokes x 64 samples), 50 iterations on the card
+   against the same solve on the CPU.
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -53,11 +71,37 @@ import time
 T_START = time.perf_counter()
 
 import concurrent.futures  # noqa: E402
+import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+
+SOURCES = ("fused_tv.cu", "stencil.cu", "nufft.cu")
+
+
+def _start_builds():
+    """Start compiling the kernels' sources, one ``nvcc`` each, all at
+    once, before torch is imported: ``pyxu_tpu_torch/ops/_build.py`` is
+    loaded by its path, so that the package, and torch with it, is not
+    imported first.  Returns a future of ``(compiler output, seconds)`` per
+    source; the wrappers' ``build()`` then loads the libraries."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "pyxu_tpu_torch", "ops", "_build.py")
+    spec = importlib.util.spec_from_file_location("_chip_smoke_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def timed(src):
+        t0 = time.perf_counter()
+        return mod.compile_source(src)[1], time.perf_counter() - t0
+    pool = concurrent.futures.ThreadPoolExecutor(len(SOURCES))
+    return {src: pool.submit(timed, src) for src in SOURCES}
+
+
+if __name__ == "__main__":
+    BUILDS = _start_builds()
 
 import torch  # noqa: E402
 
@@ -71,6 +115,12 @@ RI_BENCH_SHAPE, RI_BENCH_VIS = (256, 256), 20_000   # bench.py's RI leg
 RI_ITERS = 150                                      # the bench's depth
 NU_GRID, NU_M, NU_W = (2048, 2048), 1_000_000, 7    # A's fine grid at 1024^2
 TOEP_GRID = (4096, 4096)        # the Toeplitz builds' fine grid at 1024^2
+MRI_N, MRI_SPOKES, MRI_READ = (128, 128, 128), 8192, 256   # 3-D kooshball
+MRI_ITERS = 100
+MRI_SMALL = ((32, 32, 32), 512, 64, 50)     # shape, spokes, samples, iters
+MRI_LAM = 1e-3          # Tikhonov weight over the gram's largest eigenvalue
+NU3_GRID = (256, 256, 256)      # A's fine grid at 128^3
+TOEP3_GRID = (512, 512, 512)    # the Toeplitz build's fine grid at 128^3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
@@ -326,16 +376,49 @@ def _nu_points(kind, M, rng):
     return np.clip(rng.normal(0.3, 0.35, (M, 2)), -np.pi, np.pi)
 
 
-def _nu_bound(M, n_grid, w, elem):
-    """Least time (ms) of one spread or interp: the plan's point data
-    (perm, two left taps, two offsets) and the values read once and the
-    grid written or read once, or M (w^2 complex-by-real multiply-adds and
-    their weight products, 5 operations a tap, plus 2w ES evaluations of 8
-    operations), whichever is larger."""
-    nbytes = M * (4 + 8 + 2 * elem + 2 * elem) + n_grid * 2 * elem
-    ops = M * (5 * w * w + 8 * 2 * w)
+def _nu_bound(M, n_grid, w, elem, d=2):
+    """Least time (ms) of one spread or interp in d dimensions: the plan's
+    point data (perm, d left taps, d offsets) and the values read once and
+    the grid written or read once, or M (w^d complex-by-real multiply-adds
+    and their weight products, 5 operations a tap, plus d w ES evaluations
+    of 8 operations), whichever is larger."""
+    nbytes = M * (4 + 4 * d + d * elem + 2 * elem) + n_grid * 2 * elem
+    ops = M * (5 * w ** d + 8 * d * w)
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def _nu_check(tag, kern, plain, a, p, dt):
+    """Hold one NUFFT kernel call against its plain version run in float64
+    on the same plan (``Plan.astype``; a float32 running sum of the
+    thousands of products in one cell drifts further than the kernel's
+    two-level sum).  Two limits, tol = 1e-5 at f32 and 1e-12 at f64: the
+    largest error <= tol max|plain|, and the relative l2 error <= tol,
+    which also holds the bulk of a grid whose peak stands far above its
+    typical cell (the kooshball's centre).  Prints the plain version's
+    peak, rms and 99th percentile of |value|; returns the largest error."""
+    want = plain(a.double(), p.astype(torch.float64))
+    diff = kern(a, p).double() - want
+    err = float(diff.abs().max())
+    rel2 = float(torch.linalg.vector_norm(diff)
+                 / torch.linalg.vector_norm(want))
+    del diff
+    mag = torch.linalg.vector_norm(want, dim=-1).flatten()
+    peak = float(want.abs().max())
+    rms = float(torch.sqrt(torch.mean(mag * mag)))
+    step = -(-mag.numel() // (1 << 24))        # torch.quantile's limit
+    p99 = float(torch.quantile(mag[::step], 0.99))
+    del mag, want
+    torch.cuda.synchronize()
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    ok = err <= tol * peak and rel2 <= tol
+    print(f"[kernel] {tag} max_abs_err={err:.3e} tol {tol:g}*max|plain| = "
+          f"{tol * peak:.3e}; rel_l2_err={rel2:.3e} tol {tol:g}; |plain| "
+          f"rms {rms:.4g}, p99 {p99:.4g}, max {peak:.4g} (float atomics and "
+          f"tap order): {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"{tag} disagrees with its plain version")
+    return err
 
 
 def nufft_kernel_phase(nu):
@@ -372,19 +455,9 @@ def nufft_kernel_phase(nu):
                 p = nu.plan2(x, grid, NU_W, beta, dt)
                 kern = getattr(nu, name)
                 plain = getattr(nu, name + "_plain")
-                want = plain(a, p)
-                err = float((kern(a, p) - want).abs().max())
-                torch.cuda.synchronize()
-                ref = float(want.abs().max())
-                tol = 1e-5 if dt == torch.float32 else 1e-12
-                ok = err <= tol * ref
                 tag = (f"{name}[{case}, {grid[0]}x{grid[1]}, "
                        f"{str(dt)[6:]}]")
-                print(f"[kernel] {tag} max_abs_err={err:.3e} tol "
-                      f"{tol:g}*max|plain| = {tol * ref:.3e} (float atomics "
-                      f"and tap order): {'ok' if ok else 'FAIL'}", flush=True)
-                if not ok:
-                    raise SystemExit(f"{tag} disagrees with its plain version")
+                err = _nu_check(tag, kern, plain, a, p, dt)
                 if dt == torch.float32:
                     ms = _time_ms(lambda: kern(a, p))
                     plain_ms = _time_ms(lambda: plain(a, p), reps=2, runs=3)
@@ -400,20 +473,17 @@ def nufft_kernel_phase(nu):
                                             bound_by=bound_by)
                 else:
                     recs[name][case]["max_abs_err_f64"] = err
-                del p, want
+                del p
             del c, g
     return recs
 
 
-def nudft_phase():
-    """NUFFT type 1 and type 2 (float32 plan, eps 1e-6) at N = 256x256,
-    M = 4000 against a direct NUDFT in float64 on the card: relative
-    l-inf <= 1e-5."""
-    import numpy as np
+def nudft_phase(N, x, rng):
+    """NUFFT type 1 and type 2 (float32 plan, eps 1e-6) at modes N for the
+    points x ((M, d) numpy) against a direct NUDFT in float64 on the card,
+    on values drawn from ``rng``: relative l-inf <= 1e-5."""
     from pyxu_tpu_torch.operator.linop.nufft import NUFFT
-    rng = np.random.default_rng(2)
-    N, M = (256, 256), 4000
-    x = _nu_points("gauss", M, rng)
+    M, d = x.shape
     c = rng.standard_normal((M, 2))
     f = rng.standard_normal(N + (2,))
     op = NUFFT.type1(x, N, isign=1, eps=1e-6, dtype=torch.float32,
@@ -423,7 +493,7 @@ def nudft_phase():
     xt = torch.from_numpy(x).cuda()
     k = [torch.arange(-(n // 2), (n + 1) // 2, device="cuda",
                       dtype=torch.float64) for n in N]
-    K = torch.stack(torch.meshgrid(*k, indexing="ij"), -1).reshape(-1, 2)
+    K = torch.stack(torch.meshgrid(*k, indexing="ij"), -1).reshape(-1, d)
     ct = torch.view_as_complex(torch.from_numpy(c).cuda())
     ft = torch.view_as_complex(torch.from_numpy(f).cuda()).reshape(-1)
     ref1 = torch.zeros(K.shape[0], dtype=torch.complex128, device="cuda")
@@ -436,8 +506,9 @@ def nudft_phase():
     for got, ref in ((got1, ref1.reshape(N)), (got2, ref2)):
         diff = torch.view_as_complex(got.contiguous()) - ref
         errs.append(float(diff.abs().max() / ref.abs().max()))
+    shape = "x".join(map(str, N))
     print(f"[nudft] type 1 rel l-inf {errs[0]:.3e}, type 2 {errs[1]:.3e} "
-          f"(N=256x256, M=4000, eps 1e-6; tol 1e-5)", flush=True)
+          f"(N={shape}, M={M}, eps 1e-6; tol 1e-5)", flush=True)
     assert max(errs) <= 1e-5, errs
 
 
@@ -518,11 +589,200 @@ def ri_phase(nu, radio_interferometry, MaxIter):
     return out
 
 
+def _koosh(n_spokes, n_read, rng):
+    """A 3-D radial (kooshball) acquisition: ``n_spokes`` spokes of
+    ``n_read`` samples each through the origin, along directions drawn
+    uniformly on the sphere; samples at pi (j - n_read/2) / (n_read/2), so
+    every spoke has one at k = 0.  (n_spokes n_read, 3) numpy points."""
+    import numpy as np
+    v = rng.standard_normal((n_spokes, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    kr = np.pi * (np.arange(n_read) - n_read // 2) / (n_read // 2)
+    return (kr[None, :, None] * v[:, None, :]).reshape(-1, 3)
+
+
+def _nu3_points(kind, M, rng):
+    """The 3-D kernel phase's point sets, in [-pi, pi]."""
+    import numpy as np
+    if kind == "uniform":
+        return rng.uniform(-np.pi, np.pi, (M, 3))
+    if kind == "koosh":
+        return _koosh(M // MRI_READ, MRI_READ, rng)
+    return np.clip(rng.normal(0.3, 0.35, (M, 3)), -np.pi, np.pi)
+
+
+def nufft3_kernel_phase(nu):
+    """The 3-D spread and interp against their plain versions on three
+    point sets at the MRI path's size (2^21 points on its 256^3 grid), and
+    the spread of ones of its Toeplitz build (the kooshball on 512^3);
+    f32 (timed) and f64 (checked).  Returns per-case records per
+    kernel."""
+    import numpy as np
+    from pyxu_tpu_torch.operator.linop.nufft import _es_params
+    from pyxu_tpu_torch.utils.misc import next_fast_len
+    w, beta = _es_params(1e-6)
+    assert NU3_GRID == tuple(next_fast_len(2 * n) for n in MRI_N)
+    assert TOEP3_GRID == tuple(next_fast_len(2 * (2 * n - 1))
+                               for n in MRI_N), TOEP3_GRID
+    M = MRI_SPOKES * MRI_READ
+    rng = np.random.default_rng(0)
+    recs = {"nufft_spread3": {}, "nufft_interp3": {}}
+    for kind in ("uniform", "koosh", "cluster"):
+        x = torch.remainder(torch.from_numpy(
+            _nu3_points(kind, M, rng)).to("cuda"), 2 * np.pi)
+        for dt in (torch.float32, torch.float64):
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            c = torch.randn((1, M, 2), generator=gen, device="cuda", dtype=dt)
+            g = torch.randn((1,) + NU3_GRID + (2,), generator=gen,
+                            device="cuda", dtype=dt)
+            cases = [(kind, NU3_GRID, "nufft_spread3", c),
+                     (kind, NU3_GRID, "nufft_interp3", g)]
+            if kind == "koosh":
+                ones = torch.zeros_like(c)
+                ones[..., 0] = 1.0
+                cases.append(("toeplitz", TOEP3_GRID, "nufft_spread3", ones))
+            for case, grid, name, a in cases:
+                p = nu.plan3(x, grid, w, beta, dt)
+                kern = getattr(nu, name)
+                plain = getattr(nu, name + "_plain")
+                tag = f"{name}[{case}, {grid[0]}^3, {str(dt)[6:]}]"
+                err = _nu_check(tag, kern, plain, a, p, dt)
+                if dt == torch.float32:
+                    ms = _time_ms(lambda: kern(a, p), reps=5)
+                    plain_ms = _time_ms(lambda: plain(a, p), reps=2, runs=3)
+                    bound_ms, bound_by = _nu_bound(M, grid[0] ** 3, w, 4, 3)
+                    print(f"[kernel] {tag} ms={ms:.4f} plain_ms="
+                          f"{plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                          f"({bound_by}); bins {p.bins}, {p.sub.shape[0]} "
+                          "subproblems", flush=True)
+                    recs[name][case] = dict(max_abs_err=err, ms=ms,
+                                            plain_ms=plain_ms,
+                                            bound_ms=bound_ms,
+                                            bound_by=bound_by)
+                else:
+                    recs[name][case]["max_abs_err_f64"] = err
+                del p
+            del c, g
+    return recs
+
+
+def _phantom3(N, rng, n_ell=10):
+    """A (*N, 2) float64 CPU image: the real part a sum of ``n_ell``
+    ellipsoids with random centres, semi-axes and values; imaginary part
+    0."""
+    ax = [torch.linspace(-1, 1, n, dtype=torch.float64) for n in N]
+    X = torch.stack(torch.meshgrid(*ax, indexing="ij"), -1)
+    img = torch.zeros(N, dtype=torch.float64)
+    for _ in range(n_ell):
+        c = torch.from_numpy(rng.uniform(-0.4, 0.4, 3))
+        a = torch.from_numpy(rng.uniform(0.1, 0.5, 3))
+        img += float(rng.uniform(-0.5, 1.0)) * (
+            (((X - c) / a) ** 2).sum(-1) <= 1)
+    return torch.stack([img, torch.zeros_like(img)], -1)
+
+
+def _mri_data(N, n_spokes, n_read, seed=0):
+    """The MRI problem's data from ``seed``: kooshball points, the true
+    image and 1% complex Gaussian noise (relative to the samples' rms, the
+    scale set by the phantom's mean)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pts = _koosh(n_spokes, n_read, rng)
+    xt = _phantom3(N, rng)
+    noise = rng.standard_normal((pts.shape[0], 2))
+    return pts, xt, noise
+
+
+def _mri_problem(pts, N, xt, noise, device):
+    """The 3-D Tikhonov reconstruction through the public API, float32:
+    ``A = NUFFT.type2``, ``Q = A.gram() + lam * IdentityOp``, ``y = A x +
+    noise``, ``b = A^H y``.  Returns ``(A, G, Q, b)``."""
+    from pyxu_tpu_torch.operator.linop import IdentityOp
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    A = NUFFT.type2(pts, N, eps=1e-6, dtype=torch.float32, device=device)
+    G = A.gram()
+    Q = G + MRI_LAM * G.lipschitz * IdentityOp(G.dim_shape)
+    y = A.apply(xt.to(device=device, dtype=torch.float32))
+    scale = 0.01 * torch.sqrt(torch.mean(y * y))
+    y = y + scale * torch.from_numpy(noise).to(device=device,
+                                               dtype=torch.float32)
+    return A, G, Q, A.adjoint(y)
+
+
+def mri_phase(nu, MaxIter):
+    """The 128^3 kooshball reconstruction by CG: set-up, a warm fit and a
+    timed 100-iteration fit with the 3-D NUFFT kernels' launches over the
+    whole path, an event-timed iteration breakdown; then the 32^3 problem
+    on the card against the CPU.  Returns the rates and launches."""
+    from pyxu_tpu_torch.opt.solver import CG
+    pts, xt, noise = _mri_data(MRI_N, MRI_SPOKES, MRI_READ)
+    torch.cuda.synchronize()
+    _reset([nu.nufft_spread3, nu.nufft_interp3])
+    t0 = time.perf_counter()
+    A, G, Q, b = _mri_problem(pts, MRI_N, xt, noise, "cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    assert A.kernel_path == "kernel", A.kernel_path
+    slv = CG(Q, stop_rate=MRI_ITERS)
+    slv.fit(b=b, stop_crit=MaxIter(MRI_ITERS), max_iter=MRI_ITERS)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slv.fit(b=b, stop_crit=MaxIter(MRI_ITERS), max_iter=MRI_ITERS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"nufft_spread3": nu.nufft_spread3.launches,
+                "nufft_interp3": nu.nufft_interp3.launches}
+    # spread: the Toeplitz build of A.gram() and A^H y; interp: y = A x.
+    # The iterations run FFTs only
+    want = {"nufft_spread3": 2, "nufft_interp3": 1}
+    assert launches == want, (launches, want)
+    xs = slv.solution()
+    assert xs.shape == MRI_N + (2,) and bool(torch.isfinite(xs).all())
+    res0 = float(torch.sqrt(torch.sum(b * b)))
+    res = float(slv.objective_func(slv._mstate))
+    assert res < 1e-2 * res0, (res, res0)
+    xt = xt.to("cuda")
+    rel = float(torch.linalg.vector_norm(xs - xt)
+                / torch.linalg.vector_norm(xt))
+    rate = MRI_ITERS / dt
+    print(f"[mri] {MRI_N[0]}^3 kooshball, {MRI_SPOKES} spokes x {MRI_READ} "
+          f"samples: set-up {setup:.4f} s; {MRI_ITERS} iterations in "
+          f"{dt:.4f} s: {rate:.2f} it/s; launches {launches} (expected "
+          f"{want}, none in the iterations); residual {res0:.6e} -> "
+          f"{res:.6e}; relative error to the phantom {rel:.4f}", flush=True)
+    state = slv._mstate
+    with torch.no_grad():
+        dev_ms = _time_ms(lambda: slv.m_step(state), reps=10)
+        gram_ms = _time_ms(lambda: G.apply(state["p"]))
+    wall_ms = 1e3 * dt / MRI_ITERS
+    print(f"[breakdown] mri {MRI_N[0]}^3: per iteration device {dev_ms:.4f}"
+          f" ms, Toeplitz gram {gram_ms:.4f} ms ({gram_ms / dev_ms:.1%}), "
+          f"other {dev_ms - gram_ms:.4f} ms; host {wall_ms:.4f} ms, device "
+          f"idle {1 - dev_ms / wall_ms:.1%}", flush=True)
+    del slv, A, G, Q, b, xs, xt
+    N, n_spokes, n_read, iters = MRI_SMALL
+    pts, xt, noise = _mri_data(N, n_spokes, n_read)
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        _, _, Q, b = _mri_problem(pts, N, xt, noise, dev)
+        s = CG(Q, stop_rate=iters)
+        s.fit(b=b, stop_crit=MaxIter(iters), max_iter=iters)
+        sols[dev] = s.solution().cpu()
+    diff = float((sols["cuda"] - sols["cpu"]).abs().max())
+    print(f"[mri] {iters} iterations at {N[0]}^3 ({n_spokes} spokes x "
+          f"{n_read} samples), card vs CPU: max_abs_diff={diff:.3e} "
+          "(atol 2e-4)", flush=True)
+    assert diff <= 2e-4, diff
+    return dict(rate=rate, setup_s=setup, launches=launches, dev_ms=dev_ms,
+                gram_ms=gram_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
     from pyxu_tpu_torch.models import (
         lasso_deconvolution,
         radio_interferometry,
@@ -533,28 +793,21 @@ def main() -> int:
     from pyxu_tpu_torch.ops import stencil as st
     from pyxu_tpu_torch.opt.stop import MaxIter
 
-    def timed_build(mod):
-        t0 = time.perf_counter()
-        return mod.build(), time.perf_counter() - t0
-
-    # the builds run while the device is queried
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        builds = {src: pool.submit(timed_build, mod) for src, mod in
-                  (("fused_tv.cu", ft), ("stencil.cu", st), ("nufft.cu", nu))}
-        smi = _smi()
-        name = torch.cuda.get_device_name(0)
-        print(f"[device] {smi} | torch {torch.__version__} CUDA "
-              f"{torch.version.cuda}", flush=True)
-        _mark("imports and device query")
-        builds = {src: f.result() for src, f in builds.items()}
-    for src, (log, sec) in builds.items():
+    # the builds started before torch was imported run on while the
+    # device is queried
+    smi = _smi()
+    name = torch.cuda.get_device_name(0)
+    print(f"[device] {smi} | torch {torch.__version__} CUDA "
+          f"{torch.version.cuda}", flush=True)
+    _mark("imports and device query")
+    for src, fut in BUILDS.items():
+        log, sec = fut.result()
         print(f"[build] {src} built in {sec:.2f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[build] {line.strip()}", flush=True)
-    print(f"[build] all sources in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    for mod in (ft, st, nu):
+        mod.build()                     # loads the built library
     _mark("build")
 
     # ---- phase 2: kernels vs plain at the workload's shape -------------
@@ -632,10 +885,20 @@ def main() -> int:
     # ---- phases 5-7: the NUFFT kernels, the NUDFT check, the RI path ----
     nu_recs = nufft_kernel_phase(nu)
     _mark("NUFFT kernel phase")
-    nudft_phase()
+    rng = np.random.default_rng(2)
+    nudft_phase((256, 256), _nu_points("gauss", 4000, rng), rng)
     _mark("NUDFT check")
     ri = ri_phase(nu, radio_interferometry, MaxIter)
     _mark("RI path")
+
+    # ---- phases 8-10: the 3-D NUFFT kernels, NUDFT check, the MRI path --
+    nu3_recs = nufft3_kernel_phase(nu)
+    _mark("3-D NUFFT kernel phase")
+    rng = np.random.default_rng(3)
+    nudft_phase((32, 32, 32), rng.uniform(-np.pi, np.pi, (4000, 3)), rng)
+    _mark("3-D NUDFT check")
+    mri = mri_phase(nu, MaxIter)
+    _mark("MRI path")
 
     kernels = []
     for kname, replaces, n_steps in (
@@ -669,16 +932,30 @@ def main() -> int:
                      for k, v in st_recs.items()},
     })
     # the RI 1024^2 path spreads twice on the Toeplitz grid and once (A^H y)
-    # on A's; it interpolates once (y) on A's grid
+    # on A's; it interpolates once (y) on A's grid.  The MRI 128^3 path
+    # spreads once on the Toeplitz grid and once (A^H y) on A's; it
+    # interpolates once (y) on A's grid
     nu_mix = {"nufft_spread2": {"toeplitz": 2, "gauss": 1},
-              "nufft_interp2": {"gauss": 1}}
-    for kname, replaces in (
+              "nufft_interp2": {"gauss": 1},
+              "nufft_spread3": {"toeplitz": 1, "koosh": 1},
+              "nufft_interp3": {"koosh": 1}}
+    for kname, replaces, path, recs_k in (
             ("nufft_spread2", "pyxu_tpu/ops/pallas_nufft.py:126 (slab_spread)"
-             ", :711 (strip_spread2), :842 (ragged_spread2)"),
+             ", :711 (strip_spread2), :842 (ragged_spread2)", ri[RI_SHAPE],
+             nu_recs),
             ("nufft_interp2", "pyxu_tpu/ops/pallas_nufft.py:193 (slab_interp)"
-             ", :778 (strip_interp2), :897 (ragged_interp2)")):
-        rs, mix = nu_recs[kname], nu_mix[kname]
-        assert sum(mix.values()) == ri[RI_SHAPE]["launches"][kname], mix
+             ", :778 (strip_interp2), :897 (ragged_interp2)", ri[RI_SHAPE],
+             nu_recs),
+            ("nufft_spread3", "pyxu_tpu/ops/pallas_nufft.py:272 "
+             "(slab_spread3), :407 (pencil_spread3), :563 (strip_spread3), "
+             ":961 (ragged_spread3), :1097 (ragged_pencil_spread3)", mri,
+             nu3_recs),
+            ("nufft_interp3", "pyxu_tpu/ops/pallas_nufft.py:325 "
+             "(slab_interp3), :474 (pencil_interp3), :625 (strip_interp3), "
+             ":1017 (ragged_interp3), :1159 (ragged_pencil_interp3)", mri,
+             nu3_recs)):
+        rs, mix = recs_k[kname], nu_mix[kname]
+        assert sum(mix.values()) == path["launches"][kname], mix
         top = max(mix, key=mix.get)
 
         def mixed(f):
@@ -687,7 +964,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "pyxu_tpu_torch/csrc/nufft.cu", "replaces": replaces,
-            "launches": ri[RI_SHAPE]["launches"][kname],
+            "launches": path["launches"][kname],
             "max_abs_err": max(v["max_abs_err"] for v in rs.values()),
             "ms": mixed("ms"), "plain_ms": mixed("plain_ms"),
             "bound_ms": mixed("bound_ms"), "bound_by": rs[top]["bound_by"],
@@ -703,7 +980,9 @@ def main() -> int:
                       "lasso_256_it_per_s": lasso_rates[BENCH_SHAPE],
                       "ri_1024_it_per_s": ri[RI_SHAPE]["rate"],
                       "ri_256_it_per_s": ri[RI_BENCH_SHAPE]["rate"],
-                      "ri_1024_setup_s": ri[RI_SHAPE]["setup_s"]}),
+                      "ri_1024_setup_s": ri[RI_SHAPE]["setup_s"],
+                      "mri3d_128_it_per_s": mri["rate"],
+                      "mri3d_128_setup_s": mri["setup_s"]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

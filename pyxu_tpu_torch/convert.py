@@ -2,9 +2,10 @@
 
 :func:`tv_problem` builds the port's ``(f, h, K)`` and a :class:`CondatVu`,
 :func:`lasso_problem` its ``(f, g)`` and a :class:`PGD`, :func:`ri_problem`
-the radio-interferometry ``(f, h, A)`` and an :class:`ADMM`, from the arrays
-that define the problem, so that the JAX package and this port can solve
-the same problem side by side.  Step sizes not given come
+the radio-interferometry ``(f, h, A)`` and an :class:`ADMM`,
+:func:`nufft3_problem` a 3-D Tikhonov least-squares :class:`CG`, from the
+arrays that define the problem, so that the JAX package and this port can
+solve the same problem side by side.  Step sizes not given come
 from the closed-form Lipschitz constants (Stencil ``L_pad * prod ||k||_1``,
 the gradient's root-sum-square, the Gram's ``L**2``), exactly as the JAX
 package derives them.
@@ -17,7 +18,7 @@ import torch
 
 from pyxu_tpu_torch.runtime import resolve_device
 
-__all__ = ["lasso_problem", "ri_problem", "tv_problem"]
+__all__ = ["lasso_problem", "nufft3_problem", "ri_problem", "tv_problem"]
 
 
 def _data(y, dtype, device):
@@ -118,3 +119,27 @@ def ri_problem(uv, y, shape, lam=0.02, real_sky: bool = True, eps=1e-6, *,
            else torch.from_numpy(np.array(x0)).to(device=dev, dtype=dt),
            "tau": float(tau)}
     return f, h, A, slv, fit
+
+
+def nufft3_problem(points, y, N, lam, eps=1e-6, *, dtype=None, device=None,
+                   **solver_kwargs):
+    """The problem ``min_x ||A x - y||^2 + lam ||x||^2`` with ``A`` the 3-D
+    type-2 NUFFT at ``points``, as its normal equations ``(A^H A + lam I) x
+    = A^H y`` solved by CG: ``A.gram() + lam * IdentityOp`` with the
+    Toeplitz gram, the composition a 3-D user writes.
+
+    ``points``: (M, 3) numpy k-space points; ``y``: (M, 2) numpy samples
+    (real view); ``N``: the image, 3 sides.  ``dtype`` defaults to ``y``'s.
+    Returns ``(solver, fit_kwargs)`` where ``fit_kwargs`` holds ``b =
+    A^H y``.
+    """
+    from pyxu_tpu_torch.operator.linop import IdentityOp
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    from pyxu_tpu_torch.opt.solver import CG
+
+    dev, dt, yt = _data(y, dtype, device)
+    A = NUFFT.type2(np.asarray(points), tuple(N), eps=eps, dtype=dt,
+                    device=dev)
+    G = A.gram()
+    Q = G + lam * IdentityOp(G.dim_shape)
+    return CG(Q, **solver_kwargs), {"b": A.adjoint(yt)}

@@ -1,4 +1,4 @@
-r"""Non-uniform FFT, types 1 and 2 in d = 2 (counterpart of
+r"""Non-uniform FFT, types 1 and 2 in d = 2 and d = 3 (counterpart of
 ``pyxu_tpu/operator/linop/nufft.py``).
 
 The FINUFFT algorithm (Barnett, Magland, af Klinteberg) as the JAX package
@@ -15,7 +15,7 @@ writes it:
 
 Spread and interp run through :mod:`pyxu_tpu_torch.ops.nufft`: the
 hand-written CUDA kernels on a CUDA tensor, their plain versions on a CPU
-tensor.  The decision is static (d = 2, a float32/float64 plan) and is
+tensor.  The decision is static (d = 2 or 3, a float32/float64 plan) and is
 recorded on the operator as ``kernel_path``.  The FFTs are ``torch.fft``.
 
 The JAX package's global x64 switch becomes the ``dtype`` given at plan
@@ -29,10 +29,9 @@ FFTs per apply and no spread or interp.  It is what ``A.gram()`` returns,
 and what the rule engine builds a ``QuadraticFunc`` over for
 ``0.5 * SquaredL2Norm().asloss(y) * A``.
 
-Not ported yet (ROADMAP Queue 1, item 8; their TPU kernels are rows 6-11
-and 16-19 of Queue 2): d = 1 and d = 3, type 3 and its chunked plan, and
-the Toeplitz options ``kernel_shift``, ``weights``, ``_chan_lam`` and
-``_circulant_precond``.
+Not ported yet (ROADMAP Queue 1, item 8): d = 1, type 3 and its chunked
+plan, and the Toeplitz options ``kernel_shift``, ``weights``,
+``_chan_lam`` and ``_circulant_precond``.
 """
 
 from __future__ import annotations
@@ -54,8 +53,7 @@ from pyxu_tpu_torch.utils.misc import next_fast_len
 
 __all__ = ["NUFFT", "ES_kernel", "nudft1", "nudft2"]
 
-_QUEUE = ("is not ported yet: ROADMAP.md Queue 1 item 8 and Queue 2 "
-          "(its TPU kernels wait for a later slice)")
+_QUEUE = "is not ported yet: ROADMAP.md Queue 1 item 8"
 
 
 # ----------------------------------------------------------- ES kernel -----
@@ -144,7 +142,7 @@ class _NUFFT12(LinOp):
             int(n) for n in N)
         if len(N) != d:
             raise ValueError(f"N = {N} does not match the points' d = {d}")
-        if d != 2:
+        if d not in (2, 3):
             raise NotImplementedError(f"the d = {d} NUFFT {_QUEUE}")
         if upsampfac not in (1.25, 2.0):
             raise ValueError(f"upsampfac must be 1.25 or 2.0, got {upsampfac}")
@@ -174,7 +172,10 @@ class _NUFFT12(LinOp):
             shape[ax] = N[ax]
             ph = ph * f.reshape(shape)
         self._phihat = torch.from_numpy(1.0 / ph).to(device=dev, dtype=dtype)
-        self._plan = _kern.plan2(xh, self._nf, w, beta, dtype)
+        plan = _kern.plan2 if d == 2 else _kern.plan3
+        self._plan = plan(xh, self._nf, w, beta, dtype)
+        self._spread = _kern.nufft_spread2 if d == 2 else _kern.nufft_spread3
+        self._interp = _kern.nufft_interp2 if d == 2 else _kern.nufft_interp3
         self.kernel_path = "kernel"
         super().__init__((M,) if real_in else (M, 2), N + (2,))
         self._lipschitz = float(np.sqrt(np.prod(N) * M))
@@ -231,13 +232,13 @@ class _NUFFT12(LinOp):
 
     def _t1(self, c):
         """Strengths (B, M, 2) -> modes (B, *N) complex."""
-        g = _kern.nufft_spread2(c.contiguous(), self._plan)
+        g = self._spread(c.contiguous(), self._plan)
         return self._grid_to_modes(view_as_complex(g))
 
     def _t2(self, f):
         """Modes (B, *N) complex -> values (B, M, 2), isign -s."""
         g = view_as_real(self._modes_to_grid(f)).contiguous()
-        return _kern.nufft_interp2(g, self._plan)
+        return self._interp(g, self._plan)
 
     # -- LinOp interface (real views) ----------------------------------------
     def apply(self, arr):
@@ -318,7 +319,9 @@ class _NUFFTToeplitz(SelfAdjointOp):
     kernel's (real) spectrum and crops the inverse FFT.  ``T`` is built
     once, at construction, by one type-1 NUFFT of ones on the ``(2N-1)``
     mode grid (one spread), at the parent's eps for a float32 plan and at
-    ``min(eps, 1e-9)`` for a float64 one.
+    ``min(eps, 1e-9)`` for a float64 one; in 3-D at upsampfac 1.25 where
+    that eps allows it (``>= 5e-5``), which makes the build's fine grid
+    2.5N per axis instead of 4N, else at 2.
 
     ``real_in``: the operator acts on real images with ``Re(T)``, whose
     spectrum is the even-symmetrised half spectrum used by the rfft apply.
@@ -337,8 +340,11 @@ class _NUFFTToeplitz(SelfAdjointOp):
         self._P = tuple(next_fast_len(2 * n - 1) for n in N)
         super().__init__(N if real_in else N + (2,))
         eps_T = min(eps, 1e-9) if dtype == torch.float64 else eps
+        upsampfac = 1.25 if (d == 3 and eps_T >= 5e-5) else 2.0
         t1 = _NUFFT12(xh, tuple(2 * n - 1 for n in N), isign=self._isign,
-                      eps=eps_T, dtype=dtype, device=xh.device)
+                      eps=eps_T, upsampfac=upsampfac, dtype=dtype,
+                      device=xh.device)
+        self._build_params = t1.params()
         ones = torch.zeros((M, 2), dtype=dtype, device=xh.device)
         ones[:, 0] = 1.0
         T = view_as_complex(t1.apply(ones))             # (*(2N-1)) complex
@@ -404,7 +410,8 @@ class _NUFFTToeplitz(SelfAdjointOp):
 # ----------------------------------------------------------- public API ----
 
 class NUFFT:
-    """Factory namespace: ``NUFFT.type1`` and ``NUFFT.type2`` for d = 2.
+    """Factory namespace: ``NUFFT.type1`` and ``NUFFT.type2`` for d = 2
+    and d = 3.
 
     ``dtype`` (default: the precision policy's) and ``device`` (default:
     the points' if they are a tensor, else ``cuda``) are fixed at plan

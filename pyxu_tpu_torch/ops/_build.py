@@ -15,7 +15,7 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["compile_and_load"]
+__all__ = ["compile_source", "compile_and_load"]
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = _CSRC / "_build"
@@ -32,12 +32,14 @@ def _nvcc() -> str:
     return path
 
 
-def compile_and_load(source: str, defines: tuple = ()):
+def compile_source(source: str, defines: tuple = ()):
     """Compile ``csrc/<source>`` (once per source hash and ``defines``, the
-    macros passed as ``-D``) and load it.
+    macros passed as ``-D``).
 
-    Returns ``(ctypes.CDLL, compiler output)``; the output is empty when the
-    library was already built.  A failed build raises with nvcc's output.
+    Returns ``(path of the library, compiler output)``; the output is empty
+    when the library was already built.  A failed build raises with nvcc's
+    output.  This module imports no torch, so a script may load it by its
+    path and start the builds before it imports torch.
     """
     path = _CSRC / source
     src = path.read_bytes()
@@ -55,4 +57,11 @@ def compile_and_load(source: str, defines: tuple = ()):
             raise RuntimeError(f"nvcc failed on {source} ({res.returncode}):"
                                f"\n{log}")
         os.replace(tmp, so)
+    return so, log
+
+
+def compile_and_load(source: str, defines: tuple = ()):
+    """:func:`compile_source`, then load the library: returns
+    ``(ctypes.CDLL, compiler output)``."""
+    so, log = compile_source(source, defines)
     return ctypes.CDLL(str(so)), log

@@ -75,7 +75,8 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
         tv_deconvolution,
     )
     from pyxu_tpu_torch.operator.linop.nufft import NUFFT
-    from pyxu_tpu_torch.opt.solver import ADMM, PGD, CondatVu
+    from pyxu_tpu_torch.convert import nufft3_problem
+    from pyxu_tpu_torch.opt.solver import ADMM, CG, PGD, CondatVu
     from pyxu_tpu_torch.runtime import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -101,6 +102,11 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
     assert isinstance(slv, ADMM) and fit["x0"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         slv.fit(x0=fit["x0"].numpy(), tau=0.05, max_iter=1)
+    slv, fit = nufft3_problem(np.zeros((10, 3)), np.zeros((10, 2)),
+                              (4, 4, 4), 0.5, device="cpu")
+    assert isinstance(slv, CG) and fit["b"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        slv.fit(b=fit["b"].numpy(), max_iter=1)
 
 
 def test_tf32_off():

@@ -11,6 +11,8 @@ Without a GPU the ``cuda`` tests skip with a reason; the wrapper checks run
 anywhere.
 """
 
+import math
+
 import numpy as np
 import pytest
 import scipy.ndimage as snd
@@ -311,6 +313,33 @@ def _nu_plan(kind, M, nf, w, dtype, device="cpu", seed=0):
     return nu.plan2(x, nf, w, 2.3 * w, dtype)
 
 
+def _ref(plain, a, p):
+    """The plain version in float64 on the plan's points: the reference
+    of a kernel in either dtype (a float32 running sum of many products in
+    one cell drifts further than the kernel's two-level sum)."""
+    return plain(a.double(), p.astype(torch.float64))
+
+
+def test_nufft_plan_astype_keeps_the_geometry():
+    """``Plan.astype`` changes only the offsets' dtype; the plain
+    versions run in the plan's dtype, and the float32 ones agree with
+    their float64 reference."""
+    p = _nu_plan("cluster", 3000, (50, 45), 7, torch.float32)
+    q = p.astype(torch.float64)
+    assert q.dtype == torch.float64 and q.bins == p.bins
+    assert torch.equal(q.off.float(), p.off)
+    for name in ("perm", "i0", "sub"):
+        assert getattr(q, name) is getattr(p, name)
+    gen = torch.Generator().manual_seed(2)
+    c = torch.randn((1, 3000, 2), generator=gen)
+    g = torch.randn((1, 50, 45, 2), generator=gen)
+    for plain, a in ((nu.nufft_spread2_plain, c), (nu.nufft_interp2_plain, g)):
+        got, want = plain(a, p), _ref(plain, a, p)
+        assert got.dtype == torch.float32 and want.dtype == torch.float64
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
 def test_nufft_plan_covers_every_point_once():
     for kind in NU_SETS:
         p = _nu_plan(kind, 3000, (50, 45), 7, torch.float64)
@@ -394,8 +423,8 @@ def test_nufft_kernels_match_plain(cuda, kind, nf, w, dtype):
     c = torch.randn((2, 2500, 2), generator=gen, device=cuda, dtype=dt)
     g = torch.randn((2,) + nf + (2,), generator=gen, device=cuda, dtype=dt)
     n0 = (nu.nufft_spread2.launches, nu.nufft_interp2.launches)
-    gk, gp = nu.nufft_spread2(c, p), nu.nufft_spread2_plain(c, p)
-    vk, vp = nu.nufft_interp2(g, p), nu.nufft_interp2_plain(g, p)
+    gk, gp = nu.nufft_spread2(c, p), _ref(nu.nufft_spread2_plain, c, p)
+    vk, vp = nu.nufft_interp2(g, p), _ref(nu.nufft_interp2_plain, g, p)
     torch.cuda.synchronize()
     assert (nu.nufft_spread2.launches, nu.nufft_interp2.launches) == (
         n0[0] + 1, n0[1] + 1)
@@ -415,7 +444,8 @@ def test_nufft_kernels_few_points(cuda, M, dtype):
     c = torch.randn((1, M, 2), device=cuda, dtype=dt)
     g = torch.randn((1, 64, 80, 2), device=cuda, dtype=dt)
     gk, vk = nu.nufft_spread2(c, p), nu.nufft_interp2(g, p)
-    gp, vp = nu.nufft_spread2_plain(c, p), nu.nufft_interp2_plain(g, p)
+    gp, vp = (_ref(nu.nufft_spread2_plain, c, p),
+              _ref(nu.nufft_interp2_plain, g, p))
     torch.cuda.synchronize()
     assert gk.shape == (1, 64, 80, 2) and vk.shape == (1, M, 2)
     rel = 1e-5 if dtype == "float32" else 1e-12
@@ -451,3 +481,213 @@ def test_nufft_operator_on_the_card(cuda, upsampfac, real):
     want = ops["cpu"].gram().apply(f)
     got = ops[cuda].gram().apply(f.to(cuda)).cpu()
     assert float((got - want).abs().max()) <= 1e-9 * float(want.abs().max())
+
+
+# ------------------------------------------------------------- 3-D NUFFT --
+
+NU3_SETS = ["uniform", "cluster", "origin", "edges"]
+
+
+def _nu3_points(kind, M, seed=0):
+    """(M, 3) points in [-pi, pi]: uniform, a clustered Gaussian, a set
+    with half its points at the origin (as a radial 3-D acquisition puts
+    every spoke's centre there), and points at 0 and just below 2 pi."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return rng.uniform(-np.pi, np.pi, (M, 3))
+    if kind == "cluster":
+        return np.clip(rng.normal(0.3, 0.35, (M, 3)), -np.pi, np.pi)
+    if kind == "origin":
+        x = rng.uniform(-np.pi, np.pi, (M, 3))
+        x[: M // 2] = 0.0
+        return x
+    if kind == "edges":
+        vals = np.array([0.0, -0.0, np.nextafter(2 * np.pi, 0), -1e-300,
+                         np.pi, -np.pi, np.nextafter(np.pi, 0), 1e-300])
+        return rng.choice(vals, (M, 3))
+    raise ValueError(kind)
+
+
+def _nu3_plan(kind, M, nf, w, dtype, device="cpu", seed=0):
+    x = torch.remainder(torch.from_numpy(_nu3_points(kind, M, seed)),
+                        2 * np.pi).to(device)
+    return nu.plan3(x, nf, w, 2.3 * w, dtype)
+
+
+def test_nufft3_bins_fit_shared_memory():
+    """The bin rule: the largest bin whose subgrid fits half a block's
+    227 KB of shared memory, and 8^3 (at most 194,672 B) where none
+    does."""
+    for dt, cell in ((torch.float32, 8), (torch.float64, 16)):
+        for w in range(2, nu.MAX_W + 1):
+            bins = nu.bin3(w, dt)
+            smem = cell * math.prod(b + w - 1 for b in bins)
+            assert smem <= (nu.SMEM_MAX // 2 if bins != (8,) * 3
+                            else 194_672)
+            larger = {(16, 16, 16): [], (16, 16, 8): [(16, 16, 16)],
+                      (8, 8, 8): [(16, 16, 16), (16, 16, 8)]}[bins]
+            for big in larger:                  # no larger bin fits
+                assert cell * math.prod(b + w - 1 for b in big) \
+                    > nu.SMEM_MAX // 2
+    assert nu.bin3(7, torch.float32) == (16, 16, 16)
+    assert nu.bin3(16, torch.float64) == (8, 8, 8)
+    p = _nu3_plan("uniform", 10, (40, 36, 33), 7, torch.float32)
+    assert p.bins == (16, 16, 16) and p.nbins == (3, 3, 3)
+
+
+def test_nufft3_plan_covers_every_point_once():
+    for kind in NU3_SETS:
+        p = _nu3_plan(kind, 3000, (40, 36, 33), 7, torch.float64)
+        assert sorted(p.perm.tolist()) == list(range(3000))
+        sub = p.sub.long()
+        assert int(sub[:, 2].sum()) == 3000
+        assert int(sub[:, 2].max()) <= nu.MAX_SUB and int(sub[:, 2].min()) > 0
+        assert sub[0, 1] == 0 and torch.equal(sub[1:, 1],
+                                              sub[:-1, 1] + sub[:-1, 2])
+        base = p.i0.long() + p.w // 2
+        assert int(base.min()) >= 0 and all(
+            int(base[a].max()) < p.nf[a] for a in range(3))
+        bins = ((base[0] // p.bins[0]) * p.nbins[1]
+                + base[1] // p.bins[1]) * p.nbins[2] + base[2] // p.bins[2]
+        owner = torch.repeat_interleave(sub[:, 0], sub[:, 2])
+        assert torch.equal(bins, owner)
+        assert float(p.off.min()) > p.w / 2 - 1
+        assert float(p.off.max()) <= p.w / 2
+    # 1500 points at the origin share one bin: two subproblems
+    p = _nu3_plan("origin", 3000, (40, 36, 33), 7, torch.float64)
+    assert int((p.sub[:, 0] == p.sub[0, 0]).sum()) >= 2
+
+
+@pytest.mark.parametrize("kind", NU3_SETS)
+def test_nufft3_plain_spread_interp_are_adjoint(kind, monkeypatch):
+    """Over several chunks of points: the chunk bound lowered to 50
+    points' taps."""
+    p = _nu3_plan(kind, 500, (20, 18, 12), 5, torch.float64)
+    monkeypatch.setattr(nu, "TAPS_PER_CHUNK", 50 * 5 ** 3)
+    assert len(nu._chunks(p)) == 10
+    rng = np.random.default_rng(1)
+    c = torch.from_numpy(rng.standard_normal((2, 500, 2)))
+    g = torch.from_numpy(rng.standard_normal((2, 20, 18, 12, 2)))
+    lhs = float(torch.sum(nu.nufft_spread3_plain(c, p) * g))
+    rhs = float(torch.sum(c * nu.nufft_interp3_plain(g, p)))
+    assert abs(lhs - rhs) <= 1e-12 * max(abs(lhs), 1.0)
+
+
+def test_nufft3_plain_matches_a_loop():
+    """The plain spread and interp against point-by-point loops in numpy,
+    on a grid smaller than a subgrid."""
+    p = _nu3_plan("edges", 20, (12, 10, 9), 4, torch.float64)
+    rng = np.random.default_rng(2)
+    c = rng.standard_normal((1, 20, 2))
+    g = rng.standard_normal((1, 12, 10, 9, 2))
+    got = nu.nufft_spread3_plain(torch.from_numpy(c), p).numpy()[0]
+    got_v = nu.nufft_interp3_plain(torch.from_numpy(g), p).numpy()[0]
+    want = np.zeros((12, 10, 9, 2))
+    want_v = np.zeros((20, 2))
+    perm, i0, off = p.perm.numpy(), p.i0.numpy(), p.off.numpy()
+    for j in range(20):
+        ws = [nu.es_weights(torch.tensor(off[a, j]), 4, p.beta).numpy()
+              for a in range(3)]
+        for t in np.ndindex(4, 4, 4):
+            cell = tuple((i0[a, j] + t[a]) % p.nf[a] for a in range(3))
+            wt = ws[0][t[0]] * ws[1][t[1]] * ws[2][t[2]]
+            want[cell] += c[0, perm[j]] * wt
+            want_v[perm[j]] += g[(0,) + cell] * wt
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-13)
+    np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-13)
+
+
+def test_nufft3_wrappers_cpu_plain_and_meta_raise():
+    p = _nu3_plan("uniform", 300, (20, 18, 12), 7, torch.float32)
+    p2 = _nu_plan("uniform", 300, (40, 36), 7, torch.float32)
+    c = torch.randn((1, 300, 2))
+    g = torch.randn((1, 20, 18, 12, 2))
+    n0 = (nu.nufft_spread3.launches, nu.nufft_interp3.launches)
+    assert torch.equal(nu.nufft_spread3(c, p), nu.nufft_spread3_plain(c, p))
+    assert torch.equal(nu.nufft_interp3(g, p), nu.nufft_interp3_plain(g, p))
+    with pytest.raises(ValueError):
+        nu.nufft_spread3(c.to("meta"), p)
+    with pytest.raises(ValueError):
+        nu.nufft_interp3(g.to("meta"), p)
+    with pytest.raises(ValueError, match="3-D function"):
+        nu.nufft_spread3(c, p2)
+    with pytest.raises(ValueError, match="2-D function"):
+        nu.nufft_interp2(g, p)
+    assert (nu.nufft_spread3.launches, nu.nufft_interp3.launches) == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("w", [2, 7, 10, 16])
+@pytest.mark.parametrize("nf", [(40, 36, 33), (12, 20, 9)], ids=str)
+@pytest.mark.parametrize("kind", NU3_SETS)
+def test_nufft3_kernels_match_plain(cuda, kind, nf, w, dtype):
+    """Spread and interp on the card against their plain versions, over
+    the point sets, a grid whose sides are not multiples of the bin and
+    one smaller than a subgrid, 2-16 taps (at w = 16 in float64 the
+    subgrid takes 194,672 B of shared memory), both dtypes and a batch of
+    2."""
+    dt = getattr(torch, dtype)
+    p = _nu3_plan(kind, 2500, nf, w, dt, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    c = torch.randn((2, 2500, 2), generator=gen, device=cuda, dtype=dt)
+    g = torch.randn((2,) + nf + (2,), generator=gen, device=cuda, dtype=dt)
+    n0 = (nu.nufft_spread3.launches, nu.nufft_interp3.launches)
+    gk, gp = nu.nufft_spread3(c, p), _ref(nu.nufft_spread3_plain, c, p)
+    vk, vp = nu.nufft_interp3(g, p), _ref(nu.nufft_interp3_plain, g, p)
+    torch.cuda.synchronize()
+    assert (nu.nufft_spread3.launches, nu.nufft_interp3.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    # float atomics (spread) and the taps' summation order differ from the
+    # plain version's, run to run
+    rel = 1e-5 if dtype == "float32" else 1e-12
+    assert float((gk - gp).abs().max()) <= rel * float(gp.abs().max())
+    assert float((vk - vp).abs().max()) <= rel * float(vp.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("M", [0, 1, 3])
+def test_nufft3_kernels_few_points(cuda, M, dtype):
+    dt = getattr(torch, dtype)
+    p = _nu3_plan("edges", M, (40, 36, 33), 7, dt, cuda)
+    c = torch.randn((1, M, 2), device=cuda, dtype=dt)
+    g = torch.randn((1, 40, 36, 33, 2), device=cuda, dtype=dt)
+    gk, vk = nu.nufft_spread3(c, p), nu.nufft_interp3(g, p)
+    gp, vp = (_ref(nu.nufft_spread3_plain, c, p),
+              _ref(nu.nufft_interp3_plain, g, p))
+    torch.cuda.synchronize()
+    assert gk.shape == (1, 40, 36, 33, 2) and vk.shape == (1, M, 2)
+    rel = 1e-5 if dtype == "float32" else 1e-12
+    assert float((gk - gp).abs().max()) <= rel * max(float(gp.abs().max()), 1)
+    if M == 0:
+        assert not gk.any()
+    else:
+        assert float((vk - vp).abs().max()) <= rel * float(vp.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["type1", "type2"])
+def test_nufft3_operator_on_the_card(cuda, kind):
+    """The 3-D NUFFT and its Toeplitz gram on the card against the same
+    operators on the CPU (plain versions), float64, 1e-9 of the largest
+    value (cuFFT and the CPU's FFT round in another order)."""
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    x = _nu3_points("cluster", 3000)
+    ops = {dev: getattr(NUFFT, kind)(x, (16, 20, 12), eps=1e-8,
+                                     dtype=torch.float64, device=dev)
+           for dev in ("cpu", cuda)}
+    assert ops[cuda].kernel_path == "kernel"
+    f = torch.randn((2,) + ops["cpu"].dim_shape, dtype=torch.float64)
+    y = torch.randn((2,) + ops["cpu"].codim_shape, dtype=torch.float64)
+    for name in ("apply", "adjoint"):
+        a = f if name == "apply" else y
+        want = getattr(ops["cpu"], name)(a)
+        got = getattr(ops[cuda], name)(a.to(cuda)).cpu()
+        assert float((got - want).abs().max()) <= 1e-9 * float(
+            want.abs().max())
+    if kind == "type2":
+        want = ops["cpu"].gram().apply(f)
+        got = ops[cuda].gram().apply(f.to(cuda)).cpu()
+        assert float((got - want).abs().max()) <= 1e-9 * float(
+            want.abs().max())

@@ -286,7 +286,7 @@ def test_unported_forms_and_plan_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnu.NUFFT.type1(np.zeros((5, 1)), 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnu.NUFFT.type2(np.zeros((5, 3)), 8, device="cpu")
+        tnu.NUFFT.type2(np.zeros(5), 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnu.NUFFT.type3(np.zeros((5, 2)), np.zeros((4, 2)))
     with pytest.raises(NotImplementedError, match="modeord"):
