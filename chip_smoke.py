@@ -10,13 +10,19 @@ Phases:
    (one ``nvcc`` per source, all started together before torch is
    imported);
 2. kernels at 2160x3840: the fused-TV kernels with the workload's taps and
-   step sizes (f32 state, and bf16 dual storage) and the separable stencil
-   kernel with the workload's blur (apply and adjoint, constant and
-   symmetric mode), each against its plain PyTorch version on the card,
-   timed with CUDA events; the stencil beside one ``conv2d`` call;
+   step sizes (f32 state, and bf16 dual storage; ``tv_step`` and
+   ``tv_stepk`` at the TV path's depth, or at ``KSTEP_CHECK`` when the path
+   takes single steps), the same in constant mode with asymmetric taps at
+   2153x3833, which no tile divides, and the separable stencil kernel with
+   the workload's blur (apply and adjoint, constant and symmetric mode),
+   each against its plain PyTorch version on the card, timed with CUDA
+   events; the stencil beside one ``conv2d`` call; then the K sweep: device
+   ms an iteration of the fused step at K = 1-4, each held against its
+   plain version, one ``[sweep]`` line each;
 3. the TV path: ``tv_deconvolution((2160, 3840))`` solved by
    ``CondatVu.fit(stop_crit=MaxIter(300))`` with ``stop_rate=100``, which
-   must run through both fused-TV kernels (launch counts checked), then 30
+   must run through the fused-TV kernels of its depth
+   (``fused_tv.N_STEPS``; launch counts checked), then 30
    iterations of the fused and of the generic operator path, which must
    agree within 2e-4; the generic path runs its Stencils through the
    stencil kernel (launches checked);
@@ -71,6 +77,7 @@ import time
 T_START = time.perf_counter()
 
 import concurrent.futures  # noqa: E402
+import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -106,6 +113,8 @@ if __name__ == "__main__":
 import torch  # noqa: E402
 
 SHAPE = (2160, 3840)
+ODD_SHAPE = (2153, 3833)        # no fused-TV tile divides it
+KSTEP_CHECK = 2                 # tv_stepk's depth when the path takes none
 PATH_ITERS, STOP_RATE = 300, 100
 PARITY_ITERS, PARITY_RATE = 30, 10
 BENCH_SHAPE, BENCH_ITERS = (256, 256), 2000     # bench.py's LASSO leg
@@ -179,12 +188,13 @@ def _bound(H, W, p, n_steps, z_bytes):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def kernel_phase(ft, p, x, z, b):
-    """Each kernel against its plain version; returns per-kernel records."""
+def kernel_phase(ft, p, x, z, b, cases, timed=True, label=""):
+    """Each fused-TV kernel of ``cases`` ((name, n_steps) pairs) against its
+    plain version, with f32 and with bf16 z; returns per-kernel records."""
     H, W = x.shape
     xmax = float(x.abs().max())
     out = {}
-    for name, n_steps in (("tv_step", 1), ("tv_stepk", 3)):
+    for name, n_steps in cases:
         for zdt in (torch.float32, torch.bfloat16):
             zs = z.to(zdt)
             if n_steps == 1:
@@ -223,20 +233,53 @@ def kernel_phase(ft, p, x, z, b):
                 tol_s = (f"x: {tol_x:.3e}; z: 1 bf16 ulp of the stored "
                          f"value + {n_steps - 1} ulp of max|z|")
             tag = "f32" if zdt == torch.float32 else "bf16z"
-            print(f"[kernel] {name}[{tag}] max_abs_err x={err_x:.3e} "
-                  f"z={err_z:.3e} tol {tol_s}: {'ok' if ok else 'FAIL'}",
-                  flush=True)
+            print(f"[kernel] {name}[{tag}{label}] K={n_steps} max_abs_err "
+                  f"x={err_x:.3e} z={err_z:.3e} tol {tol_s}: "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                raise SystemExit(f"{name}[{tag}] disagrees with its plain "
-                                 "version")
-            ms, plain_ms = _time_ms(kern), _time_ms(plain, reps=5)
-            bound_ms, bound_by = _bound(H, W, p, n_steps,
-                                        4 if zdt == torch.float32 else 2)
-            print(f"[kernel] {name}[{tag}] ms={ms:.4f} plain_ms={plain_ms:.4f}"
-                  f" bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
-            out[(name, tag)] = dict(max_abs_err=max(err_x, err_z), ms=ms,
-                                    plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by)
+                raise SystemExit(f"{name}[{tag}{label}] disagrees with its "
+                                 "plain version")
+            rec = dict(max_abs_err=max(err_x, err_z))
+            if timed:
+                ms, plain_ms = _time_ms(kern), _time_ms(plain, reps=5)
+                bound_ms, bound_by = _bound(H, W, p, n_steps,
+                                            4 if zdt == torch.float32 else 2)
+                print(f"[kernel] {name}[{tag}] ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                      f"({bound_by})", flush=True)
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+            out[(name, tag)] = rec
+    return out
+
+
+def k_sweep(ft, p, x, z, b):
+    """Device ms an iteration of the fused TV step at each depth K (K = 1:
+    ``tv_step``, else ``tv_stepk``) with f32 state, each launch first held
+    against its plain version; returns {K: ms an iteration}."""
+    tol = 1e-5 * float(x.abs().max())
+    out = {}
+    for K in (1, 2, 3, 4):
+        if not ft.window_fits(tuple(x.shape), p, K):
+            print(f"[sweep] K={K}: window does not fit", flush=True)
+            continue
+        if K == 1:
+            def kern():
+                return ft.tv_step(x, z, b, p)
+        else:
+            def kern(K=K):
+                return ft.tv_stepk(x, z, b, p, K)
+        xk, zk = kern()
+        xp, zp = ft.tv_stepk_plain(x, z, b, p, K)
+        err = max(float((xk - xp).abs().max()), float((zk - zp).abs().max()))
+        if err > tol:
+            raise SystemExit(f"sweep K={K}: max_abs_err {err:.3e} > {tol:.3e}")
+        ms = _time_ms(kern)
+        inner, total = ft.interior_blocks(tuple(x.shape), p, K)
+        print(f"[sweep] K={K} tile={ft._tile(K)} ms_per_launch={ms:.4f} "
+              f"ms_per_iteration={ms / K:.4f} interior_blocks={inner}/{total}"
+              f" max_abs_err={err:.3e}", flush=True)
+        out[K] = ms / K
     return out
 
 
@@ -819,7 +862,25 @@ def main() -> int:
     x = fit["x0"].contiguous()
     gen = torch.Generator(device="cuda").manual_seed(0)
     z = 0.01 * torch.randn((2, H, W), generator=gen, device="cuda")
-    recs = kernel_phase(ft, p, x, z, b)
+    # the path's depth (None: single steps only); tv_stepk is held at it,
+    # else at KSTEP_CHECK
+    kstep = ft.match_fused_tv2(slv._fused, SHAPE)
+    kcheck = kstep or KSTEP_CHECK
+    cases = (("tv_step", 1), ("tv_stepk", kcheck))
+    recs = kernel_phase(ft, p, x, z, b, cases)
+    # constant mode, asymmetric taps, a shape no tile divides
+    pa = dataclasses.replace(p, k0=(0.2, 0.5, 0.3), k1=(0.1, 0.6, 0.2, 0.1),
+                             c0=1, c1=2, mode_k="constant",
+                             mode_d="constant")
+    Ha, Wa = ODD_SHAPE
+    xa = torch.rand(ODD_SHAPE, generator=gen, device="cuda")
+    za = 0.1 * torch.randn((2, Ha, Wa), generator=gen, device="cuda")
+    ba = 0.1 * torch.randn(ODD_SHAPE, generator=gen, device="cuda")
+    kernel_phase(ft, pa, xa, za, ba, cases, timed=False,
+                 label=f" constant asym {Ha}x{Wa}")
+    sweep = k_sweep(ft, p, x, z, b)
+    print(f"[sweep] fastest K={min(sweep, key=sweep.get)}; the path runs "
+          f"K={kstep or 1} (tiles {ft._TILES})", flush=True)
     st_recs, st_library_ms = stencil_phase(st, ex["K"]._taps, x)
     _mark("kernel phase")
 
@@ -836,12 +897,17 @@ def main() -> int:
                 "tv_stepk": ft.tv_stepk.launches}
     kk = slv._m_step2_iters
     segs = PATH_ITERS // STOP_RATE
-    want = {"tv_stepk": segs * (STOP_RATE // kk),
-            "tv_step": segs * (STOP_RATE % kk)}
-    print(f"[path] fused_path={slv.fused_path} K={kk} launches={launches} "
-          f"expected={want}", flush=True)
-    assert slv.fused_path == "kernel" and kk == 3, (slv.fused_path, kk)
-    assert launches == want and min(launches.values()) > 0, launches
+    if kk:
+        want = {"tv_stepk": segs * (STOP_RATE // kk),
+                "tv_step": segs * (STOP_RATE % kk)}
+    else:
+        want = {"tv_stepk": 0, "tv_step": PATH_ITERS}
+    print(f"[path] fused_path={slv.fused_path} K={kk or 1} "
+          f"launches={launches} expected={want}", flush=True)
+    assert slv.fused_path == "kernel" and (kk or None) == kstep, (
+        slv.fused_path, kk, kstep)
+    assert launches == want, launches
+    assert all(launches[k] > 0 for k, n in want.items() if n), launches
     xs = slv.solution()
     assert xs.shape == SHAPE and bool(torch.isfinite(xs).all())
     obj0 = float(slv.objective_func({"x": fit["x0"]}))
@@ -903,7 +969,7 @@ def main() -> int:
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
-            ("tv_stepk", "pyxu_tpu/ops/fused_tv.py:926", 3)):
+            ("tv_stepk", "pyxu_tpu/ops/fused_tv.py:926", kcheck)):
         r, rb = recs[(kname, "f32")], recs[(kname, "bf16z")]
         kernels.append({
             "name": kname, "route": "cuda",
@@ -975,6 +1041,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels, "path_it_per_s": rate,
                       "fused_it_per_s": rates[True],
+                      "tv_ms_per_iteration_by_k": sweep,
                       "generic_it_per_s": rates[False],
                       "lasso_4k_it_per_s": lasso_rates[SHAPE],
                       "lasso_256_it_per_s": lasso_rates[BENCH_SHAPE],

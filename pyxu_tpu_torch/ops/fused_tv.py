@@ -21,12 +21,15 @@ Each kernel has its plain PyTorch version beside it:
 * :func:`tv_step` / :func:`tv_stepk` — the wrappers.  On a CUDA tensor they
   launch the hand-written kernels of ``csrc/fused_tv.cu`` (or raise); on a
   CPU tensor they run the plain version.  ``tv_step.launches`` and
-  ``tv_stepk.launches`` count kernel launches.
+  ``tv_stepk.launches`` count kernel launches;
+* :func:`normal_taps` / :func:`normal_band` — the plain expression of the
+  kernels' interior form of K^T K (two symmetric bands of 2L-1 taps), and
+  :func:`interior_blocks`, the kernels' rule for which blocks take it.
 
 The kernels are built with ``nvcc`` at first use into ``csrc/_build/`` and
 loaded with ``ctypes``.  ``match_fused_tv`` / ``match_fused_tv2`` decide
 once, at solver init, whether a problem takes this path and with how many
-iterations per K-step pass.
+iterations per K-step pass (:data:`N_STEPS`, chosen on the H100).
 """
 
 from __future__ import annotations
@@ -51,9 +54,17 @@ __all__ = [
     "build",
     "match_fused_tv",
     "match_fused_tv2",
+    "interior_blocks",
+    "normal_taps",
+    "normal_band",
 ]
 
 _F32_TINY = float(np.finfo(np.float32).tiny)
+
+# Iterations a fused pass takes on the TV path: the depth with the least
+# device time an iteration in ``chip_smoke.py``'s K sweep on the H100 at
+# 2160x3840 (PERF.md).  At 1 the path runs ``tv_step`` alone.
+N_STEPS = 1
 
 
 # ------------------------------------------------------------ plain version --
@@ -165,25 +176,34 @@ def tv_stepk_plain(x, z, b, p: TVParams, n_steps: int):
 
 # ------------------------------------------------------------ CUDA kernels --
 
-_TILES = {1: (32, 32), "k": (48, 64)}   # output tile (rows, cols) of a
-                                        # block: TV_TR/TV_TC, TV_TR_K/TV_TC_K
+_TILES = {1: (31, 31), 2: (31, 47), 3: (47, 63), 4: (31, 47)}
+                       # output tile (rows, cols) of a block at each depth K
+                       # (K >= 4 take 4's): TV_TR_<K>/TV_TC_<K>
+_STRIP = 8             # TV_R: outputs of a tap strip down the rows
 _MAX_TAPS = 32         # TV_MAXL
 _MAX_SMEM = 232448     # dynamic shared memory a block may opt in to (H100)
+
+
+def _tile(n_steps: int) -> tuple:
+    return _TILES[min(int(n_steps), 4)]
 
 
 def _window(p: TVParams, n_steps: int) -> tuple:
     """(rows, cols) of one block's window in ``csrc/fused_tv.cu``: its
     output tile, an apron of ``n_steps * apron`` per side, one more row and
     column for the forward difference."""
-    tr, tc = _TILES[1 if n_steps == 1 else "k"]
+    tr, tc = _tile(n_steps)
     g0, g1 = p.apron
     return tr + 2 * n_steps * g0 + 1, tc + 2 * n_steps * g1 + 1
 
 
 def smem_bytes(p: TVParams, n_steps: int) -> int:
-    """Dynamic shared memory of one block: five f32 arrays of the window."""
+    """Dynamic shared memory of one block: five f32 arrays of the window at
+    an odd row pitch, then the rows a partial tap strip may read past them
+    (``tv_smem_floats``)."""
     nr, nc = _window(p, n_steps)
-    return 5 * nr * nc * 4
+    pitch = nc | 1                      # tv_pitch
+    return (5 * nr * pitch + (_STRIP - 1) * pitch + _STRIP) * 4
 
 
 def window_fits(shape, p: TVParams, n_steps: int) -> bool:
@@ -195,10 +215,46 @@ def window_fits(shape, p: TVParams, n_steps: int) -> bool:
             and smem_bytes(p, n_steps) <= _MAX_SMEM)
 
 
-@functools.cache
-def _library():
-    """Compile ``csrc/fused_tv.cu`` (once per source hash) and load it."""
-    lib, log = compile_and_load("fused_tv.cu")
+def interior_blocks(shape, p: TVParams, n_steps: int) -> tuple:
+    """``(interior, total)`` blocks of one launch: a block is interior when
+    its ``n_steps``-level window lies inside the image (``tv_interior`` in
+    ``csrc/fused_tv.cu``); those take K^T K in the normal form, the others
+    the four-stage form with boundary rules."""
+    H, W = shape
+    tr, tc = _tile(n_steps)
+    g0, g1 = p.apron
+    nr, nc = _window(p, n_steps)
+
+    def inside(n, t, g, span):
+        starts = np.arange(-(-n // t)) * t - n_steps * g
+        return int(np.count_nonzero((starts >= 0) & (starts + span <= n)))
+    return (inside(H, tr, g0, nr) * inside(W, tc, g1, nc),
+            -(-H // tr) * -(-W // tc))
+
+
+def normal_taps(k, dtype=np.float32) -> np.ndarray:
+    """The symmetric 2L-1 taps of one axis factor of K^T K away from the
+    edges, ``correlate(k, k, "full")`` in float64 rounded once to ``dtype``
+    (float32: what ``csrc/fused_tv.cu`` computes on the host)."""
+    k = np.asarray(k, np.float64)
+    return np.correlate(k, k, "full").astype(dtype)
+
+
+def normal_band(x, g0, g1):
+    """The interior form of K^T K on a window ``x``: the valid correlation
+    with ``g0`` down the rows, then ``g1`` along the columns.  It equals
+    ``adj(fwd(x))`` at every position at least L-1 from the window's edges
+    along each axis, whatever the centres and boundary mode; the kernel's
+    interior blocks compute it with register-sliding strips."""
+    n0, n1 = len(g0), len(g1)
+    H, W = x.shape[-2:]
+    g0 = torch.as_tensor(np.asarray(g0), dtype=x.dtype)
+    g1 = torch.as_tensor(np.asarray(g1), dtype=x.dtype)
+    s = sum(g0[t] * x[..., t:H - n0 + 1 + t, :] for t in range(n0))
+    return sum(g1[t] * s[..., t:W - n1 + 1 + t] for t in range(n1))
+
+
+def _bind(lib):
     common = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
@@ -207,9 +263,20 @@ def _library():
     lib.tv_step_launch.restype = ctypes.c_int
     lib.tv_stepk_launch.argtypes = common + [ctypes.c_int, ctypes.c_void_p]
     lib.tv_stepk_launch.restype = ctypes.c_int
+    if hasattr(lib, "tv_phase_clocks"):     # a TV_PHASE_CLOCKS build
+        lib.tv_phase_clocks.argtypes = [ctypes.c_void_p]
+        lib.tv_phase_clocks.restype = ctypes.c_int
     lib.tv_error_string.argtypes = [ctypes.c_int]
     lib.tv_error_string.restype = ctypes.c_char_p
-    return lib, log
+    return lib
+
+
+@functools.cache
+def _library(defines: tuple = ()):
+    """Compile ``csrc/fused_tv.cu`` (once per source hash and ``defines``)
+    and load it."""
+    lib, log = compile_and_load("fused_tv.cu", defines)
+    return _bind(lib), log
 
 
 def build() -> str:
@@ -241,8 +308,10 @@ def _check(x, z, b, p: TVParams, n_steps: int):
                          "of shared memory per block")
 
 
-def _launch(entry, x, z, b, p: TVParams, *extra):
-    lib, _ = _library()
+def _launch(entry, x, z, b, p: TVParams, *extra, defines: tuple = ()):
+    """Launch ``entry`` of the library built with ``defines`` (the tile
+    and thread overrides ``bench_fused_tv_tiles.py`` sweeps)."""
+    lib, _ = _library(defines)
     xo, zo = torch.empty_like(x), torch.empty_like(z)
     k0 = (ctypes.c_float * len(p.k0))(*p.k0)
     k1 = (ctypes.c_float * len(p.k1))(*p.k1)
@@ -411,12 +480,14 @@ def match_fused_tv(f, g, h, K, *, tau, sigma, rho, x, z):
     return FusedTV(p, b.contiguous())
 
 
-def match_fused_tv2(fused: FusedTV, shape, n_steps: int = 3):
-    """Iterations per K-step pass for a matched problem, or None.
+def match_fused_tv2(fused: FusedTV, shape, n_steps: int | None = None):
+    """Iterations per K-step pass for a matched problem, or None (single
+    steps only).
 
-    Starts at ``n_steps`` (3 by default) and steps down while a block's
-    window exceeds the image or the shared memory (the step-down rule of
-    the JAX package's ``match_fused_tv2``); None below 2."""
+    Starts at ``n_steps`` (default :data:`N_STEPS`) and steps down while a
+    block's window exceeds the image or the shared memory (the step-down
+    rule of the JAX package's ``match_fused_tv2``); None below 2."""
+    n_steps = N_STEPS if n_steps is None else int(n_steps)
     while n_steps >= 2 and not window_fits(shape, fused.params, n_steps):
         n_steps -= 1
     return n_steps if n_steps >= 2 else None

@@ -20,6 +20,7 @@ from pyxu_tpu.opt.stop import MaxIter as JMaxIter
 from pyxu_tpu.opt.stop import RelError as JRelError
 from pyxu_tpu_torch.convert import tv_problem
 from pyxu_tpu_torch.models import tv_deconvolution
+from pyxu_tpu_torch.ops import fused_tv
 from pyxu_tpu_torch.opt.stop import AbsError, MaxIter, RelError
 
 SHAPE = (64, 48)
@@ -80,9 +81,11 @@ def test_generic_solve_matches_jax_f64():
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_fused_plain_matches_generic_with_tail(dtype):
+def test_fused_plain_matches_generic_with_tail(dtype, monkeypatch):
     """stop_rate 10 with K = 3: each segment runs 3 K-steps and 1 tail
-    step through the plain fused versions."""
+    step through the plain fused versions (K set to 3 here: the TV path's
+    own depth, ``fused_tv.N_STEPS``, is 1)."""
+    monkeypatch.setattr(fused_tv, "N_STEPS", 3)
     y = np.random.default_rng(2).random((100, 120)).astype(dtype)
     sols = {}
     for fuse in (True, False):

@@ -16,9 +16,10 @@ import pyxu_tpu.operator.func as jfunc
 import pyxu_tpu.operator.linop as jlin
 import pyxu_tpu_torch.operator.func as tfunc
 import pyxu_tpu_torch.operator.linop as tlin
-from pyxu_tpu.ops.fused_tv import (tv_step_pallas, tv_step_xla,
-                                   tv_stepk_pallas)
+from pyxu_tpu.ops.fused_tv import (_normal_op_data, tv_step_pallas,
+                                   tv_step_xla, tv_stepk_pallas)
 from pyxu_tpu_torch.ops import fused_tv as ft
+from pyxu_tpu_torch.ops.stencil import adj_axis, fwd_axis
 from pyxu_tpu_torch.opt.solver import CondatVu
 
 
@@ -71,6 +72,43 @@ def test_ref_matches_tv_step_xla(mode, rho, taps, dtype):
     for w, g in zip(want, got):
         assert g.dtype == _t(x).dtype
         assert _err(w, g) < tol
+
+
+def _taps(taps):
+    return (_gauss(), _gauss(), 4, 4) if taps == "gauss" else ASYM
+
+
+@pytest.mark.parametrize("mode", ["symmetric", "constant"])
+@pytest.mark.parametrize("taps", ["gauss", "asym"])
+def test_normal_taps_match_normal_op_data(taps, mode):
+    """The kernel's normal-form taps are the JAX package's ``kernel_g``
+    bands (the float32 rounding of the same float64 values)."""
+    k0, k1, c0, c1 = _taps(taps)
+    k0, k1 = tuple(map(float, k0)), tuple(map(float, k1))
+    data = _normal_op_data(40, 48, k0, k1, c0, c1, mode)
+    for got, want in ((ft.normal_taps(k0), data[0]),
+                      (ft.normal_taps(k1), data[5])):
+        assert got.dtype == np.float32 and got.shape == want.shape
+        assert _err(got, want) < 1e-7
+
+
+@pytest.mark.parametrize("mode", ["symmetric", "constant"])
+@pytest.mark.parametrize("taps", ["gauss", "asym"])
+def test_normal_band_is_ktk_inside_the_window(taps, mode):
+    """Away from the edges (L-1 along each axis) the two banded passes equal
+    adj(fwd(x)), whatever the centres (ASYM: c1 = 2 of 4 taps) and the
+    boundary mode."""
+    k0, k1, c0, c1 = _taps(taps)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((40, 48)))
+    k0, k1 = np.float64(k0), np.float64(k1)
+    want = adj_axis(adj_axis(fwd_axis(fwd_axis(x, k0, c0, 0, mode),
+                                      k1, c1, 1, mode), k1, c1, 1, mode),
+                    k0, c0, 0, mode)
+    m0, m1 = len(k0) - 1, len(k1) - 1
+    got = ft.normal_band(x, ft.normal_taps(k0, np.float64),
+                         ft.normal_taps(k1, np.float64))
+    assert got.shape == (40 - 2 * m0, 48 - 2 * m1)
+    assert _err(got, want[m0:40 - m0, m1:48 - m1]) < 1e-12
 
 
 def test_plain_step_matches_pallas_interpret():
@@ -184,11 +222,16 @@ def test_fused2_steps_down_when_windows_exceed_image(shape, want):
     f, D, h, _ = _torch_problem(*shape)
     m = _match(f, None, h, D)
     assert m is not None
-    assert ft.match_fused_tv2(m, shape) == want
+    assert ft.match_fused_tv2(m, shape, 3) == want
+    assert ft.match_fused_tv2(m, shape) is None     # N_STEPS = 1
 
 
-def test_fusion_off_switch_and_recorded_path():
+def test_fusion_off_switch_and_recorded_path(monkeypatch):
     f, D, h, y = _torch_problem(100, 120)
+    slv = CondatVu(f=f, h=h, K=D)
+    slv.m_init(x0=torch.from_numpy(y))
+    assert slv.fused_path == "plain" and slv._m_step2_iters == 0  # K = 1
+    monkeypatch.setattr(ft, "N_STEPS", 3)       # the K-step hook
     for fuse, path in ((True, "plain"), (False, None)):
         slv = CondatVu(f=f, h=h, K=D, fuse=fuse)
         slv.m_init(x0=torch.from_numpy(y))

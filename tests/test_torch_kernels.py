@@ -82,14 +82,44 @@ def test_window_and_shared_memory_rule():
     p = _params(_gauss(), _gauss(), 4, 4, "symmetric", 1.0)
     assert p.halo == (4, 4)
     assert p.apron == (8, 8)
-    # the K-step's 48x64 tile plus K levels of 2h-px aprons per side, and
-    # one row and column; the single step's 32x32 tile plus one level
-    assert ft.smem_bytes(p, 3) == 5 * 97 * 113 * 4
-    assert ft.smem_bytes(p, 1) == 5 * 49 * 49 * 4
-    assert ft.window_fits((97, 113), p, 3)
-    assert not ft.window_fits((96, 113), p, 3)
-    assert not ft.window_fits((97, 112), p, 3)
+    # the K-step's 47x63 tile plus K levels of 2h-px aprons per side and
+    # one row and column, five arrays at an odd pitch, then the rows a tap
+    # strip may overrun; the single step's 31x31 tile plus one level
+    assert ft.smem_bytes(p, 3) == (5 * 96 * 113 + 7 * 113 + 8) * 4
+    assert ft.smem_bytes(p, 1) == (5 * 48 * 49 + 7 * 49 + 8) * 4
+    assert ft.window_fits((96, 112), p, 3)
+    assert not ft.window_fits((95, 112), p, 3)
+    assert not ft.window_fits((96, 111), p, 3)
     assert not ft.window_fits((4000, 4000), p, 5)      # shared memory
+
+
+def _interior_by_block(shape, p, n_steps):
+    """tv_interior of csrc/fused_tv.cu, block by block."""
+    (H, W), (tr, tc), (g0, g1) = shape, ft._tile(n_steps), p.apron
+    n = 0
+    for by in range(-(-H // tr)):
+        for bx in range(-(-W // tc)):
+            wr, wq = by * tr - n_steps * g0, bx * tc - n_steps * g1
+            n += (wr >= 0 and wq >= 0 and wr + tr + 2 * n_steps * g0 + 1 <= H
+                  and wq + tc + 2 * n_steps * g1 + 1 <= W)
+    return n
+
+
+@pytest.mark.parametrize("n_steps,want", [(1, (8296, 8680)),
+                                          (2, (5440, 5740)),
+                                          (3, (2596, 2806)),
+                                          (4, (5280, 5740))])
+def test_interior_blocks_at_4k(n_steps, want):
+    """Blocks of a 2160x3840 launch with the workload's 9-tap blur whose
+    window lies inside the frame (normal form), of all blocks."""
+    p = _params(_gauss(), _gauss(), 4, 4, "symmetric", 1.0)
+    assert ft.interior_blocks((2160, 3840), p, n_steps) == want
+    assert want[0] == _interior_by_block((2160, 3840), p, n_steps)
+    k0, k1, c0, c1 = ASYM
+    pa = _params(k0, k1, c0, c1, "constant", 1.0)
+    for shape in KERNEL_SHAPES:
+        assert ft.interior_blocks(shape, pa, n_steps)[0] == \
+            _interior_by_block(shape, pa, n_steps)
 
 
 @pytest.fixture
@@ -99,16 +129,25 @@ def cuda():
     return torch.device("cuda")
 
 
+# a shape the tiles divide into neither way, and one further off; at each
+# depth both hold interior blocks (normal form) and edge blocks
+KERNEL_SHAPES = [(200, 180), (263, 301)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("taps", ["gauss", "asym"])
 @pytest.mark.parametrize("mode", ["symmetric", "constant"])
 @pytest.mark.parametrize("rho", [1.0, 0.9])
 @pytest.mark.parametrize("zdt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n_steps", [1, 2, 3])
-def test_kernel_matches_plain(cuda, taps, mode, rho, zdt, n_steps):
+@pytest.mark.parametrize("n_steps", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+def test_kernel_matches_plain(cuda, taps, mode, rho, zdt, n_steps, shape):
     k0, k1, c0, c1 = (_gauss(), _gauss(), 4, 4) if taps == "gauss" else ASYM
     p = _params(k0, k1, c0, c1, mode, rho)
-    x, z, b = (a.to(cuda) for a in _state(200, 180))
+    assert ft.window_fits(shape, p, n_steps)
+    inner, total = ft.interior_blocks(shape, p, n_steps)
+    assert 0 < inner < total
+    x, z, b = (a.to(cuda) for a in _state(*shape))
     z = z.to(getattr(torch, zdt))
     if n_steps == 1:
         (xk, zk), (xp, zp) = ft.tv_step(x, z, b, p), ft.tv_step_plain(x, z, b, p)
