@@ -14,11 +14,15 @@ Phases:
    ``tv_stepk`` at the TV path's depth, or at ``KSTEP_CHECK`` when the path
    takes single steps), the same in constant mode with asymmetric taps at
    2153x3833, which no tile divides, and the separable stencil kernel with
-   the workload's blur (apply and adjoint, constant and symmetric mode),
-   each against its plain PyTorch version on the card, timed with CUDA
-   events; the stencil beside one ``conv2d`` call; then the K sweep: device
-   ms an iteration of the fused step at K = 1-4, each held against its
-   plain version, one ``[sweep]`` line each;
+   the workload's blur (apply and adjoint, constant and symmetric mode, in
+   f32 and f64; then off-centre 4x3 taps at 2153x3833), each against its
+   plain PyTorch version on the card, timed with CUDA events; the
+   stencil's launch geometry at 4K and 256x256, a plain copy of the frame
+   and one ``conv2d`` call beside it; the K sweep: device ms an iteration
+   of the fused step at K = 1-4, each held against its plain version, and
+   the stencil's geometry sweep (``ST_SWEEP``, each variant built with its
+   own ``-D`` overrides and held against the plain version), one
+   ``[sweep]`` line each;
 3. the TV path: ``tv_deconvolution((2160, 3840))`` solved by
    ``CondatVu.fit(stop_crit=MaxIter(300))`` with ``stop_rate=100``, which
    must run through the fused-TV kernels of its depth
@@ -86,25 +90,35 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 
 SOURCES = ("fused_tv.cu", "stencil.cu", "nufft.cu")
+# the stencil kernel's geometry sweep: -D overrides of csrc/stencil.cu
+# (band ST_BW = 32 ST_CPT columns, strip rows ST_SR, halved to reach
+# ST_FILL warps, ring depth ST_NBUF, warps a block ST_WARPS); () is the
+# source's own choice
+ST_SWEEP = ((), ("ST_NBUF=8",), ("ST_NBUF=2",), ("ST_SR=16", "ST_FILL=1"),
+            ("ST_SR=64", "ST_FILL=1"), ("ST_CPT=2",), ("ST_CPT=8",),
+            ("ST_WARPS=4",))
 
 
 def _start_builds():
-    """Start compiling the kernels' sources, one ``nvcc`` each, all at
-    once, before torch is imported: ``pyxu_tpu_torch/ops/_build.py`` is
-    loaded by its path, so that the package, and torch with it, is not
-    imported first.  Returns a future of ``(compiler output, seconds)`` per
-    source; the wrappers' ``build()`` then loads the libraries."""
+    """Start compiling the kernels' sources, one ``nvcc`` each (and one for
+    each stencil variant of ``ST_SWEEP``), all at once, before torch is
+    imported: ``pyxu_tpu_torch/ops/_build.py`` is loaded by its path, so
+    that the package, and torch with it, is not imported first.  Returns a
+    future of ``(compiler output, seconds)`` per ``(source, defines)``; the
+    wrappers' ``build()`` then loads the libraries."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "pyxu_tpu_torch", "ops", "_build.py")
     spec = importlib.util.spec_from_file_location("_chip_smoke_build", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    jobs = [(src, ()) for src in SOURCES] + [
+        ("stencil.cu", d) for d in ST_SWEEP if d]
 
-    def timed(src):
+    def timed(job):
         t0 = time.perf_counter()
-        return mod.compile_source(src)[1], time.perf_counter() - t0
-    pool = concurrent.futures.ThreadPoolExecutor(len(SOURCES))
-    return {src: pool.submit(timed, src) for src in SOURCES}
+        return mod.compile_source(*job)[1], time.perf_counter() - t0
+    pool = concurrent.futures.ThreadPoolExecutor(len(jobs))
+    return {job: pool.submit(timed, job) for job in jobs}
 
 
 if __name__ == "__main__":
@@ -283,18 +297,29 @@ def k_sweep(ft, p, x, z, b):
     return out
 
 
-def stencil_phase(st, p, x):
-    """The stencil kernel against its plain version, apply and adjoint in
-    both modes, at the workload's shape and taps; returns per-variant
-    records and the time of one ``conv2d`` of the same constant-mode
-    apply (cuDNN, TF32 off)."""
-    H, W = x.shape
-    tol = 1e-5 * float(x.abs().max())
-    nbytes = 2 * H * W * x.element_size()
-    ops = 2 * (len(p.k0) + len(p.k1)) * H * W
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
-    bound_ms, bound_by = max(t_b, t_o) * 1e3, (
-        "bytes" if t_b >= t_o else "operations")
+ST_OFF_TAPS = ((0.1, 0.2, 0.3, 0.4), 3, (0.5, 0.3, 0.2), 0)   # 4x3, off-centre
+
+
+def _st_bound(shape, p, elem):
+    """Least time (ms) of one stencil launch: each pixel read and written
+    once, or 2 (L0 + L1) f32 operations a pixel, whichever is larger."""
+    H, W = shape[-2:]
+    t_b = 2 * H * W * elem / HBM_BYTES_PER_S
+    t_o = 2 * (len(p.k0) + len(p.k1)) * H * W / F32_FLOPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def _st_variants(st, p, x, label, lib=None, plain_timed=True, verbose=True):
+    """Apply and adjoint, constant and symmetric mode, of taps ``p`` on
+    ``x`` through the kernel (``lib``'s build, by default the source's
+    own) against the plain version: max error within 1e-5 max|x| (f32) or
+    1e-12 max|x| (f64) times sum|k0| sum|k1|; device times of the kernel
+    and (``plain_timed``) of the plain version; ``verbose``: a line for
+    each variant, else for a failure only."""
+    eps = 1e-5 if x.dtype == torch.float32 else 1e-12
+    tol = eps * float(x.abs().max()) * max(
+        1.0, sum(map(abs, p.k0)) * sum(map(abs, p.k1)))
+    bound_ms, bound_by = _st_bound(x.shape, p, x.element_size())
     out = {}
     for mode in ("constant", "symmetric"):
         q = st.SepTaps(p.k0, p.c0, p.k1, p.c1, mode)
@@ -302,37 +327,91 @@ def stencil_phase(st, p, x):
             tag = f"{mode}{'-adjoint' if adj else ''}"
 
             def kern(q=q, adj=adj):
-                return st.separable_correlate2d(x, q, adj)
+                if lib is None:
+                    return st.separable_correlate2d(x, q, adj)
+                return st._launch(lib, x, q, adj)
 
             def plain(q=q, adj=adj):
                 return st.separable_correlate2d_plain(x, q, adj)
             err = float((kern() - plain()).abs().max())
             torch.cuda.synchronize()
             ok = err <= tol
-            print(f"[kernel] stencil[{tag}] max_abs_err={err:.3e} tol "
-                  f"1e-5*max|x| = {tol:.3e}: {'ok' if ok else 'FAIL'}",
-                  flush=True)
+            if verbose or not ok:
+                print(f"[kernel] stencil{label}[{tag}] max_abs_err="
+                      f"{err:.3e} tol {tol:.3e}: {'ok' if ok else 'FAIL'}",
+                      flush=True)
             if not ok:
-                raise SystemExit(f"stencil[{tag}] disagrees with its plain "
-                                 "version")
-            ms, plain_ms = _time_ms(kern), _time_ms(plain, reps=5)
-            print(f"[kernel] stencil[{tag}] ms={ms:.4f} plain_ms="
-                  f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
+                raise SystemExit(f"stencil{label}[{tag}] disagrees with its "
+                                 "plain version")
+            rec = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                       ms=_time_ms(kern))
+            if plain_timed:
+                rec["plain_ms"] = _time_ms(plain, reps=5)
+            if verbose:
+                print(f"[kernel] stencil{label}[{tag}] ms={rec['ms']:.4f} "
+                      f"plain_ms={rec.get('plain_ms', float('nan')):.4f} "
+                      f"bound_ms={bound_ms:.4f} ({bound_by}, "
+                      f"{bound_ms / rec['ms']:.1%} of it)", flush=True)
+            out[tag] = rec
+    return out
+
+
+def stencil_phase(st, p, x):
+    """The stencil kernel against its plain version, apply and adjoint in
+    both modes: at the workload's shape and taps in f32 (timed) and f64,
+    and at 2153x3833 with off-centre 4x3 taps; its launch geometry; the
+    ``ST_SWEEP`` variants (``[sweep]`` lines, the LASSO path's symmetric
+    apply and adjoint); then one ``conv2d`` of the same constant-mode
+    apply (cuDNN, TF32 off).  Returns the f32 records, the f64 records,
+    the sweep and the ``conv2d`` time."""
+    out = _st_variants(st, p, x, "")
+    out64 = _st_variants(st, p, x.double(), " f64")
+    k0, c0, k1, c1 = ST_OFF_TAPS
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xo = torch.rand(ODD_SHAPE, generator=gen, device="cuda")
+    _st_variants(st, st.SepTaps(k0, c0, k1, c1), xo,
+                 f" 4x3off {ODD_SHAPE[0]}x{ODD_SHAPE[1]}", plain_timed=False)
+    xc = torch.empty_like(x)
+    copy_ms = _time_ms(lambda: xc.copy_(x))
+    print(f"[kernel] copy of the 4K frame (x.copy_, the bytes the stencil "
+          f"must move): {copy_ms:.4f} ms", flush=True)
+    for shape in (SHAPE, BENCH_SHAPE):
+        for adj in (False, True):
+            plan = st.launch_plan(shape, p, adj)
+            print(f"[kernel] stencil plan {shape[0]}x{shape[1]}"
+                  f"{' adjoint' if adj else ''}: " + " ".join(
+                      f"{k}={plan[k]}" for k in (
+                          "band", "bands", "sr", "strips", "warps",
+                          "stream_blocks", "edge_blocks", "smem_bytes")),
                   flush=True)
-            out[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
+    sweep = {}
+    for defines in ST_SWEEP:
+        lib = st._library(defines)[0]
+        q = st.SepTaps(p.k0, p.c0, p.k1, p.c1, "symmetric")
+        plan = st.kernel_plan(lib, SHAPE, q, False)
+        tag = " ".join(defines) or "source"
+        rec = _st_variants(st, p, x, f" sweep {tag}", lib=lib,
+                           plain_timed=False, verbose=False)
+        ms = {k: v["ms"] for k, v in rec.items()}
+        mix = statistics.fmean((ms["symmetric"], ms["symmetric-adjoint"]))
+        sweep[tag] = dict(ms, mix=mix, sr=plan["sr"], warps=plan["warps"],
+                          blocks=plan["stream_blocks"])
+        print(f"[sweep] stencil {tag}: sr={plan['sr']} warps={plan['warps']}"
+              f" stream_blocks={plan['stream_blocks']} ms " + " ".join(
+                  f"{k}={v:.4f}" for k, v in ms.items())
+              + f" path_mix={mix:.4f}", flush=True)
     assert not torch.backends.cudnn.allow_tf32
     w = torch.outer(torch.tensor(p.k0), torch.tensor(p.k1)).to(x)[None, None]
     x4 = x[None, None]
 
-    def lib():
+    def lib_call():
         return torch.nn.functional.conv2d(x4, w, padding=(p.c0, p.c1))
-    err = float((lib()[0, 0] - st.separable_correlate2d(
+    err = float((lib_call()[0, 0] - st.separable_correlate2d(
         x, st.SepTaps(p.k0, p.c0, p.k1, p.c1, "constant"))).abs().max())
-    library_ms = _time_ms(lib)
+    library_ms = _time_ms(lib_call)
     print(f"[kernel] stencil conv2d library_ms={library_ms:.4f} "
           f"(max_abs_diff to the kernel {err:.3e})", flush=True)
-    return out, library_ms
+    return out, out64, sweep, library_ms
 
 
 def _breakdown(st, slv, p, wall_ms, tag):
@@ -843,10 +922,11 @@ def main() -> int:
     print(f"[device] {smi} | torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
     _mark("imports and device query")
-    for src, fut in BUILDS.items():
+    for (src, defines), fut in BUILDS.items():
         log, sec = fut.result()
-        print(f"[build] {src} built in {sec:.2f} s", flush=True)
-        for line in log.splitlines():
+        print(f"[build] {src} {' '.join(defines)} built in {sec:.2f} s",
+              flush=True)
+        for line in log.splitlines() if not defines else ():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[build] {line.strip()}", flush=True)
     for mod in (ft, st, nu):
@@ -881,7 +961,8 @@ def main() -> int:
     sweep = k_sweep(ft, p, x, z, b)
     print(f"[sweep] fastest K={min(sweep, key=sweep.get)}; the path runs "
           f"K={kstep or 1} (tiles {ft._TILES})", flush=True)
-    st_recs, st_library_ms = stencil_phase(st, ex["K"]._taps, x)
+    st_recs, st_recs64, st_sweep, st_library_ms = stencil_phase(
+        st, ex["K"]._taps, x)
     _mark("kernel phase")
 
     # ---- phase 3: the TV path ------------------------------------------
@@ -996,6 +1077,10 @@ def main() -> int:
         "bound_by": path_mix[0]["bound_by"], "library_ms": st_library_ms,
         "variants": {k: {f: v[f] for f in ("ms", "plain_ms", "max_abs_err")}
                      for k, v in st_recs.items()},
+        "f64": {k: {f: v[f] for f in ("ms", "plain_ms", "max_abs_err",
+                                      "bound_ms")}
+                for k, v in st_recs64.items()},
+        "sweep": st_sweep,
     })
     # the RI 1024^2 path spreads twice on the Toeplitz grid and once (A^H y)
     # on A's; it interpolates once (y) on A's grid.  The MRI 128^3 path

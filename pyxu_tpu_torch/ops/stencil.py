@@ -19,7 +19,8 @@ with ``m`` the boundary map of ``mode``: zero outside the image
 
 The kernel takes float32 and float64, constant and symmetric modes, and at
 most ``_MAX_TAPS`` taps per axis; :func:`kernel_takes` is the rule a
-Stencil applies once, at construction.
+Stencil applies once, at construction.  :func:`launch_plan` mirrors the
+kernel's launch geometry (row strips, column bands, fold edge tiles).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import ctypes
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from pyxu_tpu_torch.operator.linop.pad import pad_axis, pad_axis_adjoint
@@ -40,10 +42,19 @@ __all__ = [
     "adj_axis",
     "separable_correlate2d_plain",
     "separable_correlate2d",
+    "launch_plan",
+    "kernel_plan",
+    "edge_rects",
     "build",
 ]
 
 _MAX_TAPS = 32                       # ST_MAXL of csrc/stencil.cu
+_FAST_TAPS = 9                       # ST_FAST_L: the unrolled path
+# ST_CPT, ST_WARPS, ST_NBUF, ST_SR, ST_SR_MIN, ST_FILL, ST_BLOCKS
+_GEOM = {"cpt": 4, "warps": 8, "nbuf": 4, "sr": 32, "sr_min": 4,
+         "fill": 1024, "blocks": 132}
+_EDGE_TILE = (32, 64)                # ST_TR, ST_TC
+_MAX_SMEM = 232448                   # ST_SMEM_MAX
 _MODES = ("constant", "symmetric")
 _DTYPES = (torch.float32, torch.float64)
 
@@ -110,6 +121,77 @@ def separable_correlate2d_plain(x, p: SepTaps, adjoint: bool = False):
                     p.mode)
 
 
+# ---------------------------------------------------------- launch geometry --
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def edge_rects(plan: dict) -> list:
+    """The fold's frame as four rectangles ``(r0, r1, q0, q1)`` (top,
+    bottom, left, right; ``st_rect``), each cut into edge tiles of
+    ``_EDGE_TILE``; empty ones included."""
+    H, W = plan["shape"]
+    fa, fb, fa1, fb1 = plan["frame"]
+    return [(0, fa, 0, W), (fb, H, 0, W), (fa, fb, 0, fa1), (fa, fb, fb1, W)]
+
+
+def launch_plan(shape, p: SepTaps, adjoint: bool = False,
+                dtype=torch.float32) -> dict:
+    """The launch of ``csrc/stencil.cu`` (``st_plan``) for images of
+    ``shape`` ``(..., H, W)``: one warp per column band of ``band`` columns
+    and row strip of ``sr`` rows, ``warps`` a block; in symmetric adjoint
+    mode (the fold) the streaming warps store only the outputs inside
+    ``frame`` (rows ``[fa, fb)`` x columns ``[fa1, fb1)``) and
+    ``edge_blocks`` more blocks compute the rest.  ``smem_bytes`` is a
+    block's dynamic shared memory, ``vec`` the 16-byte path (for 16-byte
+    aligned pointers), ``fast`` the unrolled 9+9-tap path."""
+    H, W = int(shape[-2]), int(shape[-1])
+    B = int(np.prod(shape[:-2], dtype=np.int64))
+    elem = torch.empty((), dtype=dtype).element_size()
+    V = 16 // elem
+    L0, L1 = len(p.k0), len(p.k1)
+    h0, h1 = p.halo
+    fold = p.mode == "symmetric" and adjoint
+    fast = L0 == L1 == _FAST_TAPS
+    band = 32 * _GEOM["cpt"]
+    bands = _cdiv(W, band)
+    sr = _GEOM["sr"]
+    while sr > _GEOM["sr_min"] and B * bands * _cdiv(H, sr) < _GEOM["fill"]:
+        sr //= 2
+    strips = _cdiv(H, sr)
+    H1 = _cdiv(h1, V) * V
+    rw = band + 2 * H1 + V
+    warp_elems = _GEOM["nbuf"] * rw + (0 if fast else L0 * band)
+    if fold:
+        fa, fa1 = min(h0, H), min(h1, W)
+        frame = (fa, max(H - h0, fa), fa1, max(W - h1, fa1))
+    else:
+        frame = (0, H, 0, W)
+    plan = dict(shape=(H, W), batch=B, band=band, bands=bands, sr=sr,
+                strips=strips, frame=frame, ring_row=rw, vec=W % V == 0,
+                fast=fast)
+    tr, tc = _EDGE_TILE
+    n_edge = 0
+    if fold:
+        for r0, r1, q0, q1 in edge_rects(plan):
+            if r1 > r0 and q1 > q0:
+                n_edge += _cdiv(r1 - r0, tr) * _cdiv(q1 - q0, tc)
+    edge_smem = ((tr + 2 * h0) * (tc + 2 * h1) + tr * (tc + 2 * h1)) * elem \
+        if n_edge else 0
+    warps = _GEOM["warps"]
+    while True:
+        smem = max(warps * warp_elems * elem, edge_smem)
+        n_stream = _cdiv(bands * strips, warps)
+        if warps == 2 or (smem <= _MAX_SMEM
+                          and B * n_stream >= _GEOM["blocks"]):
+            break
+        warps //= 2
+    plan.update(warps=warps, stream_blocks=n_stream, edge_blocks=n_edge,
+                smem_bytes=smem)
+    return plan
+
+
 # ------------------------------------------------------------- CUDA kernel --
 
 @functools.cache
@@ -124,6 +206,9 @@ def _library(defines: tuple = ()):
         taps, ctypes.c_int, ctypes.c_int, taps, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.stencil_launch.restype = ctypes.c_int
+    lib.stencil_plan.argtypes = [ctypes.c_int] * 10 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.stencil_plan.restype = ctypes.c_int
     lib.stencil_error_string.argtypes = [ctypes.c_int]
     lib.stencil_error_string.restype = ctypes.c_char_p
     if "ST_COUNT_STRAY_READS" in defines:
@@ -167,13 +252,39 @@ def separable_correlate2d(x, p: SepTaps, adjoint: bool = False):
     return _launch(_library()[0], x, p, adjoint)
 
 
+def _kernel_taps(p: SepTaps, adjoint: bool):
+    """(k0, c0, k1, c1) of the kernel's correlation: the adjoint's are the
+    flipped taps and mirrored centres."""
+    if adjoint:
+        return (p.k0[::-1], len(p.k0) - 1 - p.c0,
+                p.k1[::-1], len(p.k1) - 1 - p.c1)
+    return p.k0, p.c0, p.k1, p.c1
+
+
+def kernel_plan(lib, shape, p: SepTaps, adjoint: bool = False,
+                dtype=torch.float32) -> dict:
+    """``lib``'s own launch geometry (``stencil_plan``) for the call
+    :func:`launch_plan` mirrors, by the same keys."""
+    k0, c0, k1, c1 = _kernel_taps(p, adjoint)
+    sym = int(p.mode == "symmetric")
+    out = (ctypes.c_longlong * 10)()
+    B = int(np.prod(shape[:-2], dtype=np.int64))
+    err = lib.stencil_plan(B, shape[-2], shape[-1],
+                           int(dtype == torch.float64), len(k0), c0, len(k1),
+                           c1, sym * int(not adjoint), sym * int(adjoint),
+                           out)
+    if err != 0:
+        raise ValueError(f"stencil_plan: error {err}")
+    keys = ("bands", "strips", "sr", "warps", "stream_blocks", "edge_blocks",
+            "smem_bytes", "ring_row", "vec", "fast")
+    return {k: (bool(v) if k in ("vec", "fast") else int(v))
+            for k, v in zip(keys, out)}
+
+
 def _launch(lib, x, p: SepTaps, adjoint: bool):
     """One launch of ``lib``'s kernel on the checked CUDA tensor ``x``."""
-    if adjoint:      # flipped taps, mirrored centres; fold in symmetric mode
-        k0, c0 = p.k0[::-1], len(p.k0) - 1 - p.c0
-        k1, c1 = p.k1[::-1], len(p.k1) - 1 - p.c1
-    else:
-        k0, c0, k1, c1 = p.k0, p.c0, p.k1, p.c1
+    # flipped taps, mirrored centres; fold in symmetric mode
+    k0, c0, k1, c1 = _kernel_taps(p, adjoint)
     sym = int(p.mode == "symmetric")
     H, W = x.shape[-2:]
     y = torch.empty_like(x)

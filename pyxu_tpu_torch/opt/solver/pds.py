@@ -3,7 +3,8 @@ r"""Primal-dual splitting (counterpart of ``pyxu_tpu/opt/solver/pds.py``).
 Problem: ``min_x f(x) + g(x) + h(K x)`` with f differentiable (Lipschitz
 gradient beta), g and h proximable, K linear.  Step sizes are derived on
 the host at ``m_init`` from beta and ``||K||`` with the three tuning
-strategies of the reference.
+strategies of the reference; a constant that f or K does not declare is
+estimated there, on the state's dtype and device.
 
 Ported: ``_PrimalDualSplitting``, ``CondatVu`` (with its fusion pass) and
 ``ADMM`` (all three x-updates).  The other ten solvers of the family are
@@ -47,30 +48,32 @@ class _PrimalDualSplitting(Solver):
         self._dim_shape = dim_shape
 
     # -- step sizes --------------------------------------------------------
-    def _beta(self) -> float:
+    def _beta(self, **kw) -> float:
+        """f's diff-Lipschitz constant; estimated (``kw``: ``dtype``,
+        ``device``) when f declares none."""
         b = self._f.diff_lipschitz
         if not _math.isfinite(b):
-            raise NotImplementedError(
-                "f has no closed-form diff-Lipschitz constant; its estimator "
-                "is not ported yet — pass tau/sigma explicitly")
+            b = self._f.estimate_diff_lipschitz(**kw)
         return float(b)
 
-    def _norm_K(self) -> float:
+    def _norm_K(self, **kw) -> float:
+        """||K||; estimated (``kw`` as in :meth:`_beta`) when K declares
+        no Lipschitz constant."""
         if self._K is None:
             return 1.0 if self._h is not None else 0.0
         L = self._K.lipschitz
         if not _math.isfinite(L):
-            raise NotImplementedError(
-                "K has no closed-form Lipschitz constant; its estimator is "
-                "not ported yet — pass tau/sigma explicitly")
+            L = self._K.estimate_lipschitz(**kw)
         return float(L)
 
-    def _set_steps(self, tau, sigma, rho, tuning_strategy):
+    def _set_steps(self, tau, sigma, rho, tuning_strategy, **kw):
         """(tau, sigma, rho) with 1/tau - sigma ||K||^2 >= gamma; strategy
-        1: gamma = beta, rho = 1; 2: gamma = beta/1.9; 3: rho = delta - 0.1."""
-        beta = self._beta() if (tau is None or sigma is None) \
+        1: gamma = beta, rho = 1; 2: gamma = beta/1.9; 3: rho = delta - 0.1.
+        Constants the operators do not declare are estimated on ``kw``'s
+        ``dtype`` and ``device``, the state's."""
+        beta = self._beta(**kw) if (tau is None or sigma is None) \
             else float(self._f.diff_lipschitz)
-        L = self._norm_K() if (tau is None or sigma is None) else 1.0
+        L = self._norm_K(**kw) if (tau is None or sigma is None) else 1.0
         gamma = beta / 1.9 if tuning_strategy == 2 else beta
         if tau is not None and sigma is None:
             if tau <= 0:
@@ -120,7 +123,8 @@ class _PrimalDualSplitting(Solver):
         if not isinstance(x0, torch.Tensor):
             x0 = torch.from_numpy(np.ascontiguousarray(x0))
         x0 = x0.to(dev)
-        self._set_steps(tau, sigma, rho, tuning_strategy)
+        self._set_steps(tau, sigma, rho, tuning_strategy, dtype=x0.dtype,
+                        device=dev)
         mst = {"x": x0}
         if self._h is not None:
             zdt = x0.dtype if dual_dtype is None else dual_dtype

@@ -184,8 +184,12 @@ def test_kernel_counts_launches(cuda):
 # ------------------------------------------------------- separable stencil --
 
 # shapes and tap counts of tests/test_pallas_ops.py, an image narrower than
-# a tile whose pad width equals its length, and off-centre centres
-ST_SHAPES = [(50, 70), (64, 128), (33, 257), (4, 9)]
+# a tile whose pad width equals its length, and off-centre centres; then
+# images with full streaming bands and strips beside fold edge blocks: W a
+# multiple of 4 (16-byte path), W % 4 != 0, and a batch whose images sit
+# back to back with W odd
+ST_SHAPES = [(50, 70), (64, 128), (33, 257), (4, 9), (300, 520), (257, 389),
+             (3, 67, 129)]
 ST_TAPS = {"3x4": (3, 4, 1, 2), "9x9": (9, 9, 4, 4), "1x5": (1, 5, 0, 1),
            "4x3off": (4, 3, 3, 0)}
 
@@ -198,15 +202,15 @@ def _sep(taps, mode, seed=1):
 
 
 def _fits(shape, p):
-    return p.halo[0] <= shape[0] and p.halo[1] <= shape[1]
+    return p.halo[0] <= shape[-2] and p.halo[1] <= shape[-1]
 
 
 def _scipy_apply(x, p):
-    """Reference apply: scipy's correlate1d per axis (numpy 'symmetric' is
-    scipy's 'reflect')."""
+    """Reference apply over the trailing two axes: scipy's correlate1d per
+    axis (numpy 'symmetric' is scipy's 'reflect')."""
     mode = "reflect" if p.mode == "symmetric" else "constant"
     out = x
-    for ax, k, c in ((0, p.k0, p.c0), (1, p.k1, p.c1)):
+    for ax, k, c in ((-2, p.k0, p.c0), (-1, p.k1, p.c1)):
         out = snd.correlate1d(out, np.asarray(k), axis=ax, mode=mode,
                               origin=c - len(k) // 2)
     return out
@@ -256,6 +260,125 @@ def test_stencil_kernel_rule():
     assert _sep("4x3off", "constant").halo == (3, 2)
 
 
+def _stencil_cover(shape, p, adjoint, dtype=torch.float32):
+    """How often each output of one image is written by the launch of
+    ``st.launch_plan``, block by block as ``st_kernel`` assigns the work:
+    warp w of the streaming blocks takes band w % bands of strip w // bands
+    and stores inside the frame; edge block e takes tile e of the frame's
+    rectangles, in order."""
+    plan = st.launch_plan(shape, p, adjoint, dtype)
+    H, W = plan["shape"]
+    fa, fb, fa1, fb1 = plan["frame"]
+    n = np.zeros((H, W), np.int64)
+    for blk in range(plan["stream_blocks"]):
+        for warp in range(plan["warps"]):
+            w = blk * plan["warps"] + warp
+            if w >= plan["bands"] * plan["strips"]:
+                continue
+            s0 = (w // plan["bands"]) * plan["sr"]
+            q0 = (w % plan["bands"]) * plan["band"]
+            r = slice(max(s0, fa), min(s0 + plan["sr"], H, fb))
+            c = slice(max(q0, fa1), min(q0 + plan["band"], W, fb1))
+            n[r, c] += 1
+    tr, tc = st._EDGE_TILE
+    edges = 0
+    for r0, r1, q0, q1 in st.edge_rects(plan):
+        if r1 <= r0 or q1 <= q0:
+            continue
+        for i in range(r0, r1, tr):
+            for j in range(q0, q1, tc):
+                n[i:min(i + tr, r1), j:min(j + tc, q1)] += 1
+                edges += 1
+    assert edges == plan["edge_blocks"]
+    return plan, n
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("mode", ["constant", "symmetric"])
+def test_stencil_launch_covers_4k_once(mode, adjoint):
+    """Bands and strips (and in the fold, the edge tiles) write every
+    output of a 2160x3840 plane exactly once."""
+    p = _sep("9x9", mode)
+    plan, n = _stencil_cover((2160, 3840), p, adjoint)
+    assert plan["fast"] and plan["vec"]
+    assert n.min() == n.max() == 1
+
+
+@pytest.mark.parametrize("taps", sorted(ST_TAPS))
+def test_stencil_launch_covers_test_shapes_once(taps):
+    for shape in ST_SHAPES + [(1, 1), (2153, 3833), (9, 4000)]:
+        for mode in ("constant", "symmetric"):
+            p = _sep(taps, mode)
+            if not _fits(shape, p):
+                continue
+            for adjoint in (False, True):
+                for dtype in (torch.float32, torch.float64):
+                    _, n = _stencil_cover(shape, p, adjoint, dtype)
+                    assert n.min() == n.max() == 1, (shape, mode, adjoint)
+
+
+@pytest.mark.parametrize("shape,adjoint,want", [
+    ((2160, 3840), False, (32, 68, 8, 255, 0)),
+    ((2160, 3840), True, (32, 68, 8, 255, 256)),
+    ((256, 256), False, (4, 64, 2, 64, 0)),
+    ((256, 256), True, (4, 64, 2, 64, 24))])
+def test_stencil_launch_blocks(shape, adjoint, want):
+    """Strip rows, strips, warps a block, streaming and edge blocks of the
+    workload's 9+9-tap symmetric blur, at 4K and at the 256x256 bench leg:
+    30 (or 2) bands of 128 columns; 2040 streaming warps at 4K, and 128 in
+    64 blocks at 256x256, where the strips shrink to 4 rows; the fold's
+    edge tiles are 1 x 60 for each of the top and bottom rows and 68 x 1
+    for each side column at 4K (4 + 4 + 8 + 8 at 256x256)."""
+    plan = st.launch_plan(shape, _sep("9x9", "symmetric"), adjoint)
+    assert plan["bands"] == -(-shape[1] // 128)
+    assert (plan["sr"], plan["strips"], plan["warps"], plan["stream_blocks"],
+            plan["edge_blocks"]) == want
+
+
+def test_stencil_ring_fits_shared_memory():
+    """A block's rings (ST_NBUF rows of the band, its rounded halo and one
+    16-byte piece a warp, and for runtime tap counts L0 rows of sums) and
+    the fold's edge window fit the shared memory the launch asks for, and
+    that fits the card, for every tap count and centre the kernel takes."""
+    gm = st._GEOM
+    for dtype in (torch.float32, torch.float64):
+        elem = torch.empty((), dtype=dtype).element_size()
+        V = 16 // elem
+        for L in range(1, st._MAX_TAPS + 1):
+            for c in {0, L // 2, L - 1}:
+                p = st.SepTaps((1.0,) * L, c, (1.0,) * L, L - 1 - c,
+                               "symmetric")
+                h0, h1 = p.halo
+                H1 = -(-h1 // V) * V
+                for adjoint in (False, True):
+                    plan = st.launch_plan((3, 200, 300), p, adjoint, dtype)
+                    assert plan["ring_row"] == plan["band"] + 2 * H1 + V
+                    ring = gm["nbuf"] * plan["ring_row"] + (
+                        0 if plan["fast"] else L * plan["band"])
+                    edge = (32 + 2 * h0 + 32) * (64 + 2 * h1) \
+                        if plan["edge_blocks"] else 0
+                    assert bool(plan["edge_blocks"]) == (adjoint and L > 1)
+                    assert plan["smem_bytes"] == elem * max(
+                        plan["warps"] * ring, edge)
+                    assert plan["smem_bytes"] <= st._MAX_SMEM
+                    assert plan["warps"] >= 2
+
+
+def test_stencil_test_shapes_reach_every_path():
+    """The cuda tests' shapes hold full streaming bands beside the fold's
+    edge blocks, the 16-byte and the scalar path, a batch, and both the
+    unrolled and the runtime-tap path."""
+    plans = {s: st.launch_plan(s, _sep("9x9", "symmetric"), True)
+             for s in ST_SHAPES}
+    assert all(p["stream_blocks"] and p["edge_blocks"]
+               for p in plans.values())
+    assert plans[(300, 520)]["vec"] and plans[(300, 520)]["bands"] == 5
+    assert not plans[(257, 389)]["vec"] and plans[(257, 389)]["strips"] > 1
+    assert plans[(3, 67, 129)]["batch"] == 3 and not plans[(3, 67, 129)]["vec"]
+    assert plans[(300, 520)]["fast"]
+    assert not st.launch_plan((300, 520), _sep("3x4", "symmetric"))["fast"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("adjoint", [False, True])
@@ -301,6 +424,24 @@ def test_stencil_kernel_reads_stay_in_the_image(cuda, shape):
                 assert float((got - want).abs().max()) <= 1e-12 * float(
                     x.abs().max()) * float(np.sum(np.abs(p.k0))
                                            * np.sum(np.abs(p.k1)))
+
+
+@pytest.mark.cuda
+def test_stencil_plan_matches_the_kernel(cuda):
+    """The kernel's own geometry (stencil_plan) is launch_plan's."""
+    lib = st._library()[0]
+    for shape in ST_SHAPES + [(2160, 3840), (256, 256), (2153, 3833)]:
+        for taps in sorted(ST_TAPS):
+            for mode in ("constant", "symmetric"):
+                p = _sep(taps, mode)
+                if not _fits(shape, p):
+                    continue
+                for adjoint in (False, True):
+                    for dtype in (torch.float32, torch.float64):
+                        got = st.kernel_plan(lib, shape, p, adjoint, dtype)
+                        want = st.launch_plan(shape, p, adjoint, dtype)
+                        assert got == {k: want[k] for k in got}, (
+                            shape, taps, mode, adjoint, dtype)
 
 
 @pytest.mark.cuda
