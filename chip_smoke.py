@@ -8,7 +8,8 @@ Phases:
 1. device line (name and power limit from ``nvidia-smi``, torch and CUDA
    versions) and the build of the CUDA kernels from ``pyxu_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together before torch is
-   imported);
+   imported); the NUFFT spread kernels' registers and spills, and the count
+   of atomic instructions in their SASS (``cuobjdump``), which must be 0;
 2. kernels at 2160x3840: the fused-TV kernels with the workload's taps and
    step sizes (f32 state, and bf16 dual storage; ``tv_step`` and
    ``tv_stepk`` at the TV path's depth, or at ``KSTEP_CHECK`` when the path
@@ -40,13 +41,17 @@ Phases:
    w = 7) on three point sets (uniform, the RI workload's Gaussian uv, a
    clustered set), and the spread of ones that builds the RI path's
    Toeplitz kernel (the Gaussian uv on its 4096x4096 grid), each against
-   its plain version in float32 and float64, timed in float32; the
-   ``kernels`` line gives each kernel's times as the RI path's
-   launch-weighted mix of these cases;
+   its plain version in float32 and float64, timed in float32; each spread
+   launched twice must give the same bits, and its time is split by two
+   timing-only builds (``NU_PHASES``: the walk over the candidates, the
+   staging, the adds; ``[split]`` lines); the ``kernels`` line gives each
+   kernel's times as the RI path's launch-weighted mix of these cases;
 6. the NUFFT's type 1 and type 2 at N = 256x256, M = 4000 against a direct
    NUDFT in float64 on the card;
 7. the RI path: ``radio_interferometry((1024, 1024), n_vis=10**6)`` (set-up
-   timed: the plan, the Toeplitz builds, y), a warm fit, then
+   timed: the plan, the Toeplitz builds, y; then broken down into its
+   parts, ``[setup]`` lines, with cuFFT's plan cache emptied and again
+   with it full), a warm fit, then
    ``ADMM.fit(stop_crit=MaxIter(150))`` in one segment, with the NUFFT
    kernels' launch counts of the whole path checked and an event-timed
    iteration breakdown; then the JAX bench's 256x256 / 20000-visibility
@@ -56,14 +61,16 @@ Phases:
    radial spokes through the origin, a clustered set), and the spread of
    ones that builds the MRI path's Toeplitz kernel (the kooshball on its
    512^3 grid), each against its plain version in float32 and float64,
-   timed in float32; the ``kernels`` line gives each kernel's times as the
-   MRI path's launch-weighted mix of these cases;
+   timed in float32, the spreads checked and split as in 5; the
+   ``kernels`` line gives each kernel's times as the MRI path's
+   launch-weighted mix of these cases;
 9. the 3-D NUFFT's type 1 and type 2 at N = 32^3, M = 4000 against a
    direct NUDFT in float64 on the card;
 10. the MRI path: a 128^3 single-coil non-Cartesian reconstruction from a
    kooshball (8192 spokes x 256 samples), ``A = NUFFT.type2(k, N)``,
    ``CG(A.gram() + lam * IdentityOp).fit(b=A^H y)`` (set-up timed: the
-   plan, the Toeplitz build, y, A^H y), a warm fit, then 100 iterations in
+   plan, the Toeplitz build, y, A^H y; then broken down as in 7), a warm
+   fit, then 100 iterations in
    one segment, with the 3-D NUFFT kernels' launch counts of the whole
    path checked and an event-timed iteration breakdown; then the same
    problem at 32^3 (512 spokes x 64 samples), 50 iterations on the card
@@ -81,6 +88,7 @@ import time
 T_START = time.perf_counter()
 
 import concurrent.futures  # noqa: E402
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -97,6 +105,10 @@ SOURCES = ("fused_tv.cu", "stencil.cu", "nufft.cu")
 ST_SWEEP = ((), ("ST_NBUF=8",), ("ST_NBUF=2",), ("ST_SR=16", "ST_FILL=1"),
             ("ST_SR=64", "ST_FILL=1"), ("ST_CPT=2",), ("ST_CPT=8",),
             ("ST_WARPS=4",))
+# timing-only builds of csrc/nufft.cu's spread (wrong sums): without the
+# adds into the cells, and without the staging too (the walk over the
+# candidates and the output's stores)
+NU_PHASES = (("NU_TIME_NO_ACC",), ("NU_TIME_NO_STAGE",))
 
 
 def _start_builds():
@@ -104,7 +116,8 @@ def _start_builds():
     each stencil variant of ``ST_SWEEP``), all at once, before torch is
     imported: ``pyxu_tpu_torch/ops/_build.py`` is loaded by its path, so
     that the package, and torch with it, is not imported first.  Returns a
-    future of ``(compiler output, seconds)`` per ``(source, defines)``; the
+    future of ``(library, compiler output, seconds)`` per ``(source,
+    defines)``; the
     wrappers' ``build()`` then loads the libraries."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "pyxu_tpu_torch", "ops", "_build.py")
@@ -112,11 +125,13 @@ def _start_builds():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     jobs = [(src, ()) for src in SOURCES] + [
-        ("stencil.cu", d) for d in ST_SWEEP if d]
+        ("stencil.cu", d) for d in ST_SWEEP if d] + [
+        ("nufft.cu", d) for d in NU_PHASES]
 
     def timed(job):
         t0 = time.perf_counter()
-        return mod.compile_source(*job)[1], time.perf_counter() - t0
+        so, log = mod.compile_source(*job)
+        return so, log, time.perf_counter() - t0
     pool = concurrent.futures.ThreadPoolExecutor(len(jobs))
     return {job: pool.submit(timed, job) for job in jobs}
 
@@ -148,6 +163,42 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
                                # takes to enqueue one timed run
+
+
+def _kernel_resources(log, names):
+    """The ``ptxas -v`` registers and spills of each kernel whose mangled
+    name contains one of ``names``, one line each."""
+    out, fn = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and any(n in fn for n in names) and (
+                "spill" in line or "registers" in line):
+            out.append(f"{fn}: {line.strip()}")
+    return out
+
+
+def _sass_atomics(so, names):
+    """Count of atomic and reduction instructions (ATOM, ATOMS, ATOMG, RED)
+    in the SASS of each kernel of the library ``so`` whose mangled name
+    contains one of ``names``; empty where ``cuobjdump`` is missing."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            if any(n in fn for n in names):
+                out[fn] = 0
+        elif fn in out and re.search(r"\b(ATOMS|ATOMG|ATOM|RED)\b", line):
+            out[fn] += 1
+    return out
 
 
 def _mark(phase):
@@ -510,17 +561,55 @@ def _nu_bound(M, n_grid, w, elem, d=2):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def _nu_check(tag, kern, plain, a, p, dt):
+def _blocks(p, name):
+    """The launch's blocks a batch element: the spread's tasks by the
+    cells a thread owns (a split bin's parts own fewer), the interp's
+    subproblems."""
+    from pyxu_tpu_torch.ops.nufft import spread_tasks
+    if "spread" not in name:
+        return f"{p.sub.shape[0]} subproblems"
+    runs, n = torch.unique(spread_tasks(p)["run"], return_counts=True)
+    return f"{p.tasks.shape[0]} tasks (cells a thread: " + ", ".join(
+        f"{r} x {k}" for r, k in zip(runs.tolist(), n.tolist())) + ")"
+
+
+def _spread_phases(nu, name, a, p, ms):
+    """The spread's time split by the ``NU_PHASES`` builds: the walk over
+    the candidates and the stores alone, the staging, the adds (the
+    remainder of ``ms``, the source's own build).  Returns a dict."""
+    t = {}
+    for defines in NU_PHASES:
+        lib = nu._library(defines)[0]
+
+        def run(lib=lib):
+            g = torch.empty((a.shape[0],) + p.nf + (2,), dtype=a.dtype,
+                            device=a.device)
+            nu._launch(f"{name}_launch", a, g, p, lib)
+        t[defines[0]] = _time_ms(run, reps=5)
+    walk, no_acc = t["NU_TIME_NO_STAGE"], t["NU_TIME_NO_ACC"]
+    return dict(walk_ms=walk, stage_ms=no_acc - walk, add_ms=ms - no_acc)
+
+
+def _nu_check(tag, kern, plain, a, p, dt, twice=False):
     """Hold one NUFFT kernel call against its plain version run in float64
     on the same plan (``Plan.astype``; a float32 running sum of the
-    thousands of products in one cell drifts further than the kernel's
-    two-level sum).  Two limits, tol = 1e-5 at f32 and 1e-12 at f64: the
+    thousands of products in one cell drifts further than the kernels'
+    two-level sums).  Two limits, tol = 1e-5 at f32 and 1e-12 at f64: the
     largest error <= tol max|plain|, and the relative l2 error <= tol,
     which also holds the bulk of a grid whose peak stands far above its
-    typical cell (the kooshball's centre).  Prints the plain version's
-    peak, rms and 99th percentile of |value|; returns the largest error."""
+    typical cell (the kooshball's centre).  ``twice``: a second launch
+    must give the same bits.  Prints the plain version's peak, rms and
+    99th percentile of |value|; returns the largest error."""
     want = plain(a.double(), p.astype(torch.float64))
-    diff = kern(a, p).double() - want
+    got = kern(a, p)
+    if twice:
+        same = torch.equal(got, kern(a, p))
+        print(f"[kernel] {tag} two launches bit-identical: {same}",
+              flush=True)
+        if not same:
+            raise SystemExit(f"{tag}: two launches differ")
+    diff = got.double() - want
+    del got
     err = float(diff.abs().max())
     rel2 = float(torch.linalg.vector_norm(diff)
                  / torch.linalg.vector_norm(want))
@@ -536,8 +625,8 @@ def _nu_check(tag, kern, plain, a, p, dt):
     ok = err <= tol * peak and rel2 <= tol
     print(f"[kernel] {tag} max_abs_err={err:.3e} tol {tol:g}*max|plain| = "
           f"{tol * peak:.3e}; rel_l2_err={rel2:.3e} tol {tol:g}; |plain| "
-          f"rms {rms:.4g}, p99 {p99:.4g}, max {peak:.4g} (float atomics and "
-          f"tap order): {'ok' if ok else 'FAIL'}", flush=True)
+          f"rms {rms:.4g}, p99 {p99:.4g}, max {peak:.4g} (tap order): "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit(f"{tag} disagrees with its plain version")
     return err
@@ -579,7 +668,8 @@ def nufft_kernel_phase(nu):
                 plain = getattr(nu, name + "_plain")
                 tag = (f"{name}[{case}, {grid[0]}x{grid[1]}, "
                        f"{str(dt)[6:]}]")
-                err = _nu_check(tag, kern, plain, a, p, dt)
+                err = _nu_check(tag, kern, plain, a, p, dt,
+                                twice="spread" in name)
                 if dt == torch.float32:
                     ms = _time_ms(lambda: kern(a, p))
                     plain_ms = _time_ms(lambda: plain(a, p), reps=2, runs=3)
@@ -587,12 +677,17 @@ def nufft_kernel_phase(nu):
                                                    NU_W, 4)
                     print(f"[kernel] {tag} ms={ms:.4f} plain_ms="
                           f"{plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                          f"({bound_by}); {p.sub.shape[0]} subproblems",
-                          flush=True)
+                          f"({bound_by}); {_blocks(p, name)}", flush=True)
                     recs[name][case] = dict(max_abs_err=err, ms=ms,
                                             plain_ms=plain_ms,
                                             bound_ms=bound_ms,
                                             bound_by=bound_by)
+                    if "spread" in name:
+                        ph = _spread_phases(nu, name, a, p, ms)
+                        print(f"[split] {tag} " + " ".join(
+                            f"{k}={v:.4f}" for k, v in ph.items()),
+                            flush=True)
+                        recs[name][case]["phases"] = ph
                 else:
                     recs[name][case]["max_abs_err_f64"] = err
                 del p
@@ -696,6 +791,10 @@ def ri_phase(nu, radio_interferometry, MaxIter):
         out[shape] = dict(rate=rate, setup_s=setup, launches=launches,
                           dev_ms=dev_ms, gram_ms=gram_ms)
         del slv, fit, ex
+        if shape == RI_SHAPE:
+            out[shape]["setup_breakdown"] = _setup_breakdown(
+                f"ri {shape[0]}x{shape[1]}", lambda span: radio_interferometry(
+                    shape, n_vis=n_vis, device="cuda", stop_rate=RI_ITERS))
     sols = {}
     for dev in ("cuda", "cpu"):
         slv, fit, _ = radio_interferometry(RI_BENCH_SHAPE,
@@ -768,19 +867,26 @@ def nufft3_kernel_phase(nu):
                 kern = getattr(nu, name)
                 plain = getattr(nu, name + "_plain")
                 tag = f"{name}[{case}, {grid[0]}^3, {str(dt)[6:]}]"
-                err = _nu_check(tag, kern, plain, a, p, dt)
+                err = _nu_check(tag, kern, plain, a, p, dt,
+                                twice="spread" in name)
                 if dt == torch.float32:
                     ms = _time_ms(lambda: kern(a, p), reps=5)
                     plain_ms = _time_ms(lambda: plain(a, p), reps=2, runs=3)
                     bound_ms, bound_by = _nu_bound(M, grid[0] ** 3, w, 4, 3)
                     print(f"[kernel] {tag} ms={ms:.4f} plain_ms="
                           f"{plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                          f"({bound_by}); bins {p.bins}, {p.sub.shape[0]} "
-                          "subproblems", flush=True)
+                          f"({bound_by}); bins {p.bins}, {_blocks(p, name)}",
+                          flush=True)
                     recs[name][case] = dict(max_abs_err=err, ms=ms,
                                             plain_ms=plain_ms,
                                             bound_ms=bound_ms,
                                             bound_by=bound_by)
+                    if "spread" in name:
+                        ph = _spread_phases(nu, name, a, p, ms)
+                        print(f"[split] {tag} " + " ".join(
+                            f"{k}={v:.4f}" for k, v in ph.items()),
+                            flush=True)
+                        recs[name][case]["phases"] = ph
                 else:
                     recs[name][case]["max_abs_err_f64"] = err
                 del p
@@ -815,20 +921,82 @@ def _mri_data(N, n_spokes, n_read, seed=0):
     return pts, xt, noise
 
 
-def _mri_problem(pts, N, xt, noise, device):
+def _mri_problem(pts, N, xt, noise, device, span=None):
     """The 3-D Tikhonov reconstruction through the public API, float32:
     ``A = NUFFT.type2``, ``Q = A.gram() + lam * IdentityOp``, ``y = A x +
-    noise``, ``b = A^H y``.  Returns ``(A, G, Q, b)``."""
+    noise``, ``b = A^H y``; ``span(name)``: a context around each step (the
+    set-up breakdown).  Returns ``(A, G, Q, b)``."""
     from pyxu_tpu_torch.operator.linop import IdentityOp
     from pyxu_tpu_torch.operator.linop.nufft import NUFFT
-    A = NUFFT.type2(pts, N, eps=1e-6, dtype=torch.float32, device=device)
-    G = A.gram()
+    span = span or (lambda name: contextlib.nullcontext())
+    with span("A = NUFFT.type2(k, N)"):
+        A = NUFFT.type2(pts, N, eps=1e-6, dtype=torch.float32,
+                        device=device)
+    with span("G = A.gram()"):
+        G = A.gram()
     Q = G + MRI_LAM * G.lipschitz * IdentityOp(G.dim_shape)
-    y = A.apply(xt.to(device=device, dtype=torch.float32))
-    scale = 0.01 * torch.sqrt(torch.mean(y * y))
-    y = y + scale * torch.from_numpy(noise).to(device=device,
-                                               dtype=torch.float32)
-    return A, G, Q, A.adjoint(y)
+    with span("y = A x + noise"):
+        y = A.apply(xt.to(device=device, dtype=torch.float32))
+        scale = 0.01 * torch.sqrt(torch.mean(y * y))
+        y = y + scale * torch.from_numpy(noise).to(device=device,
+                                                   dtype=torch.float32)
+    with span("b = A^H y"):
+        b = A.adjoint(y)
+    return A, G, Q, b
+
+
+class _SetupTimer:
+    """Named parts of a problem's set-up: host ms from a synchronise to a
+    synchronise, and device ms between two CUDA events; a part's name is
+    prefixed by the parts it runs in (``G = A.gram() > plan``).  Installed
+    as ``operator.linop.nufft.SPAN`` it times the NUFFT's own parts."""
+
+    def __init__(self):
+        self.stack, self.rows = [], []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        torch.cuda.synchronize()
+        self.stack.append(name)
+        row = [" > ".join(self.stack), 0.0, 0.0]
+        self.rows.append(row)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        try:
+            yield
+        finally:
+            e1.record()
+            torch.cuda.synchronize()
+            row[1] = 1e3 * (time.perf_counter() - t0)
+            row[2] = e0.elapsed_time(e1)
+            self.stack.pop()
+
+
+def _setup_breakdown(tag, build):
+    """``build(span)`` twice under a :class:`_SetupTimer`: first with
+    cuFFT's plan cache emptied, as a process's first problem finds it, then
+    again with the plans cached; prints every part, host and device ms.
+    Returns ``{"cold" | "warm": [(part, host ms, device ms), ...]}``."""
+    from pyxu_tpu_torch.operator.linop import nufft as tnu
+    out = {}
+    for run in ("cold", "warm"):
+        if run == "cold":
+            torch.backends.cuda.cufft_plan_cache.clear()
+        timer = _SetupTimer()
+        tnu.SPAN = timer
+        try:
+            with timer("set-up"):
+                build(timer)
+        finally:
+            tnu.SPAN = None
+        for name, host, dev in timer.rows:
+            print(f"[setup] {tag} {run}: {name}: host {host:.2f} ms, device "
+                  f"{dev:.2f} ms", flush=True)
+        out[run] = [tuple(r) for r in timer.rows]
+        torch.cuda.empty_cache()
+    return out
 
 
 def mri_phase(nu, MaxIter):
@@ -844,6 +1012,8 @@ def mri_phase(nu, MaxIter):
     A, G, Q, b = _mri_problem(pts, MRI_N, xt, noise, "cuda")
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
+    launches = {"nufft_spread3": nu.nufft_spread3.launches,
+                "nufft_interp3": nu.nufft_interp3.launches}
     assert A.kernel_path == "kernel", A.kernel_path
     slv = CG(Q, stop_rate=MRI_ITERS)
     slv.fit(b=b, stop_crit=MaxIter(MRI_ITERS), max_iter=MRI_ITERS)  # warm
@@ -852,8 +1022,8 @@ def mri_phase(nu, MaxIter):
     slv.fit(b=b, stop_crit=MaxIter(MRI_ITERS), max_iter=MRI_ITERS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"nufft_spread3": nu.nufft_spread3.launches,
-                "nufft_interp3": nu.nufft_interp3.launches}
+    assert launches == {"nufft_spread3": nu.nufft_spread3.launches,
+                        "nufft_interp3": nu.nufft_interp3.launches}
     # spread: the Toeplitz build of A.gram() and A^H y; interp: y = A x.
     # The iterations run FFTs only
     want = {"nufft_spread3": 2, "nufft_interp3": 1}
@@ -881,7 +1051,11 @@ def mri_phase(nu, MaxIter):
           f" ms, Toeplitz gram {gram_ms:.4f} ms ({gram_ms / dev_ms:.1%}), "
           f"other {dev_ms - gram_ms:.4f} ms; host {wall_ms:.4f} ms, device "
           f"idle {1 - dev_ms / wall_ms:.1%}", flush=True)
-    del slv, A, G, Q, b, xs, xt
+    del slv, A, G, Q, b, xs
+    breakdown = _setup_breakdown(
+        f"mri {MRI_N[0]}^3", lambda span: _mri_problem(
+            pts, MRI_N, xt.cpu(), noise, "cuda", span))
+    del xt
     N, n_spokes, n_read, iters = MRI_SMALL
     pts, xt, noise = _mri_data(N, n_spokes, n_read)
     sols = {}
@@ -896,7 +1070,7 @@ def mri_phase(nu, MaxIter):
           "(atol 2e-4)", flush=True)
     assert diff <= 2e-4, diff
     return dict(rate=rate, setup_s=setup, launches=launches, dev_ms=dev_ms,
-                gram_ms=gram_ms)
+                gram_ms=gram_ms, setup_breakdown=breakdown)
 
 
 def main() -> int:
@@ -923,12 +1097,23 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     _mark("imports and device query")
     for (src, defines), fut in BUILDS.items():
-        log, sec = fut.result()
+        so, log, sec = fut.result()
         print(f"[build] {src} {' '.join(defines)} built in {sec:.2f} s",
               flush=True)
         for line in log.splitlines() if not defines else ():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[build] {line.strip()}", flush=True)
+    # the spread kernels: registers and spills, and no atomic in the SASS
+    so, log, _ = BUILDS[("nufft.cu", ())].result()
+    for line in _kernel_resources(log, ("nu_spread",)):
+        print(f"[build] {line}", flush=True)
+    sass = _sass_atomics(so, ("nu_spread",))
+    for fn, n in sass.items():
+        print(f"[sass] {fn}: {n} ATOM/ATOMS/ATOMG/RED instructions",
+              flush=True)
+    if not sass:
+        print("[sass] cuobjdump not found: atomics not counted", flush=True)
+    assert not any(sass.values()), sass
     for mod in (ft, st, nu):
         mod.build()                     # loads the built library
     _mark("build")
@@ -1121,7 +1306,8 @@ def main() -> int:
             "bound_ms": mixed("bound_ms"), "bound_by": rs[top]["bound_by"],
             "library_ms": None, "path_mix": mix,
             "variants": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                                "max_abs_err")}
+                                                "max_abs_err", "phases")
+                             if f in v}
                          for k, v in rs.items()},
         })
     print(json.dumps({"kernels": kernels, "path_it_per_s": rate,

@@ -37,6 +37,7 @@ plan, and the Toeplitz options ``kernel_shift``, ``weights``,
 from __future__ import annotations
 
 import collections as _collections
+import contextlib as _contextlib
 import math as _math
 import warnings as _warnings
 
@@ -54,6 +55,15 @@ from pyxu_tpu_torch.utils.misc import next_fast_len
 __all__ = ["NUFFT", "ES_kernel", "nudft1", "nudft2"]
 
 _QUEUE = "is not ported yet: ROADMAP.md Queue 1 item 8"
+
+# Set-up tracing: None (off), or a callable(name) returning a context
+# manager that times the named part of a plan, a Toeplitz build or a
+# transform (chip_smoke.py's set-up breakdowns).
+SPAN = None
+
+
+def _span(name: str):
+    return SPAN(name) if SPAN is not None else _contextlib.nullcontext()
 
 
 # ----------------------------------------------------------- ES kernel -----
@@ -136,7 +146,8 @@ class _NUFFT12(LinOp):
         dtype = default_fdtype() if dtype is None else dtype
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype {dtype}: want float32 or float64")
-        xh = _points(x, dev)
+        with _span("points"):
+            xh = _points(x, dev)
         M, d = xh.shape
         N = (N,) * d if isinstance(N, (int, np.integer)) else tuple(
             int(n) for n in N)
@@ -165,15 +176,18 @@ class _NUFFT12(LinOp):
         self._nf = tuple(max(next_fast_len(int(np.ceil(upsampfac * n))),
                              2 * w + 1) for n in N)
         self._xh = xh
-        ph = np.ones((1,) * d)
-        for ax in range(d):
-            _, f = _phi_hat(N[ax], self._nf[ax], w, beta)
-            shape = [1] * d
-            shape[ax] = N[ax]
-            ph = ph * f.reshape(shape)
-        self._phihat = torch.from_numpy(1.0 / ph).to(device=dev, dtype=dtype)
+        with _span("phi_hat"):
+            ph = np.ones((1,) * d)
+            for ax in range(d):
+                _, f = _phi_hat(N[ax], self._nf[ax], w, beta)
+                shape = [1] * d
+                shape[ax] = N[ax]
+                ph = ph * f.reshape(shape)
+            self._phihat = torch.from_numpy(1.0 / ph).to(device=dev,
+                                                         dtype=dtype)
         plan = _kern.plan2 if d == 2 else _kern.plan3
-        self._plan = plan(xh, self._nf, w, beta, dtype)
+        with _span("plan"):
+            self._plan = plan(xh, self._nf, w, beta, dtype)
         self._spread = _kern.nufft_spread2 if d == 2 else _kern.nufft_spread3
         self._interp = _kern.nufft_interp2 if d == 2 else _kern.nufft_interp3
         self.kernel_path = "kernel"
@@ -232,13 +246,17 @@ class _NUFFT12(LinOp):
 
     def _t1(self, c):
         """Strengths (B, M, 2) -> modes (B, *N) complex."""
-        g = self._spread(c.contiguous(), self._plan)
-        return self._grid_to_modes(view_as_complex(g))
+        with _span("spread"):
+            g = self._spread(c.contiguous(), self._plan)
+        with _span("fft"):
+            return self._grid_to_modes(view_as_complex(g))
 
     def _t2(self, f):
         """Modes (B, *N) complex -> values (B, M, 2), isign -s."""
-        g = view_as_real(self._modes_to_grid(f)).contiguous()
-        return self._interp(g, self._plan)
+        with _span("fft"):
+            g = view_as_real(self._modes_to_grid(f)).contiguous()
+        with _span("interp"):
+            return self._interp(g, self._plan)
 
     # -- LinOp interface (real views) ----------------------------------------
     def apply(self, arr):
@@ -265,8 +283,9 @@ class _NUFFT12(LinOp):
         circulant kernel does not represent."""
         if self._real_in:
             return super().cogram()
-        return _NUFFTToeplitz(self._xh, self._N, self._isign, self._eps,
-                              dtype=self._dtype)
+        with _span("toeplitz build"):
+            return _NUFFTToeplitz(self._xh, self._N, self._isign, self._eps,
+                                  dtype=self._dtype)
 
 
 class _NUFFT2(LinOp):
@@ -276,8 +295,10 @@ class _NUFFT2(LinOp):
     def __init__(self, x, N, isign: int = -1, eps: float = 1e-6,
                  upsampfac: float = 2.0, real_in: bool = False, dtype=None,
                  device=None):
-        self._t1op = _NUFFT12(x, N, isign=-isign, eps=eps,
-                              upsampfac=upsampfac, dtype=dtype, device=device)
+        with _span("type-1 plan"):
+            self._t1op = _NUFFT12(x, N, isign=-isign, eps=eps,
+                                  upsampfac=upsampfac, dtype=dtype,
+                                  device=device)
         self._isign = int(np.sign(isign)) or -1
         self._real_in = bool(real_in)
         N_ = self._t1op._N
@@ -302,8 +323,9 @@ class _NUFFT2(LinOp):
         """A^H A on the mode grid by Toeplitz/circulant embedding (two FFTs
         per apply, no spread or interp; see :class:`_NUFFTToeplitz`)."""
         t1 = self._t1op
-        return _NUFFTToeplitz(t1._xh, t1._N, t1._isign, t1._eps,
-                              real_in=self._real_in, dtype=t1._dtype)
+        with _span("toeplitz build"):
+            return _NUFFTToeplitz(t1._xh, t1._N, t1._isign, t1._eps,
+                                  real_in=self._real_in, dtype=t1._dtype)
 
 
 class _NUFFTToeplitz(SelfAdjointOp):
@@ -341,31 +363,34 @@ class _NUFFTToeplitz(SelfAdjointOp):
         super().__init__(N if real_in else N + (2,))
         eps_T = min(eps, 1e-9) if dtype == torch.float64 else eps
         upsampfac = 1.25 if (d == 3 and eps_T >= 5e-5) else 2.0
-        t1 = _NUFFT12(xh, tuple(2 * n - 1 for n in N), isign=self._isign,
-                      eps=eps_T, upsampfac=upsampfac, dtype=dtype,
-                      device=xh.device)
+        with _span("type-1 plan"):
+            t1 = _NUFFT12(xh, tuple(2 * n - 1 for n in N),
+                          isign=self._isign, eps=eps_T, upsampfac=upsampfac,
+                          dtype=dtype, device=xh.device)
         self._build_params = t1.params()
         ones = torch.zeros((M, 2), dtype=dtype, device=xh.device)
         ones[:, 0] = 1.0
         T = view_as_complex(t1.apply(ones))             # (*(2N-1)) complex
-        T = torch.nn.functional.pad(
-            T, [v for p, n in zip(reversed(self._P), reversed(N))
-                for v in (0, p - (2 * n - 1))])
-        # index m of the build grid holds lag m - (n-1): rotate so that lag
-        # j sits at j mod P
-        T = torch.roll(T, shifts=tuple(-(n - 1) for n in N),
-                       dims=tuple(range(d)))
-        self._that = torch.fft.fftn(T).real.contiguous()
-        self._that_half = None
-        if real_in:
-            neg = self._that
-            for ax in range(d):
-                neg = torch.roll(torch.flip(neg, (ax,)), 1, ax)
-            lam_sym = 0.5 * (self._that + neg)
-            self._that_half = lam_sym[..., : self._P[-1] // 2 + 1] \
-                .contiguous()
+        with _span("pad, roll, fftn"):
+            T = torch.nn.functional.pad(
+                T, [v for p, n in zip(reversed(self._P), reversed(N))
+                    for v in (0, p - (2 * n - 1))])
+            # index m of the build grid holds lag m - (n-1): rotate so that
+            # lag j sits at j mod P
+            T = torch.roll(T, shifts=tuple(-(n - 1) for n in N),
+                           dims=tuple(range(d)))
+            self._that = torch.fft.fftn(T).real.contiguous()
+            self._that_half = None
+            if real_in:
+                neg = self._that
+                for ax in range(d):
+                    neg = torch.roll(torch.flip(neg, (ax,)), 1, ax)
+                lam_sym = 0.5 * (self._that + neg)
+                self._that_half = lam_sym[..., : self._P[-1] // 2 + 1] \
+                    .contiguous()
         # the largest circulant eigenvalue bounds the section's norm
-        self._lipschitz = float(self._that.max())
+        with _span("lipschitz read"):
+            self._lipschitz = float(self._that.max())
         self._name = f"NUFFTGram[d={d}]"
 
     def _conv(self, F):

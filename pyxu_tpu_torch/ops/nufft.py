@@ -13,14 +13,17 @@ per axis on the periodic fine grid ``nf = (n1, ..., nd)``::
     interp:  v_p = sum_{t1, ..., td} g[...] w1(t1) ... wd(td)
 
 with the ES weights ``w(t) = phi(z(t))``, ``phi(z) = exp(beta (sqrt(1 - z^2)
-- 1))`` on |z| <= 1 and ``z(t) = (t - off) * 2 / w``.  Values are complex as ``(..., 2)`` real
-pairs: strengths ``(B, M, 2)`` and grids ``(B, *nf, 2)``, points in
-their original order.
+- 1))`` on |z| <= 1 and ``z(t) = (t - off) * 2 / w``.  Values are complex
+as ``(..., 2)`` real pairs: strengths ``(B, M, 2)`` and grids ``(B, *nf,
+2)``, points in their original order.
 
 * :func:`plan2` / :func:`plan3` — the plan, built once on the points'
   device in float64: left taps and offsets per axis, the stable sort by
-  bin (32x32 in 2-D, :func:`bin3` in 3-D), and the subproblems (bins cut
-  into runs of at most ``MAX_SUB`` points).  Sorting and counting use
+  bin (32x32 in 2-D, :func:`bin3` in 3-D) and within a bin by spread bin
+  (``SPREAD_BIN`` cells a side), each spread bin's first point and count,
+  the interp's subproblems (bins cut into runs of at most ``MAX_SUB``
+  points) and the spread's tasks (:func:`spread_tasks`: the grid cut into
+  bins, the bins among many points into parts).  Sorting and counting use
   library calls (``argsort``, ``bincount``, ``cumsum``);
 * :func:`nufft_spread2_plain` / :func:`nufft_interp2_plain` and the ``3``
   forms — the plain PyTorch versions: ``index_add_`` of the w^d tap
@@ -31,7 +34,9 @@ their original order.
 * :func:`nufft_spread2` / :func:`nufft_interp2` and the ``3`` forms — the
   wrappers.  On a CUDA tensor they launch the hand-written kernels of
   ``csrc/nufft.cu`` (or raise); on a CPU tensor they run the plain
-  versions.  ``.launches`` counts kernel launches.
+  versions.  ``.launches`` counts kernel launches.  The spread kernel
+  writes every cell once, without atomics, so it needs no zeroed grid and
+  gives the same bits on every launch.
 
 The kernels take float32 and float64, 2 to 16 taps and any grid size.  An
 empty point set (M = 0) launches nothing: spread gives zeros, interp an
@@ -54,6 +59,8 @@ __all__ = [
     "plan2",
     "plan3",
     "bin3",
+    "neighbourhood",
+    "spread_tasks",
     "es_weights",
     "nufft_spread2_plain",
     "nufft_interp2_plain",
@@ -69,6 +76,13 @@ __all__ = [
 BIN = 32            # NU_BIN of csrc/nufft.cu: the 2-D bin side
 MAX_SUB = 1024      # most points of one subproblem (cuFINUFFT's default)
 MAX_W = 16          # NU_MAXW
+THREADS = 256       # NU_THREADS: threads of a spread block
+MAX_RUN = {2: 4, 3: 16}     # NU_RMAX2, NU_RMAX: most cells of one spread
+                            # thread's patch
+SPLIT = 8192        # spread: candidate points a task takes before its bin
+                    # is cut into parts
+SPREAD_BIN = {2: 8, 3: 4}   # spread bin side per axis (within a bin)
+MAX_SEG = 1024      # NU_MAXSEG: most spread bins one task reads
 SMEM_MAX = 232_448  # shared memory one block may opt in to (227 KB)
 TAPS_PER_CHUNK = 1 << 24    # plain versions: tap products per chunk
 _DTYPES = (torch.float32, torch.float64)
@@ -85,7 +99,13 @@ class Plan:
     so that ``i0 + w // 2`` lies in ``[0, n)``.  ``off`` (d, M) in
     ``dtype``: ``x / h - i0`` in ``(w/2 - 1, w/2]``, from float64.  ``sub``
     (n_sub, 3) int32: per subproblem the row-major bin index, its first
-    sorted point and its point count.
+    sorted point and its point count (the interp's blocks).
+
+    Within a bin the points are sorted by spread bin (``sbins`` per axis,
+    ``nsbins`` of them per axis over the grid; a bin holds whole spread
+    bins).  ``sbstart`` / ``sbcount`` (n_spread_bins,) int32: each
+    row-major spread bin's first sorted point and point count.  ``tasks``
+    (n_tasks, 4 d + 3) int32: the spread's blocks (:func:`spread_tasks`).
     """
 
     nf: tuple
@@ -98,6 +118,11 @@ class Plan:
     i0: torch.Tensor
     off: torch.Tensor
     sub: torch.Tensor
+    sbins: tuple
+    nsbins: tuple
+    sbstart: torch.Tensor
+    sbcount: torch.Tensor
+    tasks: torch.Tensor
 
     @property
     def d(self) -> int:
@@ -123,24 +148,174 @@ class Plan:
 def bin3(w: int, dtype: torch.dtype) -> tuple:
     """The 3-D bin side per axis for ``w`` taps in ``dtype``.
 
-    A block holds the bin's subgrid, the bin plus a w - 1 halo per axis,
-    in shared memory: ``(b1 + w - 1)(b2 + w - 1)(b3 + w - 1)`` complex
-    cells, 8 B each in float32 and 16 B in float64.  The spread adds every
-    subgrid cell into the grid with global atomics, so the halo's share of
-    the subgrid sets that pass's cost: the larger the bin, the smaller the
-    share.  Rule: the first of 16x16x16, 16x16x8 and 8x8x8 whose subgrid
-    fits half of the 227 KB a block may opt in to (two blocks an SM),
-    else 8x8x8, whose subgrid needs at most 23^3 x 16 B = 194,672 B
-    (w = 16, float64).  At w = 7 in float32, 16^3 bins (85,184 B) spread
-    2^21 points onto a 256^3 grid faster than cuFINUFFT's 3-D default
-    16x16x2 or than 8x8x8 on an H100 (``bench_nufft3_bins.py``; times in
-    PERF.md).
+    An interp block holds the bin's subgrid, the bin plus a w - 1 halo per
+    axis, in shared memory: ``(b1 + w - 1)(b2 + w - 1)(b3 + w - 1)``
+    complex cells, 8 B each in float32 and 16 B in float64.  A spread task
+    is the bin (or a part of it), and every point within w - 1 cells of
+    its edge is staged by each task it reaches: the larger the bin, the
+    smaller that share.  Rule: the first of 16x16x16, 16x16x8 and 8x8x8
+    whose subgrid fits half of the 227 KB a block may opt in to (two
+    blocks an SM), else 8x8x8, whose subgrid needs at most 23^3 x 16 B =
+    194,672 B (w = 16, float64).  At w = 7 in float32, 16^3 bins spread and
+    interpolate 2^21 points on a 256^3 grid faster than cuFINUFFT's 3-D
+    default 16x16x2 or than 8x8x8 on an H100 (``bench_nufft3_bins.py``;
+    times in PERF.md).
     """
     cell = 8 if dtype == torch.float32 else 16
     for bins in ((16, 16, 16), (16, 16, 8)):
         if math.prod(b + w - 1 for b in bins) * cell <= SMEM_MAX // 2:
             return bins
     return (8, 8, 8)
+
+
+def neighbourhood(o, e, n: int, b: int, nb: int, w: int):
+    """Bins along one axis whose points can tap the cells ``o .. o + e -
+    1`` (tensors) of an axis of ``n`` cells in ``nb`` bins of ``b``: the
+    run ``lo, lo + 1, ..., lo + cnt - 1`` (mod ``nb``), ``cnt <= nb``, so
+    no bin comes twice.
+
+    A point's left tap is ``base - w // 2`` with ``base`` in ``[0, n)``,
+    its bin ``base // b``; it taps cell ``c`` when ``base`` lies in
+    ``[c - (w - 1 - w // 2), c + w // 2]`` (mod ``n``).
+    """
+    x0 = torch.remainder(o - (w - 1 - w // 2), n)
+    x1 = x0 + e + w - 2                 # the last base, < 2 n unless all
+    lo = x0 // b
+    cnt = torch.where(x1 < n, x1 // b - lo + 1,
+                      nb - lo + (x1 - n) // b + 1)
+    full = (e + w - 1 >= n) | (cnt >= nb)
+    return torch.where(full, 0, lo), torch.where(full, nb, cnt)
+
+
+class _TaskGeometry:
+    """The spread's task decomposition (:func:`spread_tasks`) for one grid,
+    tap count, bin shape and spread-bin shape.  What depends on the grid
+    alone is computed on the host; what depends on the points, on their
+    device with no host read."""
+
+    def __init__(self, nf, w: int, bins, sbins):
+        if any(b & (b - 1) for b in bins):
+            raise ValueError(f"bins {bins}: the spread takes powers of 2")
+        self.nf, self.w, self.bins = tuple(nf), int(w), tuple(bins)
+        self.sbins = tuple(sbins)
+        self.nbins = tuple(-(-n // b) for n, b in zip(nf, bins))
+        self.nsbins = tuple(-(-n // b) for n, b in zip(nf, sbins))
+        rest = math.prod(bins[1:])
+        # planes of the widest task: at most MAX_RUN cells a thread, and
+        # no run longer than the last axis' bin
+        cap = THREADS * min(MAX_RUN[len(bins)], bins[-1]) // rest
+        if cap < 1:
+            raise ValueError(f"bins {bins}: a plane exceeds one block")
+        self.p_full = min(bins[0], 1 << (cap.bit_length() - 1))
+        # per axis and bin coordinate, the spread bins a whole bin reads
+        self.bin_ranges = [self._ranges(ax, *self._bin_origin(
+            torch.arange(nb), ax)) for ax, nb in enumerate(self.nbins)]
+        seg = math.prod(int(cnt.max()) for _, cnt in self.bin_ranges)
+        if seg > MAX_SEG:
+            raise ValueError(f"a task would read {seg} spread bins, more "
+                             f"than {MAX_SEG}")
+
+    def _ranges(self, ax: int, o, e):
+        return neighbourhood(o, e, self.nf[ax], self.sbins[ax],
+                             self.nsbins[ax], self.w)
+
+    def _bin_origin(self, q, ax: int):
+        o = q * self.bins[ax]
+        return o, torch.clamp(self.nf[ax] - o, max=self.bins[ax])
+
+    def split(self, sbcount: torch.Tensor):
+        """Per bin: its task count, the tasks' planes along axis 0 and rows
+        along axis 1, and the candidate points of one task (the sort key of
+        the tasks).  A bin whose spread bins hold ``cand`` points is cut
+        into the least power of 2 of tasks, ``parts``, with ``cand / parts
+        <= SPLIT``: first into slabs of fewer planes, down to one, then (in
+        3-D) each plane into strips of fewer rows, down to one."""
+        dev, d = sbcount.device, len(self.nf)
+        # sums over each bin's box of spread bins, axis by axis
+        cand = sbcount.reshape(self.nsbins)
+        for ax, (lo, cnt) in enumerate(self.bin_ranges):
+            k = torch.arange(int(cnt.max()))
+            idx = ((lo[:, None] + k) % self.nsbins[ax]).to(dev)
+            mask = (k < cnt[:, None]).to(device=dev, dtype=cand.dtype)
+            cand = (cand.movedim(ax, -1)[..., idx] * mask).sum(-1) \
+                .movedim(-1, ax)
+        cand = cand.reshape(-1)
+        rows = self.bins[1] if d == 3 else 1
+        most = self.p_full * rows
+        need = (cand + SPLIT - 1) // SPLIT
+        parts = torch.ones_like(cand)
+        p = 2
+        while p <= most:
+            parts = torch.where(need > p // 2, p, parts)
+            p *= 2
+        planes = torch.clamp(self.p_full // parts, min=1)
+        rows = torch.clamp(rows * self.p_full // parts, max=rows)
+        q = torch.arange(cand.numel(), device=dev)
+        e0 = self._bin_origin(q // math.prod(self.nbins[1:]), 0)[1]
+        n = (e0 + planes - 1) // planes
+        if d == 3:
+            e1 = self._bin_origin(q // self.nbins[2] % self.nbins[1], 1)[1]
+            n = n * ((e1 + rows - 1) // rows)
+        return n, planes, rows, cand // parts
+
+    def tasks(self, ntask, planes, rows, work, n_tasks: int) -> torch.Tensor:
+        """The task table, heaviest first (see :func:`spread_tasks`)."""
+        dev, d = ntask.device, len(self.nf)
+        tb = torch.repeat_interleave(
+            torch.arange(ntask.numel(), device=dev), ntask,
+            output_size=n_tasks)
+        first = torch.cumsum(ntask, 0) - ntask
+        s = torch.arange(n_tasks, device=dev) - first[tb]
+        P, V = planes[tb], rows[tb]
+        coords, rem = [], tb
+        for ax in reversed(range(d)):
+            coords.append(rem % self.nbins[ax])
+            rem = rem // self.nbins[ax]
+        coords.reverse()
+        cols = [[] for _ in range(4)]
+        for ax in range(d):
+            o, e = self._bin_origin(coords[ax], ax)
+            if ax < 2 and (ax == 0 or d == 3):
+                # slab s // strips, strip s % strips of the bin
+                e1 = self._bin_origin(coords[1], 1)[1]
+                strips = (e1 + V - 1) // V if d == 3 else 1
+                step, k = (P, s // strips) if ax == 0 else (V, s % strips)
+                o = o + k * step
+                e = torch.clamp(self.nf[ax] - o, max=step)
+                lo, cnt = self._ranges(ax, o, e)
+            else:
+                lo, cnt = (r.to(dev)[coords[ax]]
+                           for r in self.bin_ranges[ax])
+            for col, v in zip(cols, (o, e, lo, cnt)):
+                col.append(v)
+        cells = P * (V if d == 3 else 1) * self.bins[-1]
+        run = torch.clamp(cells // THREADS, min=1)
+        t = torch.stack(sum(cols, []) + [P, V, run], dim=1)
+        order = torch.argsort(work[tb], descending=True, stable=True)
+        return t[order].to(torch.int32).contiguous()
+
+
+def spread_tasks(plan: "Plan") -> dict:
+    """The spread's tasks of ``plan``, one CUDA block each, as named
+    columns (``plan.tasks`` decoded).
+
+    Every grid cell belongs to one task.  A task is a box of cells: its
+    ``origin`` and ``extent`` per axis, ``(n_tasks, d)``; a whole bin, or
+    where the points around the bin exceed ``SPLIT`` a part of it:
+    ``planes`` planes along axis 0 and (3-D) ``rows`` rows along axis 1,
+    powers of 2 (``extent`` is smaller at the grid's end).  ``lo`` and
+    ``cnt`` per axis: the spread bins whose points it reads
+    (:func:`neighbourhood` in units of ``plan.sbins``; the box of them, at
+    most ``MAX_SEG``).  Each thread owns a patch of ``run`` cells (a power
+    of 2, at most ``MAX_RUN[d]``): ``min(run, 4)`` along the last axis by
+    ``run / min(run, 4)`` rows along axis 1 (3-D); ``planes * rows *
+    bins[-1] / run <= THREADS``.  Tasks come heaviest first, by candidate
+    points a task.
+    """
+    t, d = plan.tasks.long(), plan.d
+    return dict(origin=t[:, :d], extent=t[:, d:2 * d], lo=t[:, 2 * d:3 * d],
+                cnt=t[:, 3 * d:4 * d], planes=t[:, 4 * d],
+                rows=t[:, 4 * d + 1], run=t[:, 4 * d + 2])
 
 
 def _plan(x: torch.Tensor, nf, w: int, beta: float, dtype: torch.dtype,
@@ -157,21 +332,43 @@ def _plan(x: torch.Tensor, nf, w: int, beta: float, dtype: torch.dtype,
     dev, M = x.device, x.shape[0]
     nf = tuple(int(n) for n in nf)
     hw = w // 2
+    sbins = tuple(min(SPREAD_BIN[d], b) for b in bins)
+    geom = _TaskGeometry(nf, w, bins, sbins)
+    nbins, nsbins = geom.nbins, geom.nsbins
     cols_i0, cols_off = [], []
     binid = torch.zeros(M, dtype=torch.int64, device=dev)
-    nbins = tuple(-(-n // b) for n, b in zip(nf, bins))
-    for ax, (n, b, nb) in enumerate(zip(nf, bins, nbins)):
+    local = torch.zeros_like(binid)        # the spread bin within the bin
+    sbid = torch.zeros_like(binid)         # the spread bin in the grid
+    for ax, (n, b, nb, sb, ns) in enumerate(zip(nf, bins, nbins, sbins,
+                                                nsbins)):
         xs = x[:, ax] / (2 * math.pi / n)
         i0 = torch.ceil(xs - w / 2.0)
         cols_off.append(xs - i0)
         base = torch.remainder(i0.to(torch.int64) + hw, n)   # in [0, n)
         cols_i0.append(base - hw)
         binid = binid * nb + base // b
-    perm = torch.argsort(binid, stable=True)
+        local = local * (b // sb) + (base % b) // sb
+        sbid = sbid * ns + base // sb
+    per_bin = math.prod(b // sb for b, sb in zip(bins, sbins))
+    key = binid * per_bin + local
+    perm = torch.argsort(key, stable=True)
     counts = torch.bincount(binid, minlength=math.prod(nbins))
     starts = torch.cumsum(counts, 0) - counts
+    kcount = torch.bincount(key, minlength=math.prod(nbins) * per_bin)
+    # each spread bin's key, from its coordinates
+    gkey = torch.zeros((), dtype=torch.int64, device=dev)
+    gloc = torch.zeros((), dtype=torch.int64, device=dev)
+    for b, nb, sb, ns in zip(bins, nbins, sbins, nsbins):
+        c = torch.arange(ns, device=dev)
+        gkey = gkey[..., None] * nb + c // (b // sb)
+        gloc = gloc[..., None] * (b // sb) + c % (b // sb)
+    gkey = (gkey * per_bin + gloc).reshape(-1)
+    sbstart = (torch.cumsum(kcount, 0) - kcount)[gkey]
+    sbcount = torch.bincount(sbid, minlength=math.prod(nsbins))
     nsub_bin = (counts + MAX_SUB - 1) // MAX_SUB
-    n_sub = int(nsub_bin.sum())                 # the plan's one host read
+    ntask, planes, rows, work = geom.split(sbcount)
+    # the plan's one host read: the interp's and the spread's block counts
+    n_sub, n_tasks = torch.stack([nsub_bin.sum(), ntask.sum()]).tolist()
     sub_bin = torch.repeat_interleave(
         torch.arange(counts.numel(), device=dev), nsub_bin, output_size=n_sub)
     k = (torch.arange(n_sub, device=dev)
@@ -183,7 +380,9 @@ def _plan(x: torch.Tensor, nf, w: int, beta: float, dtype: torch.dtype,
         nbins=nbins, perm=perm.to(torch.int32),
         i0=torch.stack(cols_i0)[:, perm].to(torch.int32).contiguous(),
         off=torch.stack(cols_off)[:, perm].to(dtype).contiguous(),
-        sub=sub.to(torch.int32).contiguous())
+        sub=sub.to(torch.int32).contiguous(), sbins=sbins, nsbins=nsbins,
+        sbstart=sbstart.to(torch.int32), sbcount=sbcount.to(torch.int32),
+        tasks=geom.tasks(ntask, planes, rows, work, n_tasks))
 
 
 def plan2(x: torch.Tensor, nf, w: int, beta: float,
@@ -220,31 +419,44 @@ def _chunks(plan: Plan):
     return [(lo, min(lo + step, plan.M)) for lo in range(0, plan.M, step)]
 
 
-def _taps(plan: Plan, lo: int, hi: int):
+def _taps(plan: Plan, sel):
     """Flat grid index and weight ``(m, w, ..., w)`` of the taps of the
-    sorted points ``lo:hi``."""
+    sorted points ``sel`` (a slice or an index tensor)."""
     t = torch.arange(plan.w, device=plan.device)
     idx = wt = None
     for ax, n in enumerate(plan.nf):
-        r = (plan.i0[ax, lo:hi].long()[:, None] + t) % n
-        wa = es_weights(plan.off[ax, lo:hi], plan.w, plan.beta)
+        r = (plan.i0[ax, sel].long()[:, None] + t) % n
+        wa = es_weights(plan.off[ax, sel], plan.w, plan.beta)
         if idx is None:
             idx, wt = r, wa
         else:
-            shape = (hi - lo,) + (1,) * ax + (plan.w,)
+            shape = (r.shape[0],) + (1,) * ax + (plan.w,)
             idx = idx[..., None] * n + r.reshape(shape)
             wt = wt[..., None] * wa.reshape(shape)
     return idx, wt
 
 
+def _bin_order(plan: Plan) -> torch.Tensor:
+    """The sorted points bin by bin, each bin's in their original order:
+    the plain spread's order of summation, which does not depend on how a
+    bin's points are sorted for the kernels."""
+    base = plan.i0.long() + plan.w // 2
+    binid = torch.zeros(plan.M, dtype=torch.int64, device=plan.device)
+    for ax, (b, nb) in enumerate(zip(plan.bins, plan.nbins)):
+        binid = binid * nb + base[ax] // b
+    return torch.argsort(binid * max(plan.M, 1) + plan.perm.long())
+
+
 def _spread_plain(c: torch.Tensor, plan: Plan) -> torch.Tensor:
     B, d = c.shape[0], plan.d
+    order = _bin_order(plan)
     perm = plan.perm.long()
     g = torch.zeros((B, math.prod(plan.nf), 2), dtype=c.dtype,
                     device=c.device)
     for lo, hi in _chunks(plan):
-        idx, wt = _taps(plan, lo, hi)
-        cs = c[:, perm[lo:hi]].reshape((B, hi - lo) + (1,) * d + (2,))
+        sel = order[lo:hi]
+        idx, wt = _taps(plan, sel)
+        cs = c[:, perm[sel]].reshape((B, hi - lo) + (1,) * d + (2,))
         vals = cs * wt[None, ..., None]
         g.index_add_(1, idx.reshape(-1), vals.reshape(B, -1, 2))
     return g.reshape((B,) + plan.nf + (2,))
@@ -256,7 +468,7 @@ def _interp_plain(g: torch.Tensor, plan: Plan) -> torch.Tensor:
     flat = g.reshape(B, -1, 2)
     out = torch.empty((B, plan.M, 2), dtype=g.dtype, device=g.device)
     for lo, hi in _chunks(plan):
-        idx, wt = _taps(plan, lo, hi)
+        idx, wt = _taps(plan, slice(lo, hi))
         vals = flat[:, idx.reshape(-1)].reshape(
             (B, hi - lo) + (plan.w,) * d + (2,))
         out[:, perm[lo:hi]] = torch.sum(vals * wt[None, ..., None],
@@ -300,16 +512,18 @@ def nufft_interp3_plain(g: torch.Tensor, plan: Plan) -> torch.Tensor:
 # ------------------------------------------------------------ CUDA kernels --
 
 @functools.cache
-def _library():
-    """Compile ``csrc/nufft.cu`` (once per source hash) and load it."""
-    lib, log = compile_and_load("nufft.cu")
-    for fn in (lib.nufft_spread2_launch, lib.nufft_interp2_launch):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+def _library(defines: tuple = ()):
+    """Compile ``csrc/nufft.cu`` (once per source hash and ``defines``)
+    and load it."""
+    lib, log = compile_and_load("nufft.cu", defines)
+    tail = [ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+    for fn, n_int in ((lib.nufft_spread2_launch, 10),
+                      (lib.nufft_spread3_launch, 13)):
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int + tail
         fn.restype = ctypes.c_int
-    for fn in (lib.nufft_spread3_launch, lib.nufft_interp3_launch):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [
-            ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+    for fn, n_int in ((lib.nufft_interp2_launch, 7),
+                      (lib.nufft_interp3_launch, 12)):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + tail
         fn.restype = ctypes.c_int
     lib.nufft_error_string.argtypes = [ctypes.c_int]
     lib.nufft_error_string.restype = ctypes.c_char_p
@@ -339,19 +553,24 @@ def _check(a: torch.Tensor, plan: Plan, d: int, core: tuple):
         raise ValueError("1 to 65535 batch elements per launch")
 
 
-def _launch(fn, src: torch.Tensor, dst: torch.Tensor, plan: Plan):
-    lib = _library()[0]
-    if plan.d == 2:
-        geom = (*plan.nf, plan.nbins[1])
+def _launch(fn, src: torch.Tensor, dst: torch.Tensor, plan: Plan,
+            lib=None):
+    lib = lib or _library()[0]
+    if fn.startswith("nufft_spread"):
+        ptrs = (plan.sbstart.data_ptr(), plan.sbcount.data_ptr(),
+                plan.tasks.data_ptr(), plan.tasks.shape[0])
+        geom = (*plan.nf, *plan.bins, *plan.nsbins)
     else:
-        geom = (*plan.nf, *plan.bins, *plan.nbins[1:])
+        ptrs = (plan.sub.data_ptr(), plan.sub.shape[0])
+        geom = ((*plan.nf, plan.nbins[1]) if plan.d == 2
+                else (*plan.nf, *plan.bins, *plan.nbins[1:]))
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = getattr(lib, fn)(
             src.data_ptr(), dst.data_ptr(), plan.perm.data_ptr(),
-            plan.i0.data_ptr(), plan.off.data_ptr(), plan.sub.data_ptr(),
-            plan.sub.shape[0], src.shape[0], plan.M, *geom,
-            plan.w, plan.beta, int(src.dtype == torch.float64), stream)
+            plan.i0.data_ptr(), plan.off.data_ptr(), *ptrs, src.shape[0],
+            plan.M, *geom, plan.w, plan.beta,
+            int(src.dtype == torch.float64), stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} "
                            f"({lib.nufft_error_string(err).decode()})")
@@ -362,10 +581,11 @@ def _spread(wrapper, c: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
         _plain_check(c, plan, d)
         return _spread_plain(c, plan)
     _check(c, plan, d, (plan.M, 2))
-    g = torch.zeros((c.shape[0],) + plan.nf + (2,), dtype=c.dtype,
-                    device=c.device)
+    shape = (c.shape[0],) + plan.nf + (2,)
     if plan.M == 0:
-        return g
+        return torch.zeros(shape, dtype=c.dtype, device=c.device)
+    # the kernel writes every cell once
+    g = torch.empty(shape, dtype=c.dtype, device=c.device)
     wrapper.launches += 1
     _launch(f"nufft_spread{d}_launch", c, g, plan)
     return g

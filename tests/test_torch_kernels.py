@@ -513,11 +513,19 @@ def test_nufft_plan_astype_keeps_the_geometry():
     gen = torch.Generator().manual_seed(2)
     c = torch.randn((1, 3000, 2), generator=gen)
     g = torch.randn((1, 50, 45, 2), generator=gen)
-    for plain, a in ((nu.nufft_spread2_plain, c), (nu.nufft_interp2_plain, g)):
-        got, want = plain(a, p), _ref(plain, a, p)
-        assert got.dtype == torch.float32 and want.dtype == torch.float64
-        assert float((got - want).abs().max()) <= 1e-5 * float(
-            want.abs().max())
+    # on one thread: a process's first multi-threaded index_add_ of this
+    # CPU build of torch now and then sums wrong (ROADMAP Queue 3 item 2)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for plain, a in ((nu.nufft_spread2_plain, c),
+                         (nu.nufft_interp2_plain, g)):
+            got, want = plain(a, p), _ref(plain, a, p)
+            assert got.dtype == torch.float32 and want.dtype == torch.float64
+            assert float((got - want).abs().max()) <= 1e-5 * float(
+                want.abs().max())
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_nufft_plan_covers_every_point_once():
@@ -608,8 +616,8 @@ def test_nufft_kernels_match_plain(cuda, kind, nf, w, dtype):
     torch.cuda.synchronize()
     assert (nu.nufft_spread2.launches, nu.nufft_interp2.launches) == (
         n0[0] + 1, n0[1] + 1)
-    # float atomics (spread) and the taps' summation order differ from the
-    # plain version's, run to run
+    # the taps' summation order differs from the plain version's (the
+    # spread sums without atomics, in an order the plan fixes)
     rel = 1e-5 if dtype == "float32" else 1e-12
     assert float((gk - gp).abs().max()) <= rel * float(gp.abs().max())
     assert float((vk - vp).abs().max()) <= rel * float(vp.abs().max())
@@ -796,6 +804,172 @@ def test_nufft3_wrappers_cpu_plain_and_meta_raise():
     assert (nu.nufft_spread3.launches, nu.nufft_interp3.launches) == n0
 
 
+# ----------------------------------------------- the spread's task geometry --
+
+def _geom_cases():
+    """(d, point set, grid, w, dtype, SPLIT): both dimensions, a dense
+    bin cut into slabs (a low SPLIT stands for a dense bin at test size),
+    grids smaller than a tile, w = 2, 7 and 16 in both dtypes (8^3 bins at
+    w = 16 in float64)."""
+    out = []
+    for dt in ("float32", "float64"):
+        for w in (2, 7, 16):
+            out += [(3, "origin", (40, 36, 33), w, dt, 64),
+                    (3, "uniform", (12, 20, 9), w, dt, nu.SPLIT),
+                    (2, "onebin", (64, 80), w, dt, 64),
+                    (2, "gauss", (20, 33), w, dt, nu.SPLIT)]
+    return out
+
+
+def _geom_plan(d, kind, nf, w, dt, M=2000):
+    if d == 3:
+        return _nu3_plan(kind, M, nf, w, getattr(torch, dt))
+    return _nu_plan(kind, M, nf, w, getattr(torch, dt))
+
+
+def _geom_id(case):
+    d, kind, nf, w, dt, split = case
+    return f"{d}d-{kind}-{'x'.join(map(str, nf))}-w{w}-{dt}-split{split}"
+
+
+@pytest.mark.parametrize("case", _geom_cases(), ids=_geom_id)
+def test_nufft_spread_tasks_cover_every_cell_once(case, monkeypatch):
+    """Every grid cell belongs to exactly one task, and each task's
+    threads hold its box: ``planes`` x ``rows`` (3-D) rows cut into
+    patches of ``run`` cells, at most ``THREADS`` of them."""
+    d, kind, nf, w, dt, split = case
+    monkeypatch.setattr(nu, "SPLIT", split)
+    p = _geom_plan(d, kind, nf, w, dt)
+    t = nu.spread_tasks(p)
+    hits = torch.zeros(nf, dtype=torch.int64)
+    for o, e in zip(t["origin"].tolist(), t["extent"].tolist()):
+        hits[tuple(slice(a, a + b) for a, b in zip(o, e))] += 1
+    assert bool((hits == 1).all())
+    bins, planes, rows, run = p.bins, t["planes"], t["rows"], t["run"]
+    for v in (planes, rows, run):
+        assert bool(((v & (v - 1)) == 0).all())
+    assert bool((run <= nu.MAX_RUN[d]).all())
+    # a thread's patch: run / rt rows (3-D) by rt = min(run, 4) cells
+    rt = torch.clamp(run, max=4)
+    assert bool((bins[-1] % rt == 0).all())
+    assert bool((rows % (run // rt) == 0).all())
+    cells = planes * rows * bins[-1]
+    assert bool((cells // run <= nu.THREADS).all())
+    assert bool((run == torch.clamp(cells // nu.THREADS, min=1)).all())
+    assert bool((t["extent"][:, 0] <= planes).all())
+    assert bool((t["origin"][:, 0] % planes == 0).all())
+    if d == 3:
+        assert bool((t["extent"][:, 1] <= rows).all())
+        assert bool((t["origin"][:, 1] % rows == 0).all())
+        assert bool((rows <= bins[1]).all())
+    else:
+        assert bool((rows == 1).all())
+    assert bool((t["origin"][:, -1] % bins[-1] == 0).all())
+    assert bool((t["extent"][:, -1] <= bins[-1]).all())
+    if split < nu.SPLIT:                # the dense bin is cut into parts
+        assert int(cells.min()) < int(cells.max())
+
+
+@pytest.mark.parametrize("case", _geom_cases(), ids=_geom_id)
+def test_nufft_spread_tasks_list_every_reaching_point(case, monkeypatch):
+    """Brute force: every point with a tap on a task's cells lies in a
+    spread bin of the task's neighbourhood, and none is listed twice."""
+    d, kind, nf, w, dt, split = case
+    monkeypatch.setattr(nu, "SPLIT", split)
+    p = _geom_plan(d, kind, nf, w, dt)
+    t = nu.spread_tasks(p)
+    taps = torch.arange(w)
+    reach = torch.ones((p.tasks.shape[0], p.M), dtype=torch.bool)
+    listed = torch.ones_like(reach)
+    for a in range(d):
+        cells = (p.i0[a].long()[:, None] + taps) % nf[a]       # (M, w)
+        o = t["origin"][:, a, None, None]
+        e = t["extent"][:, a, None, None]
+        reach &= ((cells >= o) & (cells < o + e)).any(-1)
+        cnt = t["cnt"][:, a]
+        assert bool((cnt <= p.nsbins[a]).all())
+        b = (p.i0[a].long() + w // 2) // p.sbins[a]      # the spread bin
+        k = (b[None, :] - t["lo"][:, a, None]) % p.nsbins[a]
+        listed &= k < cnt[:, None]
+    assert bool(reach.any(0).all())        # every point reaches a task
+    assert bool((~reach | listed).all())
+    assert int(t["cnt"].prod(1).max()) <= nu.MAX_SEG
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_nufft_bin_tables_agree_with_sub(d):
+    """``sbstart``/``sbcount`` give each spread bin's sorted points, one
+    run each, nested in the bins; summed over a bin they give the bin's
+    points as the subproblems that cut it do."""
+    for kind in (NU3_SETS if d == 3 else NU_SETS):
+        p = _geom_plan(d, kind, (40, 36, 33) if d == 3 else (50, 45), 7,
+                       "float32", M=3000)
+        nsb = math.prod(p.nsbins)
+        assert p.sbstart.shape == p.sbcount.shape == (nsb,)
+        assert p.sbstart.dtype == p.sbcount.dtype == torch.int32
+        assert all(b % s == 0 for b, s in zip(p.bins, p.sbins))
+        base = p.i0.long() + p.w // 2
+        sb = torch.zeros(p.M, dtype=torch.int64)
+        for a in range(d):
+            sb = sb * p.nsbins[a] + base[a] // p.sbins[a]
+        # each spread bin's points are the run sbstart + [0, sbcount)
+        start, count = p.sbstart.long(), p.sbcount.long()
+        assert torch.equal(torch.bincount(sb, minlength=nsb), count)
+        has = count > 0
+        owner = torch.repeat_interleave(torch.arange(nsb)[has], count[has])
+        assert torch.equal(sb[torch.cat([
+            torch.arange(a, a + n) for a, n in zip(start[has].tolist(),
+                                                   count[has].tolist())])],
+            owner)
+        # per bin: the runs of its spread bins make the subproblems' run
+        coords = torch.stack(torch.meshgrid(
+            *[torch.arange(n) for n in p.nsbins], indexing="ij"), -1)
+        bin_of = torch.zeros(p.nsbins, dtype=torch.int64)
+        for a in range(d):
+            bin_of = bin_of * p.nbins[a] + coords[..., a] // (
+                p.bins[a] // p.sbins[a])
+        bin_of = bin_of.reshape(-1)
+        nbins = math.prod(p.nbins)
+        bcount = torch.zeros(nbins, dtype=torch.int64).index_add_(
+            0, bin_of, count)
+        big = torch.iinfo(torch.int64).max
+        bfirst = torch.full((nbins,), big).scatter_reduce(
+            0, bin_of[has], start[has], "amin")
+        sub = p.sub.long()
+        scount = torch.zeros(nbins, dtype=torch.int64).index_add_(
+            0, sub[:, 0], sub[:, 2])
+        sfirst = torch.full((nbins,), big).scatter_reduce(
+            0, sub[:, 0], sub[:, 1], "amin")
+        assert torch.equal(bcount, scount)
+        assert torch.equal(bfirst, sfirst)
+
+
+@pytest.mark.parametrize("b", [2, 8, 16, 32])
+@pytest.mark.parametrize("w", [2, 3, 7, 16])
+def test_nufft_neighbourhood_matches_brute_force(b, w):
+    """Along one axis, for every task box (origin, extent) of grids of 1
+    to 70 cells: the listed bins are those holding a base that taps the
+    box, each once (all bins where the bases cover the axis)."""
+    for n in (1, 5, 9, 17, 33, 70):
+        nb = -(-n // b)
+        o, e = [], []
+        for o0 in range(0, n, max(1, b // 2)):
+            for e0 in {1, min(b, n - o0), max(1, min(b, n - o0) // 2)}:
+                o.append(o0)
+                e.append(e0)
+        lo, cnt = nu.neighbourhood(torch.tensor(o), torch.tensor(e), n, b,
+                                   nb, w)
+        for o0, e0, l0, c0 in zip(o, e, lo.tolist(), cnt.tolist()):
+            got = [(l0 + k) % nb for k in range(c0)]
+            assert len(set(got)) == len(got) <= nb
+            want = {base // b for base in range(n)
+                    for t in range(w)
+                    if o0 <= (base - w // 2 + t) % n < o0 + e0}
+            assert want <= set(got), (n, o0, e0)
+            if want:
+                assert set(got) == want or len(got) == nb
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("w", [2, 7, 10, 16])
@@ -818,8 +992,8 @@ def test_nufft3_kernels_match_plain(cuda, kind, nf, w, dtype):
     torch.cuda.synchronize()
     assert (nu.nufft_spread3.launches, nu.nufft_interp3.launches) == (
         n0[0] + 1, n0[1] + 1)
-    # float atomics (spread) and the taps' summation order differ from the
-    # plain version's, run to run
+    # the taps' summation order differs from the plain version's (the
+    # spread sums without atomics, in an order the plan fixes)
     rel = 1e-5 if dtype == "float32" else 1e-12
     assert float((gk - gp).abs().max()) <= rel * float(gp.abs().max())
     assert float((vk - vp).abs().max()) <= rel * float(vp.abs().max())
@@ -844,6 +1018,66 @@ def test_nufft3_kernels_few_points(cuda, M, dtype):
         assert not gk.any()
     else:
         assert float((vk - vp).abs().max()) <= rel * float(vp.abs().max())
+
+
+def _spread_case(d, kind, M, nf, w, dt, cuda, seed=3):
+    p = (_nu3_plan if d == 3 else _nu_plan)(kind, M, nf, w, dt, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    c = torch.randn((2, M, 2), generator=gen, device=cuda, dtype=dt)
+    spread = nu.nufft_spread3 if d == 3 else nu.nufft_spread2
+    plain = nu.nufft_spread3_plain if d == 3 else nu.nufft_spread2_plain
+    return p, c, spread, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_nufft_spread_launches_are_bit_identical(cuda, d, dtype):
+    """No atomics: two launches give the same bits, on every point set."""
+    dt = getattr(torch, dtype)
+    nf = (40, 36, 33) if d == 3 else (64, 80)
+    for kind in (NU3_SETS if d == 3 else NU_SETS):
+        p, c, spread, _ = _spread_case(d, kind, 5000, nf, 7, dt, cuda)
+        assert torch.equal(spread(c, p), spread(c, p)), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_nufft_spread_dense_bin_split_by_cells(cuda, d, dtype):
+    """70,000 points, half or all of them in one bin: the plan cuts the
+    tiles around it into slabs of cells and leaves the far ones whole;
+    against the plain version, and two launches bit-identical."""
+    dt = getattr(torch, dtype)
+    kind, nf = (("origin", (80, 72, 66)) if d == 3
+                else ("onebin", (256, 200)))
+    p, c, spread, plain = _spread_case(d, kind, 70_000, nf, 7, dt, cuda)
+    t = nu.spread_tasks(p)
+    cells = t["planes"] * t["rows"]
+    assert int(cells.min()) < int(cells.max())
+    gk, gp = spread(c, p), _ref(plain, c, p)
+    assert torch.equal(gk, spread(c, p))
+    rel = 1e-5 if dtype == "float32" else 1e-12
+    assert float((gk - gp).abs().max()) <= rel * float(gp.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [16, 256, 2048])
+@pytest.mark.parametrize("w", [2, 7, 16])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_nufft_spread_split_tasks_match_plain(cuda, monkeypatch, d, dtype,
+                                              w, split):
+    """Every run length of the kernel (1 to 16 cells a thread): SPLIT
+    lowered so that bins are cut into slabs of 1 to 16 planes (and, in
+    3-D, strips of 1 to 8 rows) at test size."""
+    monkeypatch.setattr(nu, "SPLIT", split)
+    dt = getattr(torch, dtype)
+    kind, nf = ("cluster", (40, 36, 33)) if d == 3 else ("gauss", (50, 45))
+    p, c, spread, plain = _spread_case(d, kind, 3000, nf, w, dt, cuda)
+    gk, gp = spread(c, p), _ref(plain, c, p)
+    rel = 1e-5 if dtype == "float32" else 1e-12
+    assert float((gk - gp).abs().max()) <= rel * float(gp.abs().max())
 
 
 @pytest.mark.cuda
