@@ -8,8 +8,9 @@ Phases:
 1. device line (name and power limit from ``nvidia-smi``, torch and CUDA
    versions) and the build of the CUDA kernels from ``pyxu_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together before torch is
-   imported); the NUFFT spread kernels' registers and spills, and the count
-   of atomic instructions in their SASS (``cuobjdump``), which must be 0;
+   imported); the NUFFT spread kernels' registers and spills (and the
+   interps' at w = 7), and the count of atomic instructions in the SASS of
+   both (``cuobjdump``), which must be 0;
 2. kernels at 2160x3840: the fused-TV kernels with the workload's taps and
    step sizes (f32 state, and bf16 dual storage; ``tv_step`` and
    ``tv_stepk`` at the TV path's depth, or at ``KSTEP_CHECK`` when the path
@@ -41,10 +42,12 @@ Phases:
    w = 7) on three point sets (uniform, the RI workload's Gaussian uv, a
    clustered set), and the spread of ones that builds the RI path's
    Toeplitz kernel (the Gaussian uv on its 4096x4096 grid), each against
-   its plain version in float32 and float64, timed in float32; each spread
-   launched twice must give the same bits, and its time is split by two
-   timing-only builds (``NU_PHASES``: the walk over the candidates, the
-   staging, the adds; ``[split]`` lines); the ``kernels`` line gives each
+   its plain version in float32 and float64, timed in float32; each
+   spread and interp launched twice must give the same bits; a spread's
+   time is split by two timing-only builds (``NU_PHASES``: the walk over
+   the candidates, the staging, the adds), an interp's by three
+   (``NU_INTERP_PHASES``: the subgrid load, the taps, the point data read
+   and results stored), ``[split]`` lines; the ``kernels`` line gives each
    kernel's times as the RI path's launch-weighted mix of these cases;
 6. the NUFFT's type 1 and type 2 at N = 256x256, M = 4000 against a direct
    NUDFT in float64 on the card;
@@ -109,6 +112,11 @@ ST_SWEEP = ((), ("ST_NBUF=8",), ("ST_NBUF=2",), ("ST_SR=16", "ST_FILL=1"),
 # adds into the cells, and without the staging too (the walk over the
 # candidates and the output's stores)
 NU_PHASES = (("NU_TIME_NO_ACC",), ("NU_TIME_NO_STAGE",))
+# timing-only builds of csrc/nufft.cu's interp (wrong values): the subgrid
+# loaded and zeros written, the taps run on whatever shared memory holds,
+# and neither (the point data read and the results' stores)
+NU_INTERP_PHASES = (("NU_TIME_INTERP_NO_TAPS",), ("NU_TIME_INTERP_NO_LOAD",),
+                    ("NU_TIME_INTERP_NO_TAPS", "NU_TIME_INTERP_NO_LOAD"))
 
 
 def _start_builds():
@@ -126,7 +134,7 @@ def _start_builds():
     spec.loader.exec_module(mod)
     jobs = [(src, ()) for src in SOURCES] + [
         ("stencil.cu", d) for d in ST_SWEEP if d] + [
-        ("nufft.cu", d) for d in NU_PHASES]
+        ("nufft.cu", d) for d in NU_PHASES + NU_INTERP_PHASES]
 
     def timed(job):
         t0 = time.perf_counter()
@@ -590,6 +598,28 @@ def _spread_phases(nu, name, a, p, ms):
     return dict(walk_ms=walk, stage_ms=no_acc - walk, add_ms=ms - no_acc)
 
 
+def _interp_phases(nu, name, a, p, ms):
+    """The interp's time split by the ``NU_INTERP_PHASES`` builds: the
+    stores alone (the point data read, the results written), the subgrid
+    load and the taps, each over the stores, and the overlap of load and
+    taps (their sum over the stores against ``ms``, the source's own
+    build).  Returns a dict."""
+    t = {}
+    for defines in NU_INTERP_PHASES:
+        lib = nu._library(defines)[0]
+
+        def run(lib=lib):
+            out = torch.empty((a.shape[0], p.M, 2), dtype=a.dtype,
+                              device=a.device)
+            nu._launch(f"{name}_launch", a, out, p, lib)
+        t[defines] = _time_ms(run, reps=5)
+    stores = t[NU_INTERP_PHASES[2]]
+    load = t[NU_INTERP_PHASES[0]] - stores
+    taps = t[NU_INTERP_PHASES[1]] - stores
+    return dict(load_ms=load, taps_ms=taps, stores_ms=stores,
+                overlap_ms=load + taps + stores - ms)
+
+
 def _nu_check(tag, kern, plain, a, p, dt, twice=False):
     """Hold one NUFFT kernel call against its plain version run in float64
     on the same plan (``Plan.astype``; a float32 running sum of the
@@ -668,8 +698,7 @@ def nufft_kernel_phase(nu):
                 plain = getattr(nu, name + "_plain")
                 tag = (f"{name}[{case}, {grid[0]}x{grid[1]}, "
                        f"{str(dt)[6:]}]")
-                err = _nu_check(tag, kern, plain, a, p, dt,
-                                twice="spread" in name)
+                err = _nu_check(tag, kern, plain, a, p, dt, twice=True)
                 if dt == torch.float32:
                     ms = _time_ms(lambda: kern(a, p))
                     plain_ms = _time_ms(lambda: plain(a, p), reps=2, runs=3)
@@ -682,12 +711,12 @@ def nufft_kernel_phase(nu):
                                             plain_ms=plain_ms,
                                             bound_ms=bound_ms,
                                             bound_by=bound_by)
-                    if "spread" in name:
-                        ph = _spread_phases(nu, name, a, p, ms)
-                        print(f"[split] {tag} " + " ".join(
-                            f"{k}={v:.4f}" for k, v in ph.items()),
-                            flush=True)
-                        recs[name][case]["phases"] = ph
+                    split = (_spread_phases if "spread" in name
+                             else _interp_phases)
+                    ph = split(nu, name, a, p, ms)
+                    print(f"[split] {tag} " + " ".join(
+                        f"{k}={v:.4f}" for k, v in ph.items()), flush=True)
+                    recs[name][case]["phases"] = ph
                 else:
                     recs[name][case]["max_abs_err_f64"] = err
                 del p
@@ -867,8 +896,7 @@ def nufft3_kernel_phase(nu):
                 kern = getattr(nu, name)
                 plain = getattr(nu, name + "_plain")
                 tag = f"{name}[{case}, {grid[0]}^3, {str(dt)[6:]}]"
-                err = _nu_check(tag, kern, plain, a, p, dt,
-                                twice="spread" in name)
+                err = _nu_check(tag, kern, plain, a, p, dt, twice=True)
                 if dt == torch.float32:
                     ms = _time_ms(lambda: kern(a, p), reps=5)
                     plain_ms = _time_ms(lambda: plain(a, p), reps=2, runs=3)
@@ -881,12 +909,12 @@ def nufft3_kernel_phase(nu):
                                             plain_ms=plain_ms,
                                             bound_ms=bound_ms,
                                             bound_by=bound_by)
-                    if "spread" in name:
-                        ph = _spread_phases(nu, name, a, p, ms)
-                        print(f"[split] {tag} " + " ".join(
-                            f"{k}={v:.4f}" for k, v in ph.items()),
-                            flush=True)
-                        recs[name][case]["phases"] = ph
+                    split = (_spread_phases if "spread" in name
+                             else _interp_phases)
+                    ph = split(nu, name, a, p, ms)
+                    print(f"[split] {tag} " + " ".join(
+                        f"{k}={v:.4f}" for k, v in ph.items()), flush=True)
+                    recs[name][case]["phases"] = ph
                 else:
                     recs[name][case]["max_abs_err_f64"] = err
                 del p
@@ -1100,17 +1128,26 @@ def main() -> int:
         so, log, sec = fut.result()
         print(f"[build] {src} {' '.join(defines)} built in {sec:.2f} s",
               flush=True)
-        for line in log.splitlines() if not defines else ():
+        # nufft.cu's 70 kernels: the named lines below
+        quiet = defines or src == "nufft.cu"
+        for line in log.splitlines() if not quiet else ():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[build] {line.strip()}", flush=True)
-    # the spread kernels: registers and spills, and no atomic in the SASS
+    # the NUFFT kernels: registers and spills (the spreads, and the interps
+    # at the paths' w = 7 in float32), and no atomic in the SASS
     so, log, _ = BUILDS[("nufft.cu", ())].result()
-    for line in _kernel_resources(log, ("nu_spread",)):
+    w7 = ("nu_interp_kernelIfLi2ELi7E", "nu_interp_kernelIfLi3ELi7E")
+    for line in _kernel_resources(log, ("nu_spread",) + w7):
         print(f"[build] {line}", flush=True)
-    sass = _sass_atomics(so, ("nu_spread",))
+    sass = _sass_atomics(so, ("nu_spread", "nu_interp"))
     for fn, n in sass.items():
-        print(f"[sass] {fn}: {n} ATOM/ATOMS/ATOMG/RED instructions",
-              flush=True)
+        if "nu_spread" in fn:
+            print(f"[sass] {fn}: {n} ATOM/ATOMS/ATOMG/RED instructions",
+                  flush=True)
+    interps = [n for fn, n in sass.items() if "nu_interp" in fn]
+    if interps:
+        print(f"[sass] nu_interp_kernel ({len(interps)} instantiations): "
+              f"{sum(interps)} ATOM/ATOMS/ATOMG/RED instructions", flush=True)
     if not sass:
         print("[sass] cuobjdump not found: atomics not counted", flush=True)
     assert not any(sass.values()), sass

@@ -69,14 +69,39 @@
 // points of all of its neighbourhood, so that one bin does not serialise a
 // block; the heaviest tasks launch first.  Times and their split: PERF.md.
 //
-// Interp: the cuFINUFFT subproblem method.  The plan splits bins of more
-// than MAX_SUB points into subproblems, one block per (subproblem, batch
-// element): load the bin's padded subgrid, the bin plus a w-1 halo per axis
-// (wrapping), into shared memory; each thread sums one point's w^d taps and
-// writes the result to the point's original index.  The 3-D interp is this
-// shared-memory design too, not cuFINUFFT's global-memory gather; a 3-D
-// subgrid above the 48 KB default opts in to more shared memory (up to
-// 227 KB).  No TMA, no clusters.
+// Interp: the cuFINUFFT subproblem method, redesigned for Hopper.  The
+// plan splits bins of more than MAX_SUB points into subproblems.  What
+// bounded the first design (PERF.md, the split of its time by the
+// NU_TIME_INTERP_* builds below): in 3-D the taps (two 4-byte shared
+// reads a tap, 32 lanes at 32 random cells, runtime-w loops) and the
+// subgrid load (integer divisions a cell; then, per row, a copy
+// instruction's fixed cost); in 2-D the taps and the results' scattered
+// stores.  The design:
+//   - the subgrid, the bin plus a w - 1 halo per axis (wrapping), comes
+//     into shared memory row by row as bulk copies of the tensor memory
+//     accelerator (cp.async.bulk, one a row, two where a row wraps), each
+//     issued by one thread that walks its grid rows incrementally, and
+//     completing on an mbarrier; rows that are not 16-byte aligned (a
+//     float32 grid with an odd last side) copy by cp.async a cell;
+//   - the taps are fixed at compile time (w = 2..16, a switch picks), each
+//     one 16- or 8-byte shared read, the next point's data fetched while
+//     this one's taps run;
+//   - 3-D: a group of 16 lanes sums one point (NuTapShape): lanes along the
+//     last axis (two cells a read in float32 up to w = 7), rows stacked,
+//     the row pitch padded so that the rows one wavefront serves fall on
+//     disjoint banks; each ES weight evaluated once in the group and
+//     shuffled; the group's sum by shuffles in a fixed order.  Blocks of
+//     512 threads, two an SM, so one block's copy runs beside the other's
+//     taps;
+//   - 2-D (49 taps at w = 7, fewer than a group's shuffles would cost): a
+//     thread sums one point, with two accumulator pairs, in blocks of 128
+//     threads, eight an SM.
+// No atomics: two launches give the same bits.  What bounds it now: the
+// taps' shared-memory wavefronts and issue slots (3-D: 28 wavefronts a
+// point at w = 7, 49 of 64 lanes' reads used); times in PERF.md.  Tensor
+// cores are left out: one point's taps share no operand with another's,
+// and a dense product of the subgrid with per-point weights does about 6x
+// the work.
 
 #include <cuda_runtime.h>
 
@@ -87,14 +112,6 @@
 #define NU_CHUNK 128     // spread: points staged in shared memory at a time
 #define NU_RMAX 16       // spread: most cells a thread owns in 3-D, and
 #define NU_RMAX2 4       // in 2-D (ops/nufft.py MAX_RUN)
-
-struct NuArgs {
-  int n1, n2;     // fine grid
-  int nb2;        // bins along axis 1
-  int w, hw;      // taps per axis, w / 2
-  int M;          // points
-  double beta;
-};
 
 __device__ __forceinline__ float nu_exp(float v) { return expf(v); }
 __device__ __forceinline__ double nu_exp(double v) { return exp(v); }
@@ -625,177 +642,562 @@ static int nu_spread_dispatch(int D, const void* c, void* g,
 
 // --------------------------------------------------------------- interp --
 
-template <typename T>
-__global__ void __launch_bounds__(NU_THREADS)
-nu_interp_kernel(const T* __restrict__ g, T* __restrict__ out,
-                 const int* __restrict__ perm, const int* __restrict__ i0,
-                 const T* __restrict__ off, const int* __restrict__ sub,
-                 NuArgs a) {
-  extern __shared__ __align__(16) unsigned char nu_smem[];
-  T* S = reinterpret_cast<T*>(nu_smem);
-  const int SS = NU_BIN + a.w - 1;
-  const int bin = sub[3 * blockIdx.x], first = sub[3 * blockIdx.x + 1];
-  const int last = first + sub[3 * blockIdx.x + 2];
-  const int b1 = bin / a.nb2, b2 = bin - b1 * a.nb2;
-  const int o1 = b1 * NU_BIN - a.hw, o2 = b2 * NU_BIN - a.hw;
-  g += 2 * (long)blockIdx.y * a.n1 * a.n2;
-  out += 2 * (long)blockIdx.y * a.M;
-  for (int q = threadIdx.x; q < SS * SS; q += blockDim.x) {
-    const int u = q / SS, v = q - u * SS;
-    const T* src = g + 2 * ((long)nu_wrap(o1 + u, a.n1) * a.n2 +
-                            nu_wrap(o2 + v, a.n2));
-    S[2 * q] = src[0];
-    S[2 * q + 1] = src[1];
-  }
-  __syncthreads();
+// timing-only builds (wrong values; chip_smoke.py NU_INTERP_PHASES):
+// NU_TIME_INTERP_NO_TAPS loads the subgrid and writes zeros,
+// NU_TIME_INTERP_NO_LOAD runs the taps on whatever shared memory holds,
+// NU_TIME_INTERP_LOAD_ONLY loads the subgrids and stops.  These builds,
+// the spread's and the sweeps' (-D NU_INTERP_W7_ONLY) instantiate the
+// interp at w = 7 only.
+#if defined(NU_TIME_INTERP_NO_TAPS) || defined(NU_TIME_INTERP_NO_LOAD) || \
+    defined(NU_TIME_NO_ACC) || defined(NU_TIME_INTERP_LOAD_ONLY)
+#define NU_INTERP_W7_ONLY
+#endif
 
-  const T beta = (T)a.beta, scale = (T)(2.0 / a.w);
-  for (int j = first + threadIdx.x; j < last; j += blockDim.x) {
-    const T off1 = off[j], off2 = off[a.M + j];
-    T w2[NU_MAXW];
-#pragma unroll
-    for (int t = 0; t < NU_MAXW; ++t)
-      if (t < a.w) w2[t] = nu_weight(off2, t, scale, beta);
-    const int l1 = i0[j] - o1, l2 = i0[a.M + j] - o2;
-    T re = T(0), im = T(0);
-    for (int t1 = 0; t1 < a.w; ++t1) {
-      const T v1 = nu_weight(off1, t1, scale, beta);
-      const T* row = S + 2 * ((l1 + t1) * SS + l2);
-#pragma unroll
-      for (int t2 = 0; t2 < NU_MAXW; ++t2) {
-        if (t2 < a.w) {
-          const T wt = v1 * w2[t2];
-          re += row[2 * t2] * wt;
-          im += row[2 * t2 + 1] * wt;
-        }
-      }
-    }
-    const long p = perm[j];
-    out[2 * p] = re;
-    out[2 * p + 1] = im;
-  }
-}
+#define NU_GROUP 16      // interp: lanes that sum one point's taps
 
-template <typename T>
-static int nu_interp_launch(const void* g, void* out, const void* perm,
-                            const void* i0, const void* off, const void* sub,
-                            int nsub, int B, const NuArgs& a,
-                            cudaStream_t stream) {
-  const int SS = NU_BIN + a.w - 1;
-  const size_t smem = (size_t)2 * SS * SS * sizeof(T);   // <= 35,344 B
-  nu_interp_kernel<T><<<dim3(nsub, B), NU_THREADS, smem, stream>>>(
-      (const T*)g, (T*)out, (const int*)perm, (const int*)i0, (const T*)off,
-      (const int*)sub, a);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ 3-D --
-
-struct Nu3Args {
-  int n1, n2, n3;     // fine grid
-  int b1, b2, b3;     // bin side per axis
-  int nb2, nb3;       // bins along axes 1 and 2
-  int s1, s2, s3;     // subgrid side per axis: b + w - 1
-  int w, hw;          // taps per axis, w / 2
-  int M;              // points
+struct NuInterpArgs {
+  int n[3];       // grid sides
+  int b[3];       // bin sides
+  int nb[3];      // bins per axis
+  int s[3];       // subgrid sides loaded: b + w - 1, the last axis rounded
+                  // up to whole reads
+  int sl;         // the subgrid's row pitch in cells (ops/nufft.py
+                  // interp_subgrid)
+  int a16;        // 1 where the grid's base address is 16-byte aligned
+  int M;          // points
   double beta;
 };
 
-// subgrid cell (0, 0, 0) of the block's bin, in global grid indices
-__device__ __forceinline__ void nu3_origin(int bin, const Nu3Args& a,
-                                           int& o1, int& o2, int& o3) {
-  const int q = bin / a.nb3, c3 = bin - q * a.nb3;
-  const int c1 = q / a.nb2, c2 = q - c1 * a.nb2;
-  o1 = c1 * a.b1 - a.hw;
-  o2 = c2 * a.b2 - a.hw;
-  o3 = c3 * a.b3 - a.hw;
+// How a point's group of NU_GROUP lanes reads its taps (ops/nufft.py
+// tap_shape mirrors it): each lane reads C cells of the last axis in one
+// 16-byte (f32 up to w = 7: two cells) or 8-byte read, from an aligned
+// start, so L lanes cover a row's w taps; the group reads R rows a step,
+// K steps a plane.  A shared-memory wavefront serves PH lanes.
+template <typename T, int W>
+struct NuTapShape {
+  static constexpr int C = (sizeof(T) == 4 && W <= 7) ? 2 : 1;
+  static constexpr int NEED = (W + 2 * C - 2) / C;
+  static constexpr int L = NEED <= 2 ? 2 : NEED <= 4 ? 4 : NEED <= 8 ? 8 : 16;
+  static constexpr int R = NU_GROUP / L;
+  static constexpr int K = (W + R - 1) / R;
+  static constexpr int PH = 128 / (C * 2 * (int)sizeof(T));
+  // cells in 16 bytes; in float32 the subgrid's columns start X0 cells
+  // left of the bin's halo and its rows hold an even count, so that a row
+  // that lies inside the grid starts and ends on 16-byte boundaries
+  static constexpr int E = 16 / (2 * (int)sizeof(T));
+  static constexpr int X0 = E == 2 ? (W / 2) % 2 : 0;
+};
+
+template <typename T, int C> struct NuRead;
+template <> struct NuRead<float, 2> { typedef float4 type; };
+template <> struct NuRead<float, 1> { typedef float2 type; };
+template <> struct NuRead<double, 1> { typedef double2 type; };
+
+// one complex cell from global to shared memory, asynchronously
+template <typename V2>
+__device__ __forceinline__ void nu_cp_cell(V2* dst, const V2* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(V2) == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src));
 }
 
-__device__ __forceinline__ long nu3_global(int u, int v, int t, int o1,
-                                           int o2, int o3, const Nu3Args& a) {
-  return ((long)nu_wrap(o1 + u, a.n1) * a.n2 + nu_wrap(o2 + v, a.n2)) * a.n3 +
-         nu_wrap(o3 + t, a.n3);
+// the weight of tap t along axis AX of the group's point: lane gl of the
+// group evaluated tap gl % 8 of axis PER q + gl / 8 into phi[q] (PER = 2)
+// or tap gl of axis q (PER = 1)
+template <int AX, int PER, typename T, int ROUNDS>
+__device__ __forceinline__ T nu_tap_weight(const T (&phi)[ROUNDS], int t) {
+  return __shfl_sync(0xffffffffu, phi[AX / PER],
+                     (PER == 2 ? (AX % PER) * 8 : 0) + t, NU_GROUP);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NU_THREADS)
-nu_interp3_kernel(const T* __restrict__ g, T* __restrict__ out,
-                  const int* __restrict__ perm, const int* __restrict__ i0,
-                  const T* __restrict__ off, const int* __restrict__ sub,
-                  Nu3Args a) {
-  extern __shared__ __align__(16) unsigned char nu_smem[];
-  T* S = reinterpret_cast<T*>(nu_smem);
-  const int cells = a.s1 * a.s2 * a.s3, plane = a.s2 * a.s3;
-  const int first = sub[3 * blockIdx.x + 1];
-  const int last = first + sub[3 * blockIdx.x + 2];
-  int o1, o2, o3;
-  nu3_origin(sub[3 * blockIdx.x], a, o1, o2, o3);
-  g += 2 * (long)blockIdx.y * a.n1 * a.n2 * a.n3;
-  out += 2 * (long)blockIdx.y * a.M;
-  for (int q = threadIdx.x; q < cells; q += blockDim.x) {
-    const int u = q / plane, r = q - u * plane;
-    const int v = r / a.s3, t = r - v * a.s3;
-    const T* src = g + 2 * nu3_global(u, v, t, o1, o2, o3, a);
-    S[2 * q] = src[0];
-    S[2 * q + 1] = src[1];
-  }
-  __syncthreads();
+// mbarrier and bulk-copy (TMA) helpers, shared::cta addresses
+__device__ __forceinline__ void nu_bar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
-  const T beta = (T)a.beta, scale = (T)(2.0 / a.w);
-  for (int j = first + threadIdx.x; j < last; j += blockDim.x) {
-    const T off1 = off[j], off2 = off[a.M + j], off3 = off[2 * a.M + j];
-    T w2[NU_MAXW], w3[NU_MAXW];
-#pragma unroll
-    for (int t = 0; t < NU_MAXW; ++t) {
-      if (t < a.w) {
-        w2[t] = nu_weight(off2, t, scale, beta);
-        w3[t] = nu_weight(off3, t, scale, beta);
+__device__ __forceinline__ void nu_bar_expect(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void nu_bar_wait(unsigned bar, unsigned phase) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "NU_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra NU_WAIT;\n\t}\n" ::"r"(bar),
+      "r"(phase)
+      : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on the mbarrier bar
+__device__ __forceinline__ void nu_bulk(unsigned dst, const void* src,
+                                        unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Start copying a subgrid into sg: sides a.s, rows of a.sl cells, grid
+// cells (o + index) mod n.  Each thread copies whole rows, walking its rows
+// and their wrapped grid rows incrementally (no division a row).  Where
+// every row is 16-byte aligned (bulk: float64, or an even last side in
+// float32) a row is one bulk copy of the tensor memory accelerator, or two
+// where it wraps along the last axis, all completing on the mbarrier bar;
+// else a cp.async a cell, in one commit group.
+template <typename T, int D, int W, int NT>
+__device__ __forceinline__ void nu_interp_issue(
+    const T* g, typename NuVec2<T>::type* sg, const int (&o)[D],
+    const NuInterpArgs& a, bool bulk, unsigned bar) {
+  typedef typename NuVec2<T>::type V2;
+  constexpr int LA = D - 1;
+  const int tid = threadIdx.x;
+  const int s1 = D == 3 ? a.s[1] : 1, n1 = D == 3 ? a.n[1] : 1;
+  const int sc = a.s[LA], nl = a.n[LA], ol = o[LA];
+  if (bulk && tid == 0)
+    nu_bar_expect(bar, (unsigned)(a.s[0] * s1 * sc * sizeof(V2)));
+  // this thread's rows tid, tid + NT, ... as (u, v) and grid rows
+  int u = tid / s1, v = tid - u * s1;
+  const int du = NT / s1, dv = NT - du * s1;
+  int gu = nu_wrap(o[0] + u, a.n[0]);
+  int gv = D == 3 ? nu_wrap(o[1] + v, n1) : 0;
+  for (; u < a.s[0];) {
+    const V2* src = reinterpret_cast<const V2*>(g) + ((long)gu * n1 + gv) * nl;
+    V2* dst = sg + (u * s1 + v) * a.sl;
+    if (bulk) {
+      const unsigned d0 = (unsigned)__cvta_generic_to_shared(dst);
+      // the row's cells [ol, ol + sc) mod nl: one piece, or two
+      const int c0 = ol < 0 ? ol + nl : ol;
+      const int first = c0 + sc <= nl ? sc : nl - c0;
+      nu_bulk(d0, src + c0, first * sizeof(V2), bar);
+      if (first < sc)
+        nu_bulk(d0 + first * sizeof(V2), src, (sc - first) * sizeof(V2), bar);
+    } else {
+      for (int col = 0; col < sc; ++col) {
+        int c = ol + col;
+        if (sc <= nl)
+          c += c < 0 ? nl : c >= nl ? -nl : 0;
+        else
+          c = nu_wrap(c, nl);
+        nu_cp_cell(dst + col, src + c);
       }
     }
-    const int l1 = i0[j] - o1, l2 = i0[a.M + j] - o2,
-              l3 = i0[2 * a.M + j] - o3;
-    T re = T(0), im = T(0);
-    for (int t1 = 0; t1 < a.w; ++t1) {
-      const T v1 = nu_weight(off1, t1, scale, beta);
-      const T* pl = S + 2 * ((l1 + t1) * plane + l2 * a.s3 + l3);
+    // the next row of this thread, NT rows on
+    u += du;
+    gu += du;
+    if constexpr (D == 3) {
+      v += dv;
+      gv += dv;
+      if (v >= s1) {
+        v -= s1;
+        gv -= s1;
+        ++u;
+        ++gu;
+      }
+      while (gv >= n1) gv -= n1;
+      while (gv < 0) gv += n1;
+    }
+    while (gu >= a.n[0]) gu -= a.n[0];
+  }
+  if (!bulk) asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Taps by groups: NU_GROUP lanes sum one point's taps (NuTapShape), two
+// points a warp at a time; each tap one 16- or 8-byte read, the rows of a
+// wavefront on disjoint banks.
+template <typename T, int D, int W, int NT>
+__device__ __forceinline__ void nu_interp_group(
+    const typename NuVec2<T>::type* sg, T* __restrict__ out,
+    const int* __restrict__ perm, const int* __restrict__ i0,
+    const T* __restrict__ off, const int (&o)[D], int first, int last,
+    const NuInterpArgs& a) {
+  typedef NuTapShape<T, W> S;
+  typedef typename NuVec2<T>::type V2;
+  typedef typename NuRead<T, S::C>::type VR;
+  constexpr int LA = D - 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // group grp of the warp, lane gl in it, reading row r, column pair /
+  // cell j of each step.  The ES weights are each evaluated once in the
+  // group (nu_tap_weight).  A group's point data are fetched an iteration
+  // ahead, so their latency hides behind the taps of the point before.
+  constexpr int PER = W <= 8 ? 2 : 1;
+  constexpr int ROUNDS = (D + PER - 1) / PER;
+  const int grp = lane >> 4, gl = lane & 15;
+  const int r = gl / S::L, j = gl % S::L;
+  const T beta = (T)a.beta, scale = (T)(2.0 / W);
+  int nli[D], np;
+  T noff[ROUNDS];
+  auto fetch = [&](int bx) {
+    const int pt = bx + grp < last ? bx + grp : last - 1;
 #pragma unroll
-      for (int t2 = 0; t2 < NU_MAXW; ++t2) {
-        if (t2 < a.w) {
-          const T v12 = v1 * w2[t2];
-          const T* row = pl + 2 * t2 * a.s3;
+    for (int ax = 0; ax < D; ++ax) nli[ax] = i0[ax * a.M + pt] - o[ax];
 #pragma unroll
-          for (int t3 = 0; t3 < NU_MAXW; ++t3) {
-            if (t3 < a.w) {
-              const T wt = v12 * w3[t3];
-              re += row[2 * t3] * wt;
-              im += row[2 * t3 + 1] * wt;
-            }
-          }
+    for (int q = 0; q < ROUNDS; ++q) {
+      const int ax = q * PER + (PER == 2 ? gl >> 3 : 0);
+      noff[q] = ax < D ? off[ax * a.M + pt] : T(0);
+    }
+    np = perm[pt];
+  };
+  fetch(first + 2 * warp);
+  for (int base = first + 2 * warp; base < last; base += NT / 16) {
+    const bool valid = base + grp < last;    // an odd tail's idle group
+    int li[D];
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax) li[ax] = nli[ax];
+    T of[ROUNDS];
+#pragma unroll
+    for (int q = 0; q < ROUNDS; ++q) of[q] = noff[q];
+    const int p = np;
+    fetch(base + NT / 16);
+#ifdef NU_TIME_INTERP_NO_TAPS
+    T re = a.M < 0 ? reinterpret_cast<const T*>(sg)[tid] + of[0] : T(0);
+    T im = a.M < 0 ? T(li[0]) : T(0);
+#else
+    T phi[ROUNDS];
+#pragma unroll
+    for (int q = 0; q < ROUNDS; ++q) {
+      const int ax = q * PER + (PER == 2 ? gl >> 3 : 0);
+      const int t = PER == 2 ? gl & 7 : gl;
+      phi[q] = ax < D && t < W ? nu_weight(of[q], t, scale, beta) : T(0);
+    }
+    // the last axis: C cells a lane from the aligned start; lanes past
+    // the last tap read it again, with weight 0
+    const int sh = li[LA] % S::C;
+    const int jc = j < (W - 1 + sh) / S::C ? j : (W - 1 + sh) / S::C;
+    T wl[S::C];
+#pragma unroll
+    for (int e = 0; e < S::C; ++e) {
+      const int t = S::C * j + e - sh;
+      const T v = nu_tap_weight<LA, PER>(phi, t < 0 ? 0 : t < W ? t : W - 1);
+      wl[e] = t >= 0 && t < W ? v : T(0);
+    }
+    // the rows: row k R + r of each step, the last row again past w
+    T wr[S::K];
+    int ro[S::K];
+#pragma unroll
+    for (int k = 0; k < S::K; ++k) {
+      const int t = k * S::R + r;
+      const T v = nu_tap_weight<D - 2, PER>(phi, t < W ? t : W - 1);
+      wr[k] = t < W ? v : T(0);
+      ro[k] = (t < W ? t : W - 1) * a.sl;
+    }
+    const V2* p0 = sg + (D == 3 ? li[0] * a.s[1] + li[1] : li[0]) * a.sl +
+                   li[LA] - sh + S::C * jc;
+    const int plane = D == 3 ? a.s[1] * a.sl : 0;
+    T acc[2 * S::C];
+#pragma unroll
+    for (int q = 0; q < 2 * S::C; ++q) acc[q] = T(0);
+#pragma unroll
+    for (int t1 = 0; t1 < (D == 3 ? W : 1); ++t1) {
+      T part[2 * S::C];
+#pragma unroll
+      for (int q = 0; q < 2 * S::C; ++q) part[q] = T(0);
+#pragma unroll
+      for (int k = 0; k < S::K; ++k) {
+        const VR v = *reinterpret_cast<const VR*>(p0 + t1 * plane + ro[k]);
+        if constexpr (S::C == 2) {
+          part[0] += v.x * wr[k]; part[1] += v.y * wr[k];
+          part[2] += v.z * wr[k]; part[3] += v.w * wr[k];
+        } else {
+          part[0] += v.x * wr[k]; part[1] += v.y * wr[k];
         }
       }
+      T w0 = T(1);
+      if constexpr (D == 3) w0 = nu_tap_weight<0, PER>(phi, t1);
+#pragma unroll
+      for (int q = 0; q < 2 * S::C; ++q) acc[q] += part[q] * w0;
     }
-    const long p = perm[j];
-    out[2 * p] = re;
-    out[2 * p + 1] = im;
+    T re = acc[0] * wl[0], im = acc[1] * wl[0];
+    if constexpr (S::C == 2) {
+      re += acc[2] * wl[1];
+      im += acc[3] * wl[1];
+    }
+    // the group's sum, in a fixed order: lanes 8-15 keep im, 0-7 re
+    {
+      const bool hi = gl & 8;
+      T keep = hi ? im : re;
+      keep += __shfl_xor_sync(0xffffffffu, hi ? re : im, 8);
+      keep += __shfl_xor_sync(0xffffffffu, keep, 4);
+      keep += __shfl_xor_sync(0xffffffffu, keep, 2);
+      keep += __shfl_xor_sync(0xffffffffu, keep, 1);
+      re = keep;
+      im = __shfl_down_sync(0xffffffffu, keep, 8);
+    }
+#endif
+    if (gl == 0 && valid) {
+      V2 v;
+      v.x = re;
+      v.y = im;
+      reinterpret_cast<V2*>(out)[p] = v;
+    }
   }
 }
 
-template <typename T>
-static int nu_interp3_launch(const void* g, void* out, const void* perm,
-                             const void* i0, const void* off,
-                             const void* sub, int nsub, int B,
-                             const Nu3Args& a, cudaStream_t stream) {
-  const size_t smem = (size_t)2 * a.s1 * a.s2 * a.s3 * sizeof(T);
+// Taps by threads: a thread sums one point's w^d taps, each one 8- or
+// 16-byte read, with two accumulator pairs (even and odd rows); the ES
+// weights of each axis in registers.  The next point's data are fetched
+// a point ahead.
+template <typename T, int D, int W, int NT>
+__device__ __forceinline__ void nu_interp_thread(
+    const typename NuVec2<T>::type* sg, T* __restrict__ out,
+    const int* __restrict__ perm, const int* __restrict__ i0,
+    const T* __restrict__ off, const int (&o)[D], int first, int last,
+    const NuInterpArgs& a) {
+  typedef typename NuVec2<T>::type V2;
+  const T beta = (T)a.beta, scale = (T)(2.0 / W);
+  int nli[D], np;
+  T noff[D];
+  auto fetch = [&](int j) {
+    const int pt = j < last ? j : last - 1;
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax) {
+      nli[ax] = i0[ax * a.M + pt] - o[ax];
+      noff[ax] = off[ax * a.M + pt];
+    }
+    np = perm[pt];
+  };
+  fetch(first + threadIdx.x);
+  for (int j = first + threadIdx.x; j < last; j += NT) {
+    int li[D];
+    T of[D];
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax) {
+      li[ax] = nli[ax];
+      of[ax] = noff[ax];
+    }
+    const int p = np;
+    fetch(j + NT);
+#ifdef NU_TIME_INTERP_NO_TAPS
+    T re = a.M < 0 ? reinterpret_cast<const T*>(sg)[threadIdx.x] + of[0]
+                   : T(0);
+    T im = a.M < 0 ? T(li[0]) : T(0);
+#else
+    T wt[D][W];
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax)
+#pragma unroll
+      for (int t = 0; t < W; ++t) wt[ax][t] = nu_weight(of[ax], t, scale, beta);
+    const V2* p0 = sg + (D == 3 ? li[0] * a.s[1] + li[1] : li[0]) * a.sl +
+                   li[D - 1];
+    const int plane = D == 3 ? a.s[1] * a.sl : 0;
+    T acc[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+    for (int t1 = 0; t1 < (D == 3 ? W : 1); ++t1) {
+#pragma unroll
+      for (int t2 = 0; t2 < W; ++t2) {
+        const V2* row = p0 + t1 * plane + t2 * a.sl;
+        T rr = T(0), ri = T(0);
+#pragma unroll
+        for (int t3 = 0; t3 < W; ++t3) {
+          const V2 v = row[t3];
+          rr += v.x * wt[D - 1][t3];
+          ri += v.y * wt[D - 1][t3];
+        }
+        const T wr = D == 3 ? wt[0][t1] * wt[1][t2] : wt[0][t2];
+        acc[2 * (t2 & 1)] += rr * wr;
+        acc[2 * (t2 & 1) + 1] += ri * wr;
+      }
+    }
+    const T re = acc[0] + acc[2], im = acc[1] + acc[3];
+#endif
+    V2 v;
+    v.x = re;
+    v.y = im;
+    reinterpret_cast<V2*>(out)[p] = v;
+  }
+}
+
+// The interp's frame, each choice measured on the H100
+// (bench_nufft_interp.py; PERF.md); a -D of the same name overrides it:
+//   - the taps by groups of NU_GROUP lanes a point in 3-D (343 taps at
+//     w = 7), by a thread a point in 2-D (49 taps, fewer than a group's
+//     weight shuffles and sum cost): NU_INTERP_GROUP_2D / _3D;
+//   - a block a subproblem, its registers capped at 64 a thread so that
+//     several fit an SM and one block's copy runs beside another's taps:
+//     512 threads and two blocks an SM in 3-D, 128 threads and eight in
+//     2-D: NU_INTERP_THREADS_2D / _3D, NU_INTERP_MINB_2D / _3D.
+//     Persistent blocks that copy the next subproblem's subgrid into a
+//     second buffer were slower on the paths' point sets.
+#ifndef NU_INTERP_GROUP_2D
+#define NU_INTERP_GROUP_2D 0
+#endif
+#ifndef NU_INTERP_GROUP_3D
+#define NU_INTERP_GROUP_3D 1
+#endif
+#ifndef NU_INTERP_THREADS_2D
+#define NU_INTERP_THREADS_2D 128
+#endif
+#ifndef NU_INTERP_THREADS_3D
+#define NU_INTERP_THREADS_3D 512
+#endif
+#ifndef NU_INTERP_MINB_2D
+#define NU_INTERP_MINB_2D 8
+#endif
+#ifndef NU_INTERP_MINB_3D
+#define NU_INTERP_MINB_3D 2
+#endif
+template <int D> struct NuInterpFrame {
+  static constexpr bool group =
+      D == 3 ? NU_INTERP_GROUP_3D != 0 : NU_INTERP_GROUP_2D != 0;
+  static constexpr int threads =
+      D == 3 ? NU_INTERP_THREADS_3D : NU_INTERP_THREADS_2D;
+  static constexpr int min_blocks =
+      D == 3 ? NU_INTERP_MINB_3D : NU_INTERP_MINB_2D;
+};
+
+// One block per (subproblem, batch element): sub (bin, first point,
+// count); copy the bin's subgrid, then sum its points' taps.
+template <typename T, int D, int W>
+__global__ void __launch_bounds__(NuInterpFrame<D>::threads,
+                                  NuInterpFrame<D>::min_blocks)
+nu_interp_kernel(const T* __restrict__ g, T* __restrict__ out,
+                 const int* __restrict__ perm, const int* __restrict__ i0,
+                 const T* __restrict__ off, const int* __restrict__ sub,
+                 NuInterpArgs a) {
+  typedef NuTapShape<T, W> S;
+  typedef NuInterpFrame<D> F;
+  typedef typename NuVec2<T>::type V2;
+  constexpr int NT = F::threads;
+  extern __shared__ __align__(16) unsigned char nu_smem[];
+  __shared__ __align__(8) unsigned long long bar;
+  V2* sg = reinterpret_cast<V2*>(nu_smem);
+  int o[D];                        // the subgrid's origin: the bin's, less
+  {                                // the halo (and X0 along the last axis)
+    int rest = sub[3 * blockIdx.x];
+#pragma unroll
+    for (int ax = D - 1; ax >= 0; --ax) {
+      const int c = ax > 0 ? rest % a.nb[ax] : rest;
+      rest = ax > 0 ? rest / a.nb[ax] : 0;
+      o[ax] = c * a.b[ax] - W / 2 - (ax == D - 1 ? S::X0 : 0);
+    }
+  }
+  long cells = a.n[0] * (long)a.n[1];
+  if constexpr (D == 3) cells *= a.n[2];
+  g += 2 * (long)blockIdx.y * cells;
+  out += 2 * (long)blockIdx.y * a.M;
+#ifndef NU_TIME_INTERP_NO_LOAD
+  {
+#ifdef NU_INTERP_NO_BULK
+    const bool bulk = false;
+#else
+    // every row 16-byte aligned, wrapping at most once
+    const bool bulk = a.a16 && a.s[D - 1] <= a.n[D - 1] &&
+                      (S::E == 1 || a.n[D - 1] % 2 == 0);
+#endif
+    const unsigned b = (unsigned)__cvta_generic_to_shared(&bar);
+    if (bulk) {
+      if (threadIdx.x == 0) nu_bar_init(b, 1);
+      __syncthreads();
+    }
+    nu_interp_issue<T, D, W, NT>(g, sg, o, a, bulk, b);
+    if (bulk)
+      nu_bar_wait(b, 0);
+    else
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+#endif
+  __syncthreads();
+#ifndef NU_TIME_INTERP_LOAD_ONLY
+  const int first = sub[3 * blockIdx.x + 1];
+  const int last = first + sub[3 * blockIdx.x + 2];
+  if constexpr (F::group)
+    nu_interp_group<T, D, W, NT>(sg, out, perm, i0, off, o, first, last, a);
+  else
+    nu_interp_thread<T, D, W, NT>(sg, out, perm, i0, off, o, first, last, a);
+#endif
+}
+
+template <typename T, int D, int W>
+static int nu_interp_launch(const void* g, void* out, const void* perm,
+                            const void* i0, const void* off, const void* sub,
+                            int nsub, int B, NuInterpArgs a,
+                            cudaStream_t stream) {
+  typedef NuTapShape<T, W> S;
+  typedef NuInterpFrame<D> F;
+  for (int ax = 0; ax < D; ++ax) a.s[ax] = a.b[ax] + W - 1;
+  a.s[D - 1] = (a.s[D - 1] + S::X0 + S::E - 1) / S::E * S::E;
+  // the pitch: whole 16 bytes, and where one wavefront serves several
+  // rows of a group (L < PH), rows that fall on disjoint banks
+  int sl = a.s[D - 1];
+  while (F::group && S::L < S::PH && (sl / S::C) % S::PH != S::L) sl += S::E;
+  a.sl = sl;
+  const size_t smem = (size_t)(D == 3 ? a.s[0] * a.s[1] : a.s[0]) * sl * 2 *
+                      sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nu_interp3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        nu_interp_kernel<T, D, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  nu_interp3_kernel<T><<<dim3(nsub, B), NU_THREADS, smem, stream>>>(
+  nu_interp_kernel<T, D, W><<<dim3(nsub, B), F::threads, smem, stream>>>(
       (const T*)g, (T*)out, (const int*)perm, (const int*)i0, (const T*)off,
       (const int*)sub, a);
   return (int)cudaGetLastError();
+}
+
+// the launch at the plan's w, taps fixed at compile time
+template <typename T, int D>
+static int nu_interp_dispatch(const void* g, void* out, const void* perm,
+                              const void* i0, const void* off,
+                              const void* sub, int nsub, int B,
+                              const NuInterpArgs& a, int w,
+                              cudaStream_t s) {
+#define NU_W(W)                                                            \
+  case W:                                                                  \
+    return nu_interp_launch<T, D, W>(g, out, perm, i0, off, sub, nsub, B,  \
+                                     a, s);
+  switch (w) {
+#ifdef NU_INTERP_W7_ONLY
+    NU_W(7)
+#else
+    NU_W(2) NU_W(3) NU_W(4) NU_W(5) NU_W(6) NU_W(7) NU_W(8) NU_W(9)
+    NU_W(10) NU_W(11) NU_W(12) NU_W(13) NU_W(14) NU_W(15) NU_W(16)
+#endif
+  }
+#undef NU_W
+  return (int)cudaErrorInvalidValue;
+}
+
+static int nu_interp_run(int D, const void* g, void* out, const void* perm,
+                         const void* i0, const void* off, const void* sub,
+                         int nsub, int B, int M, const int* n, const int* b,
+                         const int* nb, int w, double beta, int f64,
+                         void* stream) {
+  if (nsub < 1 || B < 1 || B > 65535 || M < 1 || w < 2 || w > NU_MAXW)
+    return (int)cudaErrorInvalidValue;
+  NuInterpArgs a;
+  for (int ax = 0; ax < 3; ++ax) {
+    const bool in = ax < D;
+    a.n[ax] = in ? n[ax] : 1;
+    a.b[ax] = in ? b[ax] : 1;
+    a.nb[ax] = in ? nb[ax] : 1;
+    a.s[ax] = 1;
+    if (a.n[ax] < 1 || a.b[ax] < 1 || a.nb[ax] < 1)
+      return (int)cudaErrorInvalidValue;
+  }
+  a.sl = 1; a.M = M; a.beta = beta;
+  a.a16 = (reinterpret_cast<unsigned long long>(g) & 15) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 2)
+    return f64 ? nu_interp_dispatch<double, 2>(g, out, perm, i0, off, sub,
+                                               nsub, B, a, w, s)
+               : nu_interp_dispatch<float, 2>(g, out, perm, i0, off, sub,
+                                              nsub, B, a, w, s);
+  return f64 ? nu_interp_dispatch<double, 3>(g, out, perm, i0, off, sub,
+                                             nsub, B, a, w, s)
+             : nu_interp_dispatch<float, 3>(g, out, perm, i0, off, sub, nsub,
+                                            B, a, w, s);
 }
 
 extern "C" {
@@ -826,17 +1228,10 @@ int nufft_interp2_launch(const void* g, void* out, const void* perm,
                          const void* i0, const void* off, const void* sub,
                          int nsub, int B, int M, int n1, int n2, int nb2,
                          int w, double beta, int f64, void* stream) {
-  if (nsub < 1 || B < 1 || B > 65535 || M < 1 || n1 < 1 || n2 < 1 ||
-      nb2 < 1 || w < 2 || w > NU_MAXW)
-    return (int)cudaErrorInvalidValue;
-  NuArgs a;
-  a.n1 = n1; a.n2 = n2; a.nb2 = nb2; a.w = w; a.hw = w / 2; a.M = M;
-  a.beta = beta;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (f64)
-    return nu_interp_launch<double>(g, out, perm, i0, off, sub, nsub, B, a,
-                                    s);
-  return nu_interp_launch<float>(g, out, perm, i0, off, sub, nsub, B, a, s);
+  const int n[2] = {n1, n2}, b[2] = {NU_BIN, NU_BIN};
+  const int nb[2] = {(n1 + NU_BIN - 1) / NU_BIN, nb2};
+  return nu_interp_run(2, g, out, perm, i0, off, sub, nsub, B, M, n, b, nb,
+                       w, beta, f64, stream);
 }
 
 // g (B, n1, n2, n3, 2) = the spread of the strengths c (B, M, 2), every cell
@@ -863,21 +1258,10 @@ int nufft_interp3_launch(const void* g, void* out, const void* perm,
                          int nsub, int B, int M, int n1, int n2, int n3,
                          int b1, int b2, int b3, int nb2, int nb3, int w,
                          double beta, int f64, void* stream) {
-  if (nsub < 1 || B < 1 || B > 65535 || M < 1 || n1 < 1 || n2 < 1 ||
-      n3 < 1 || b1 < 1 || b2 < 1 || b3 < 1 || nb2 < 1 || nb3 < 1 || w < 2 ||
-      w > NU_MAXW)
-    return (int)cudaErrorInvalidValue;
-  Nu3Args a;
-  a.n1 = n1; a.n2 = n2; a.n3 = n3;
-  a.b1 = b1; a.b2 = b2; a.b3 = b3;
-  a.nb2 = nb2; a.nb3 = nb3;
-  a.s1 = b1 + w - 1; a.s2 = b2 + w - 1; a.s3 = b3 + w - 1;
-  a.w = w; a.hw = w / 2; a.M = M; a.beta = beta;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (f64)
-    return nu_interp3_launch<double>(g, out, perm, i0, off, sub, nsub, B, a,
-                                     s);
-  return nu_interp3_launch<float>(g, out, perm, i0, off, sub, nsub, B, a, s);
+  const int n[3] = {n1, n2, n3}, b[3] = {b1, b2, b3};
+  const int nb[3] = {b1 > 0 ? (n1 + b1 - 1) / b1 : 0, nb2, nb3};
+  return nu_interp_run(3, g, out, perm, i0, off, sub, nsub, B, M, n, b, nb,
+                       w, beta, f64, stream);
 }
 
 const char* nufft_error_string(int err) {

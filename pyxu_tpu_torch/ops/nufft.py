@@ -25,6 +25,9 @@ as ``(..., 2)`` real pairs: strengths ``(B, M, 2)`` and grids ``(B, *nf,
   points) and the spread's tasks (:func:`spread_tasks`: the grid cut into
   bins, the bins among many points into parts).  Sorting and counting use
   library calls (``argsort``, ``bincount``, ``cumsum``);
+* :func:`tap_shape` / :func:`interp_subgrid` — the interp kernel's
+  geometry (how a point's taps are read, its subgrid's sides and pitch),
+  mirrored from ``csrc/nufft.cu`` for the CPU tests;
 * :func:`nufft_spread2_plain` / :func:`nufft_interp2_plain` and the ``3``
   forms — the plain PyTorch versions: ``index_add_`` of the w^d tap
   products, and a gather and sum, over chunks of points (at most
@@ -35,8 +38,8 @@ as ``(..., 2)`` real pairs: strengths ``(B, M, 2)`` and grids ``(B, *nf,
   wrappers.  On a CUDA tensor they launch the hand-written kernels of
   ``csrc/nufft.cu`` (or raise); on a CPU tensor they run the plain
   versions.  ``.launches`` counts kernel launches.  The spread kernel
-  writes every cell once, without atomics, so it needs no zeroed grid and
-  gives the same bits on every launch.
+  writes every cell once, without atomics, so it needs no zeroed grid;
+  both kernels give the same bits on every launch.
 
 The kernels take float32 and float64, 2 to 16 taps and any grid size.  An
 empty point set (M = 0) launches nothing: spread gives zeros, interp an
@@ -61,6 +64,8 @@ __all__ = [
     "bin3",
     "neighbourhood",
     "spread_tasks",
+    "tap_shape",
+    "interp_subgrid",
     "es_weights",
     "nufft_spread2_plain",
     "nufft_interp2_plain",
@@ -85,6 +90,9 @@ SPREAD_BIN = {2: 8, 3: 4}   # spread bin side per axis (within a bin)
 MAX_SEG = 1024      # NU_MAXSEG: most spread bins one task reads
 SMEM_MAX = 232_448  # shared memory one block may opt in to (227 KB)
 TAPS_PER_CHUNK = 1 << 24    # plain versions: tap products per chunk
+GROUP = 16          # NU_GROUP: interp lanes that sum one point's taps
+INTERP_GROUP = {2: False, 3: True}  # NuInterpFrame: taps by groups of
+                                    # GROUP lanes (else a thread a point)
 _DTYPES = (torch.float32, torch.float64)
 
 
@@ -166,6 +174,46 @@ def bin3(w: int, dtype: torch.dtype) -> tuple:
         if math.prod(b + w - 1 for b in bins) * cell <= SMEM_MAX // 2:
             return bins
     return (8, 8, 8)
+
+
+def tap_shape(w: int, dtype: torch.dtype) -> dict:
+    """How the interp kernel's ``GROUP`` lanes read one point's taps
+    (``NuTapShape`` of ``csrc/nufft.cu``): each lane reads ``C`` cells of
+    the last axis at once (16 bytes: two cells in float32 up to w = 7,
+    else one cell of 8 or 16 bytes) from an aligned start, ``L`` lanes a
+    row, ``R = GROUP / L`` rows a step, ``K`` steps a plane; one
+    shared-memory wavefront serves ``PH`` lanes.  ``E`` cells make 16
+    bytes; in float32 the subgrid's last axis starts ``X0`` cells left of
+    the bin's halo, so that its rows start on 16-byte boundaries."""
+    size = 4 if dtype == torch.float32 else 8
+    C = 2 if size == 4 and w <= 7 else 1
+    L = 2
+    while L < (w + 2 * C - 2) // C:
+        L *= 2
+    R = GROUP // L
+    E = 16 // (2 * size)
+    return dict(C=C, L=L, R=R, K=-(-w // R), PH=128 // (2 * C * size), E=E,
+                X0=(w // 2) % 2 if E == 2 else 0)
+
+
+def interp_subgrid(bins, w: int, dtype: torch.dtype) -> dict:
+    """The interp block's subgrid for bins ``bins`` (d = its length) and
+    ``w`` taps: the tap body (``INTERP_GROUP``), the sides loaded per axis
+    (``b + w - 1``; the last ``X0`` more, rounded up to 16 bytes), the row
+    pitch in cells and the shared memory of one subgrid.  Where one
+    wavefront serves several rows of a group (``L < PH``), the pitch puts
+    those rows on disjoint banks."""
+    sh = tap_shape(w, dtype)
+    C, L, PH, E = sh["C"], sh["L"], sh["PH"], sh["E"]
+    group = INTERP_GROUP[len(bins)]
+    sides = [b + w - 1 for b in bins]
+    sides[-1] = -(-(sides[-1] + sh["X0"]) // E) * E
+    pitch = sides[-1]
+    while group and L < PH and (pitch // C) % PH != L:
+        pitch += E
+    cell = 8 if dtype == torch.float32 else 16
+    return dict(group=group, sides=tuple(sides), pitch=pitch,
+                smem=math.prod(sides[:-1]) * pitch * cell)
 
 
 def neighbourhood(o, e, n: int, b: int, nb: int, w: int):
@@ -596,6 +644,9 @@ def _interp(wrapper, g: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
         _plain_check(g, plan, d)
         return _interp_plain(g, plan)
     _check(g, plan, d, plan.nf + (2,))
+    if g.data_ptr() % (2 * g.element_size()):
+        # the kernel reads whole (re, im) cells of 8 or 16 bytes
+        raise ValueError("the grid must start on a whole (re, im) cell")
     out = torch.empty((g.shape[0], plan.M, 2), dtype=g.dtype,
                       device=g.device)
     if plan.M == 0:

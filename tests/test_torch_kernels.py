@@ -598,13 +598,14 @@ def test_nufft_wrappers_cpu_plain_and_meta_raise():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("w", [2, 7, 16])
+@pytest.mark.parametrize("w", range(2, 17))
 @pytest.mark.parametrize("nf", [(64, 80), (50, 45), (20, 33)], ids=str)
 @pytest.mark.parametrize("kind", NU_SETS)
 def test_nufft_kernels_match_plain(cuda, kind, nf, w, dtype):
     """Spread and interp on the card against their plain versions, over
     the point sets, grid sides that are not multiples of the bin (and one
-    smaller than a subgrid), 2-16 taps, both dtypes and a batch of 2."""
+    smaller than a subgrid), every tap count the interp is built for
+    (2-16), both dtypes and a batch of 2."""
     dt = getattr(torch, dtype)
     p = _nu_plan(kind, 2500, nf, w, dt, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -944,6 +945,87 @@ def test_nufft_bin_tables_agree_with_sub(d):
         assert torch.equal(bfirst, sfirst)
 
 
+def _interp_cases():
+    """(d, point set, grid, w, dtype): a dense bin cut into several
+    subproblems and a grid with a side under w (1 at w = 2), in both
+    dimensions, w = 2, 7 and 16, both dtypes' bin rules."""
+    out = []
+    for dt in ("float32", "float64"):
+        for w in (2, 7, 16):
+            small = max(1, w - 3)
+            out += [(3, "origin", (40, 36, 33), w, dt),
+                    (3, "uniform", (12, small, 9), w, dt),
+                    (2, "onebin", (64, 80), w, dt),
+                    (2, "gauss", (20, small), w, dt)]
+    return out
+
+
+@pytest.mark.parametrize(
+    "case", _interp_cases(),
+    ids=lambda c: f"{c[0]}d-{c[1]}-{'x'.join(map(str, c[2]))}-w{c[3]}-{c[4]}")
+def test_nufft_interp_reads_stay_in_the_subgrid(case):
+    """Brute force over the interp kernel's reads (``tap_shape``,
+    ``interp_subgrid``; a group's lanes in 3-D, a thread's taps in 2-D):
+    along each axis, each point of each subproblem reads each of its w
+    taps once with a nonzero weight, at the subgrid index whose grid cell
+    (origin + index mod n) is the tap's, and every read, used or not, lies
+    inside the loaded sides."""
+    d, kind, nf, w, dt = case
+    dtype = getattr(torch, dt)
+    p = _geom_plan(d, kind, nf, w, dt, M=3000)
+    sh, sg = nu.tap_shape(w, dtype), nu.interp_subgrid(p.bins, w, dtype)
+    C, L, R, K = sh["C"], sh["L"], sh["R"], sh["K"]
+    assert sg["group"] == (d == 3)
+    assert L * R == nu.GROUP and C * L >= w + C - 1 and K * R >= w
+    assert sg["smem"] <= nu.SMEM_MAX and sg["sides"][-1] <= sg["pitch"]
+    sub = p.sub.long()
+    if kind in ("origin", "onebin"):        # a dense bin, several blocks
+        assert int(torch.bincount(sub[:, 0]).max()) >= 2
+    # each sorted point's bin, and the bin's coordinates (row-major)
+    owner = torch.repeat_interleave(sub[:, 0], sub[:, 2])
+    coords, rest = [], owner
+    for ax in reversed(range(d)):
+        coords.append(rest % p.nbins[ax])
+        rest = rest // p.nbins[ax]
+    coords.reverse()
+    M = p.M
+    for ax in range(d):
+        x0 = sh["X0"] if ax == d - 1 else 0
+        o = coords[ax] * p.bins[ax] - w // 2 - x0    # the subgrid's origin
+        i0 = p.i0[ax].long()
+        li = i0 - o
+        assert int(li.min()) >= x0 and int(li.max()) < p.bins[ax] + x0
+        if ax == d - 1 and sh["E"] == 2:   # rows start on 16 bytes
+            assert bool((o % 2 == 0).all()) and sg["sides"][ax] % 2 == 0
+            assert sg["pitch"] % 2 == 0
+        if not sg["group"]:     # a thread reads each tap
+            t = torch.arange(w).expand(M, -1)
+            idx = li[:, None] + t
+        elif ax == d - 1:       # lanes j, C cells each, from an aligned start
+            j = torch.arange(L)[None, :, None]
+            e = torch.arange(C)[None, None, :]
+            s0 = (li % C)[:, None, None]
+            jmax = (w - 1 + s0) // C
+            t = C * j + e - s0
+            idx = li[:, None, None] - s0 + C * torch.minimum(j, jmax) + e
+        elif ax == d - 2:       # row r of step k, the last row again past w
+            t = (torch.arange(K)[:, None] * R + torch.arange(R)).reshape(-1)
+            idx = li[:, None] + torch.clamp(t, max=w - 1)
+            t = t.expand(M, -1)
+        else:                   # the planes
+            t = torch.arange(w).expand(M, -1)
+            idx = li[:, None] + t
+        t, idx = t.reshape(M, -1), idx.reshape(M, -1)
+        used = (t >= 0) & (t < w)
+        assert int(idx.min()) >= 0 and int(idx.max()) < sg["sides"][ax]
+        hits = torch.zeros((M, w), dtype=torch.int64).scatter_add_(
+            1, torch.clamp(t, 0, w - 1), used.long())
+        assert bool((hits == 1).all())
+        cell = (o[:, None] + idx) % nf[ax]
+        want = (i0[:, None] + t) % nf[ax]
+        assert bool(((cell == want) | ~used).all())
+
+
 @pytest.mark.parametrize("b", [2, 8, 16, 32])
 @pytest.mark.parametrize("w", [2, 3, 7, 16])
 def test_nufft_neighbourhood_matches_brute_force(b, w):
@@ -972,15 +1054,15 @@ def test_nufft_neighbourhood_matches_brute_force(b, w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("w", [2, 7, 10, 16])
+@pytest.mark.parametrize("w", range(2, 17))
 @pytest.mark.parametrize("nf", [(40, 36, 33), (12, 20, 9)], ids=str)
 @pytest.mark.parametrize("kind", NU3_SETS)
 def test_nufft3_kernels_match_plain(cuda, kind, nf, w, dtype):
     """Spread and interp on the card against their plain versions, over
     the point sets, a grid whose sides are not multiples of the bin and
-    one smaller than a subgrid, 2-16 taps (at w = 16 in float64 the
-    subgrid takes 194,672 B of shared memory), both dtypes and a batch of
-    2."""
+    one smaller than a subgrid, every tap count the interp is built for
+    (2-16; at w = 16 in float64 the subgrid takes 194,672 B of shared
+    memory), both dtypes and a batch of 2."""
     dt = getattr(torch, dtype)
     p = _nu3_plan(kind, 2500, nf, w, dt, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -1059,6 +1141,84 @@ def test_nufft_spread_dense_bin_split_by_cells(cuda, d, dtype):
     assert torch.equal(gk, spread(c, p))
     rel = 1e-5 if dtype == "float32" else 1e-12
     assert float((gk - gp).abs().max()) <= rel * float(gp.abs().max())
+
+
+def _interp_case(d, kind, M, nf, w, dt, cuda, seed=3):
+    p = (_nu3_plan if d == 3 else _nu_plan)(kind, M, nf, w, dt, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    g = torch.randn((2,) + nf + (2,), generator=gen, device=cuda, dtype=dt)
+    interp = nu.nufft_interp3 if d == 3 else nu.nufft_interp2
+    plain = nu.nufft_interp3_plain if d == 3 else nu.nufft_interp2_plain
+    return p, g, interp, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_nufft_interp_launches_are_bit_identical(cuda, d, dtype):
+    """Each point summed by one group in a fixed order: two launches give
+    the same bits, on every point set."""
+    dt = getattr(torch, dtype)
+    nf = (40, 36, 33) if d == 3 else (64, 80)
+    for kind in (NU3_SETS if d == 3 else NU_SETS):
+        p, g, interp, _ = _interp_case(d, kind, 5000, nf, 7, dt, cuda)
+        assert torch.equal(interp(g, p), interp(g, p)), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_nufft_interp_dense_bin_several_blocks(cuda, d, dtype):
+    """70,000 points, half or all of them in one bin, which the plan cuts
+    into many subproblems (blocks) that load the same subgrid: against
+    the plain version, and two launches bit-identical."""
+    dt = getattr(torch, dtype)
+    kind, nf = (("origin", (80, 72, 66)) if d == 3
+                else ("onebin", (256, 200)))
+    p, g, interp, plain = _interp_case(d, kind, 70_000, nf, 7, dt, cuda)
+    assert int(torch.bincount(p.sub[:, 0].long()).max()) >= 34
+    vk, vp = interp(g, p), _ref(plain, g, p)
+    assert torch.equal(vk, interp(g, p))
+    rel = 1e-5 if dtype == "float32" else 1e-12
+    assert float((vk - vp).abs().max()) <= rel * float(vp.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_nufft_interp_grid_offsets(cuda, d, dtype):
+    """A grid that starts one cell into its storage (8 or 16 bytes, not
+    16-byte aligned in float32: the rows copy a cell at a time) matches
+    the plain version; one that starts half a cell in raises."""
+    dt = getattr(torch, dtype)
+    nf = (40, 36, 34) if d == 3 else (64, 80)
+    p, g, interp, plain = _interp_case(d, "cluster", 3000, nf, 7, dt, cuda)
+    flat = torch.zeros(g.numel() + 2, dtype=dt, device=cuda)
+    shifted = flat[2:].view(g.shape)
+    shifted.copy_(g)
+    vk, vp = interp(shifted, p), _ref(plain, g, p)
+    rel = 1e-5 if dtype == "float32" else 1e-12
+    assert float((vk - vp).abs().max()) <= rel * float(vp.abs().max())
+    with pytest.raises(ValueError, match="whole"):
+        interp(flat[1:-1].view(g.shape), p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 7, 16])
+@pytest.mark.parametrize("d", [2, 3])
+def test_nufft_kernels_are_adjoint(cuda, d, w):
+    """The kernel pair in float64: <spread(c), g> = <c, interp(g)> within
+    1e-12 of the larger side."""
+    nf = (40, 36, 33) if d == 3 else (64, 80)
+    p, g, interp, _ = _interp_case(d, "cluster", 4000, nf, w, torch.float64,
+                                   cuda)
+    spread = nu.nufft_spread3 if d == 3 else nu.nufft_spread2
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    c = torch.randn((2, 4000, 2), generator=gen, device=cuda,
+                    dtype=torch.float64)
+    lhs = float(torch.sum(spread(c, p) * g))
+    rhs = float(torch.sum(c * interp(g, p)))
+    assert abs(lhs - rhs) <= 1e-12 * max(abs(lhs), abs(rhs))
 
 
 @pytest.mark.cuda
