@@ -40,8 +40,13 @@ Phases:
    iterations at 256x256 on the card against the same solve on the CPU;
 5. the 2-D NUFFT kernels at full size (a 2048x2048 fine grid, 10^6 points,
    w = 7) on three point sets (uniform, the RI workload's Gaussian uv, a
-   clustered set), and the spread of ones that builds the RI path's
-   Toeplitz kernel (the Gaussian uv on its 4096x4096 grid), each against
+   clustered set), the spread of ones that builds the RI path's
+   Toeplitz kernel (the Gaussian uv on its 4096x4096 grid), and the CT
+   path's polar set (60 views x 1024 detector bins: the Toeplitz build's
+   spread of its Nyquist-halved weights on 2048x2048, the Hankel build's
+   spread of ones at the 60 Nyquist points on its widened grid, A^T y's
+   spread and y's interp on 1024x1024; the ``variants`` of the kernels
+   line), each against
    its plain version in float32 and float64, timed in float32; each
    spread and interp launched twice must give the same bits; a spread's
    time is split by two timing-only builds (``NU_PHASES``: the walk over
@@ -77,7 +82,22 @@ Phases:
    one segment, with the 3-D NUFFT kernels' launch counts of the whole
    path checked and an event-timed iteration breakdown; then the same
    problem at 32^3 (512 spokes x 64 samples), 50 iterations on the card
-   against the same solve on the CPU.
+   against the same solve on the CPU;
+11. the CT path: ``sparse_view_ct((512, 512), n_angles=60,
+   method="fourier")`` (set-up timed, then broken down as in 7), a warm
+   fit, then ``PD3O.fit(stop_crit=MaxIter(400))`` in one segment, with the
+   launches of the set-up (4 spreads: the FourierRadon gram's weighted
+   Toeplitz and Nyquist Hankel builds, twice; 1 interp: y), the warm fit
+   (one more spread: A^T y) and the timed fit (no NUFFT, 4 stencils an
+   iteration) checked and an event-timed iteration breakdown (gram,
+   stencils, the rest, idle) and the stencil kernel held against its
+   plain version with the gradient's taps at the path's shape; then the
+   JAX bench's 256x256 / 60-view leg, checked in the same way;
+   FourierRadon at 64x64 / 16 views (100 iterations) and RadonTransform
+   at 128x128 / 30 views (50) on the card against the CPU, and
+   FourierRadon and its gram at 9x13, whose fine grid has an odd side,
+   with their launches counted.
+   Phase 5 holds the 2-D kernels on this path's polar set too.
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -167,6 +187,14 @@ MRI_SMALL = ((32, 32, 32), 512, 64, 50)     # shape, spokes, samples, iters
 MRI_LAM = 1e-3          # Tikhonov weight over the gram's largest eigenvalue
 NU3_GRID = (256, 256, 256)      # A's fine grid at 128^3
 TOEP3_GRID = (512, 512, 512)    # the Toeplitz build's fine grid at 128^3
+CT_SHAPE, CT_ANGLES = (512, 512), 60     # the clinical CT matrix, 60 views
+CT_BENCH_SHAPE = (256, 256)              # bench.py's CT leg (60 angles)
+CT_ITERS = 400                           # the bench's depth, one segment
+CT_GRID = (1024, 1024)          # A's fine grid at 512^2 (n_det 1024)
+CT_TOEP_GRID = (2048, 2048)     # the weighted Toeplitz build's fine grid
+CT_CHECKS = (((64, 64), 16, "fourier", 100),     # card vs CPU: shape,
+             ((128, 128), 30, "interp", 50))     # angles, method, iters
+CT_ODD = ((9, 13), 4, 12)       # shape, angles, n_det: a fine-grid side 27
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
@@ -664,8 +692,12 @@ def _nu_check(tag, kern, plain, a, p, dt, twice=False):
 
 def nufft_kernel_phase(nu):
     """Spread and interp against their plain versions on three point sets
-    at full size, and the spread of ones of the RI path's Toeplitz builds
-    (the Gaussian uv set on their 4096^2 grid); f32 (timed) and f64
+    at full size, the spread of ones of the RI path's Toeplitz builds (the
+    Gaussian uv set on their 4096^2 grid), and the CT 512^2 path's polar
+    set as its FourierRadon folds it (the weighted Toeplitz build's spread
+    of its Nyquist-halved weights on the 2048^2 grid, the Hankel build's
+    spread of ones at the 60 Nyquist points on its widened grid, A^T y's
+    spread and y's interp on A's 1024^2 grid); f32 (timed) and f64
     (checked).  Returns per-case records per kernel."""
     import numpy as np
     from pyxu_tpu_torch.operator.linop.nufft import _es_params
@@ -675,23 +707,50 @@ def nufft_kernel_phase(nu):
     # the fine grid of the (2N - 1)^2 mode grid at upsampfac 2
     assert TOEP_GRID == tuple(next_fast_len(2 * (2 * n - 1))
                               for n in RI_SHAPE), TOEP_GRID
+    from pyxu_tpu_torch.operator.linop.xray import FourierRadon
     rng = np.random.default_rng(0)
     recs = {"nufft_spread2": {}, "nufft_interp2": {}}
-    for kind in ("uniform", "gauss", "cluster"):
-        x = torch.remainder(torch.from_numpy(
-            _nu_points(kind, NU_M, rng)).to("cuda"), 2 * np.pi)
+    # the CT path's polar points as its FourierRadon folds them, and the
+    # fine grids of its gram's weighted Toeplitz and Nyquist Hankel builds
+    R = FourierRadon(CT_SHAPE, np.linspace(0, np.pi, CT_ANGLES,
+                                           endpoint=False), device="cuda")
+    G = R.gram()
+    n_det = R.codim_shape[1]
+    assert R._nufft._t1op._nf == CT_GRID, R._nufft._t1op._nf
+    assert G._t._build_params.fft_shape == CT_TOEP_GRID
+    hankel_grid = G._h._build_params.fft_shape
+    ct_pts = R._nufft._t1op._xh
+    del R, G
+    sets = [(kind, torch.from_numpy(_nu_points(kind, NU_M, rng)))
+            for kind in ("uniform", "gauss", "cluster")]
+    sets += [("ct", ct_pts),
+             ("ct-hankel", ct_pts.reshape(CT_ANGLES, n_det, 2)[:, n_det // 2])]
+    for kind, pts in sets:
+        x = torch.remainder(pts.to("cuda"), 2 * np.pi).contiguous()
+        M = x.shape[0]
         for dt in (torch.float32, torch.float64):
             gen = torch.Generator(device="cuda").manual_seed(1)
-            c = torch.randn((1, NU_M, 2), generator=gen, device="cuda",
+            grid_k = CT_GRID if kind == "ct" else NU_GRID
+            c = torch.randn((1, M, 2), generator=gen, device="cuda",
                             dtype=dt)
-            g = torch.randn((1,) + NU_GRID + (2,), generator=gen,
+            g = torch.randn((1,) + grid_k + (2,), generator=gen,
                             device="cuda", dtype=dt)
-            cases = [(kind, NU_GRID, "nufft_spread2", c),
-                     (kind, NU_GRID, "nufft_interp2", g)]
-            if kind == "gauss":
+            cases = [(kind, grid_k, "nufft_spread2", c),
+                     (kind, grid_k, "nufft_interp2", g)]
+            if kind == "ct-hankel":
+                # the Hankel build: a spread of ones on its widened grid
                 ones = torch.zeros_like(c)
                 ones[..., 0] = 1.0
-                cases.append(("toeplitz", TOEP_GRID, "nufft_spread2", ones))
+                cases = [(kind, hankel_grid, "nufft_spread2", ones)]
+            if kind in ("gauss", "ct"):
+                ones = torch.zeros_like(c)
+                ones[..., 0] = 1.0
+                if kind == "ct":
+                    ones[0, n_det // 2::n_det, 0] = 0.5     # Nyquist bins
+                cases.append((f"{kind}-toeplitz" if kind == "ct"
+                              else "toeplitz",
+                              CT_TOEP_GRID if kind == "ct" else TOEP_GRID,
+                              "nufft_spread2", ones))
             for case, grid, name, a in cases:
                 p = nu.plan2(x, grid, NU_W, beta, dt)
                 kern = getattr(nu, name)
@@ -702,7 +761,7 @@ def nufft_kernel_phase(nu):
                 if dt == torch.float32:
                     ms = _time_ms(lambda: kern(a, p))
                     plain_ms = _time_ms(lambda: plain(a, p), reps=2, runs=3)
-                    bound_ms, bound_by = _nu_bound(NU_M, grid[0] * grid[1],
+                    bound_ms, bound_by = _nu_bound(M, grid[0] * grid[1],
                                                    NU_W, 4)
                     print(f"[kernel] {tag} ms={ms:.4f} plain_ms="
                           f"{plain_ms:.4f} bound_ms={bound_ms:.4f} "
@@ -1101,6 +1160,176 @@ def mri_phase(nu, MaxIter):
                 gram_ms=gram_ms, setup_breakdown=breakdown)
 
 
+def _ct_counts(nu, st):
+    return {"nufft_spread2": nu.nufft_spread2.launches,
+            "nufft_interp2": nu.nufft_interp2.launches,
+            "stencil": st.separable_correlate2d.launches}
+
+
+def _ct_breakdown(slv, wall_ms, tag):
+    """Device time of one PD3O iteration (back-to-back ``m_step`` calls),
+    its FourierRadon gram (one apply of the loss's Q: two rfft/irfft
+    pairs), its four stencil launches (one apply and one adjoint of the
+    gradient) and the rest, and the device's idle share of the timed
+    solve."""
+    state = slv._mstate
+    Q, D = slv._f._quad_spec()[0], slv._K
+    with torch.no_grad():
+        dev_ms = _time_ms(lambda: slv.m_step(state), reps=5)
+        gram_ms = _time_ms(lambda: Q.apply(state["x"]))
+        st_ms = (_time_ms(lambda: D.apply(state["x"]))
+                 + _time_ms(lambda: D.adjoint(state["z"])))
+    rest = dev_ms - gram_ms - st_ms
+    print(f"[breakdown] {tag}: per iteration device {dev_ms:.4f} ms, gram "
+          f"{gram_ms:.4f} ms ({gram_ms / dev_ms:.1%}), stencils x 4 "
+          f"{st_ms:.4f} ms ({st_ms / dev_ms:.1%}), other {rest:.4f} ms; "
+          f"host {wall_ms:.4f} ms, device idle {1 - dev_ms / wall_ms:.1%}",
+          flush=True)
+    return dict(dev_ms=dev_ms, gram_ms=gram_ms, stencil_ms=st_ms,
+                rest_ms=rest, idle=1 - dev_ms / wall_ms)
+
+
+def ct_phase(nu, st, sparse_view_ct, MaxIter):
+    """The CT path (sparse-view CT by PD3O over FourierRadon) at 512^2 / 60
+    views and the bench's 256^2 leg: set-up, a warm fit and a timed fit of
+    ``CT_ITERS`` in one segment, with the kernels' launches counted over
+    the set-up, the warm fit and the timed fit; an event-timed iteration
+    breakdown; the stencil kernel against its plain version at each
+    shape with the gradient's own taps, in f32 and f64; the 512^2 set-up by
+    part.  Then the card against the CPU: ``CT_CHECKS`` (FourierRadon at
+    64^2, RadonTransform at 128^2), and FourierRadon and its gram at
+    ``CT_ODD``, whose A grid has an odd side, with their launches counted.
+    Returns per-shape records."""
+    from pyxu_tpu_torch.operator.linop.xray import (FourierRadon,
+                                                    _FourierRadonGram)
+    counters = [nu.nufft_spread2, nu.nufft_interp2, st.separable_correlate2d]
+    per_it = 4           # Gradient: 2 stencils in K^T z, 2 in K(.)
+    out = {}
+    for shape in (CT_SHAPE, CT_BENCH_SHAPE):
+        tag = f"ct {shape[0]}x{shape[1]}, {CT_ANGLES} angles"
+        torch.cuda.synchronize()
+        _reset(counters)
+        t0 = time.perf_counter()
+        slv, fit, ex = sparse_view_ct(shape, n_angles=CT_ANGLES,
+                                      method="fourier", device="cuda",
+                                      stop_rate=CT_ITERS)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        A = ex["A"]
+        assert A.kernel_path == "kernel", A.kernel_path
+        leaf = slv._f._quad_spec()[0]
+        while hasattr(leaf, "_op"):
+            leaf = leaf._op
+        assert isinstance(leaf, _FourierRadonGram), type(leaf)
+        assert ex["D"]._ops[0].kernel_path == "kernel"
+        # spread: the weighted Toeplitz and the Nyquist Hankel builds of
+        # A.gram(), once in the Lipschitz estimate and once in the loss;
+        # interp: y = A x_true
+        got = [_ct_counts(nu, st)]
+        want = [{"nufft_spread2": 4, "nufft_interp2": 1, "stencil": 0}]
+        slv.fit(stop_crit=MaxIter(CT_ITERS), max_iter=CT_ITERS, **fit)
+        torch.cuda.synchronize()
+        # the warm fit adds A^T y (the loss's constant gradient, cached)
+        got.append(_ct_counts(nu, st))
+        want.append({"nufft_spread2": 5, "nufft_interp2": 1,
+                     "stencil": per_it * CT_ITERS})
+        _reset(counters)
+        t0 = time.perf_counter()
+        slv.fit(stop_crit=MaxIter(CT_ITERS), max_iter=CT_ITERS, **fit)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got.append(_ct_counts(nu, st))
+        want.append({"nufft_spread2": 0, "nufft_interp2": 0,
+                     "stencil": per_it * CT_ITERS})
+        assert got == want, (got, want)
+        # the stencil's launches of the timed fit (as the LASSO path counts
+        # its own); the NUFFT kernels' of the set-up and the warm fit (the
+        # timed fit makes none)
+        launches = {k: got[2][k] if k == "stencil" else got[1][k]
+                    for k in got[2]}
+        D = ex["D"]
+        errs = []
+        for fdt in (torch.float32, torch.float64):
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            xk = torch.rand(shape, generator=gen, device="cuda", dtype=fdt)
+            for i, op in enumerate(D._ops):
+                rec = _st_variants(st, op._taps, xk, f" ct-D{i} {shape[0]}"
+                                   f"x{shape[1]} {str(fdt)[6:]}",
+                                   plain_timed=False, verbose=False)
+                errs.append(max(r["max_abs_err"] for r in rec.values()))
+        print(f"[kernel] stencil at the CT path's taps (both partials of "
+              f"the gradient) and shape {shape[0]}x{shape[1]}, apply and "
+              f"adjoint, constant and symmetric, f32 and f64: largest "
+              f"max_abs_err {max(errs):.3e}: ok", flush=True)
+        xs = slv.solution()
+        assert xs.shape == shape and bool(torch.isfinite(xs).all())
+        assert float(xs.min()) >= 0.0
+        obj0 = float(slv.objective_func({"x": fit["x0"]}))
+        obj = float(slv.objective_func(slv._mstate))
+        assert obj < obj0, (obj, obj0)
+        xt = ex["x_true"]
+        rel = float(torch.linalg.vector_norm(xs - xt)
+                    / torch.linalg.vector_norm(xt))
+        rate = CT_ITERS / dt
+        print(f"[ct] {tag}, n_det {A.codim_shape[1]}: set-up {setup:.4f} s; "
+              f"{CT_ITERS} iterations in {dt:.4f} s: {rate:.2f} it/s; "
+              f"launches set-up {got[0]}, warm fit {got[1]}, timed fit "
+              f"{got[2]} (as expected: no NUFFT in the iterations, "
+              f"{per_it} stencils an iteration); objective {obj0:.6e} -> "
+              f"{obj:.6e}; relative error to the phantom {rel:.4f}",
+              flush=True)
+        out[shape] = dict(rate=rate, setup_s=setup, launches=launches,
+                          **_ct_breakdown(slv, 1e3 * dt / CT_ITERS, tag))
+        del slv, fit, ex, A, leaf, xs, D, xk
+        if shape == CT_SHAPE:
+            def build(span):
+                slv, fit, _ = sparse_view_ct(CT_SHAPE, n_angles=CT_ANGLES,
+                                             method="fourier",
+                                             device="cuda")
+                with span("A^T y"):
+                    slv._f.grad(fit["x0"])
+            out[shape]["setup_breakdown"] = _setup_breakdown(
+                f"ct {shape[0]}x{shape[1]}", build)
+    for shape, n_ang, method, iters in CT_CHECKS:
+        sols = {}
+        for dev in ("cuda", "cpu"):
+            slv, fit, _ = sparse_view_ct(shape, n_angles=n_ang,
+                                         method=method, device=dev,
+                                         stop_rate=iters)
+            slv.fit(stop_crit=MaxIter(iters), max_iter=iters, **fit)
+            sols[dev] = slv.solution().cpu()
+        diff = float((sols["cuda"] - sols["cpu"]).abs().max())
+        print(f"[ct] {iters} iterations at {shape[0]}x{shape[1]} / {n_ang} "
+              f"angles, method={method}, card vs CPU: max_abs_diff="
+              f"{diff:.3e} (atol 2e-4)", flush=True)
+        assert diff <= 2e-4, diff
+    (H, W), n_ang, n_det = CT_ODD
+    angles = [float(a) for a in torch.linspace(0, torch.pi, n_ang + 1)[:-1]]
+    x = torch.rand((2, H, W), generator=torch.Generator().manual_seed(0),
+                   dtype=torch.float64).float()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        R = FourierRadon((H, W), angles, n_det=n_det, dtype=torch.float32,
+                         device=dev)
+        nf = R._nufft._t1op._nf
+        _reset(counters)
+        res[dev] = (R.apply(x.to(dev)).cpu(),
+                    R.gram().apply(x.to(dev)).cpu())
+        # the apply's interp; the gram's Toeplitz and Hankel builds
+        want = ({"nufft_spread2": 2, "nufft_interp2": 1, "stencil": 0}
+                if dev == "cuda" else
+                {"nufft_spread2": 0, "nufft_interp2": 0, "stencil": 0})
+        assert _ct_counts(nu, st) == want, (dev, _ct_counts(nu, st))
+    assert any(n % 2 for n in nf), nf
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(res["cuda"], res["cpu"])]
+    print(f"[ct] FourierRadon {H}x{W}, n_det {n_det} (A's fine grid {nf}): "
+          f"card vs CPU relative l-inf apply {errs[0]:.3e}, gram "
+          f"{errs[1]:.3e} (tol 1e-5)", flush=True)
+    assert max(errs) <= 1e-5, errs
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1110,6 +1339,7 @@ def main() -> int:
     from pyxu_tpu_torch.models import (
         lasso_deconvolution,
         radio_interferometry,
+        sparse_view_ct,
         tv_deconvolution,
     )
     from pyxu_tpu_torch.ops import fused_tv as ft
@@ -1269,6 +1499,10 @@ def main() -> int:
     mri = mri_phase(nu, MaxIter)
     _mark("MRI path")
 
+    # ---- phase 11: the CT path -----------------------------------------
+    ct = ct_phase(nu, st, sparse_view_ct, MaxIter)
+    _mark("CT path")
+
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -1303,6 +1537,7 @@ def main() -> int:
                                       "bound_ms")}
                 for k, v in st_recs64.items()},
         "sweep": st_sweep,
+        "ct_launches": ct[CT_SHAPE]["launches"]["stencil"],
     })
     # the RI 1024^2 path spreads twice on the Toeplitz grid and once (A^H y)
     # on A's; it interpolates once (y) on A's grid.  The MRI 128^3 path
@@ -1342,6 +1577,7 @@ def main() -> int:
             "ms": mixed("ms"), "plain_ms": mixed("plain_ms"),
             "bound_ms": mixed("bound_ms"), "bound_by": rs[top]["bound_by"],
             "library_ms": None, "path_mix": mix,
+            "ct_launches": ct[CT_SHAPE]["launches"].get(kname, 0),
             "variants": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                                 "max_abs_err", "phases")
                              if f in v}
@@ -1357,7 +1593,10 @@ def main() -> int:
                       "ri_256_it_per_s": ri[RI_BENCH_SHAPE]["rate"],
                       "ri_1024_setup_s": ri[RI_SHAPE]["setup_s"],
                       "mri3d_128_it_per_s": mri["rate"],
-                      "mri3d_128_setup_s": mri["setup_s"]}),
+                      "mri3d_128_setup_s": mri["setup_s"],
+                      "ct_512_it_per_s": ct[CT_SHAPE]["rate"],
+                      "ct_256_it_per_s": ct[CT_BENCH_SHAPE]["rate"],
+                      "ct_512_setup_s": ct[CT_SHAPE]["setup_s"]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 :func:`tv_problem` builds the port's ``(f, h, K)`` and a :class:`CondatVu`,
 :func:`lasso_problem` its ``(f, g)`` and a :class:`PGD`, :func:`ri_problem`
 the radio-interferometry ``(f, h, A)`` and an :class:`ADMM`,
-:func:`nufft3_problem` a 3-D Tikhonov least-squares :class:`CG`, from the
+:func:`nufft3_problem` a 3-D Tikhonov least-squares :class:`CG`,
+:func:`ct_problem` the sparse-view CT ``(f, g, h, K)`` and a :class:`PD3O`,
+from the
 arrays that define the problem, so that the JAX package and this port can
 solve the same problem side by side.  Step sizes not given come
 from the closed-form Lipschitz constants (Stencil ``L_pad * prod ||k||_1``,
@@ -18,7 +20,8 @@ import torch
 
 from pyxu_tpu_torch.runtime import resolve_device
 
-__all__ = ["lasso_problem", "nufft3_problem", "ri_problem", "tv_problem"]
+__all__ = ["ct_problem", "lasso_problem", "nufft3_problem", "ri_problem",
+           "tv_problem"]
 
 
 def _data(y, dtype, device):
@@ -143,3 +146,31 @@ def nufft3_problem(points, y, N, lam, eps=1e-6, *, dtype=None, device=None,
     G = A.gram()
     Q = G + lam * IdentityOp(G.dim_shape)
     return CG(Q, **solver_kwargs), {"b": A.adjoint(yt)}
+
+
+def ct_problem(y, angles, shape, lam=0.05, method: str = "interp",
+               lipschitz=None, *, dtype=None, device=None, **solver_kwargs):
+    """The sparse-view CT problem ``min_x 0.5||A x - y||^2 + i_{x >= 0}(x) +
+    lam ||D x||_{2,1}`` solved by PD3O, ``D`` the symmetric-mode gradient.
+
+    ``y``: the (n_angles, n_det) numpy sinogram; ``angles``: the views;
+    ``shape``: the image; ``method``: ``"interp"`` (:class:`RadonTransform`)
+    or ``"fourier"`` (:class:`FourierRadon`).  ``lipschitz``: ``||A||`` as
+    the JAX package estimated it (``A.lipschitz``), which sets the gram's
+    bound of a RadonTransform, so that both packages take the same step
+    sizes; FourierRadon's gram declares its own.  ``dtype`` defaults to
+    ``y``'s.  Returns ``(f, g, h, K, solver, fit_kwargs)`` where
+    ``fit_kwargs`` holds ``x0 = 0``.
+    """
+    from pyxu_tpu_torch.models.workloads import ct_pd3o
+    from pyxu_tpu_torch.operator.linop.xray import (FourierRadon,
+                                                    RadonTransform)
+
+    dev, dt, yt = _data(y, dtype, device)
+    shape = tuple(shape)
+    op = FourierRadon if method == "fourier" else RadonTransform
+    A = op(shape, angles, n_det=yt.shape[-1], dtype=dt, device=dev)
+    if lipschitz is not None:
+        A.lipschitz = float(lipschitz)
+    f, g, h, K, slv = ct_pd3o(A, yt, lam, **solver_kwargs)
+    return f, g, h, K, slv, {"x0": torch.zeros(shape, dtype=dt, device=dev)}

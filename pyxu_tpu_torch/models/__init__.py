@@ -1,5 +1,6 @@
 from pyxu_tpu_torch.models.workloads import (  # noqa: F401
     lasso_deconvolution,
     radio_interferometry,
+    sparse_view_ct,
     tv_deconvolution,
 )

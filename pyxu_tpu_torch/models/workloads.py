@@ -2,8 +2,9 @@
 ``pyxu_tpu/models/workloads.py``).
 
 Ported: ``lasso_deconvolution`` (workload 1), ``tv_deconvolution`` (the
-north-star workload) and ``radio_interferometry`` (workload 4).
-``sparse_view_ct`` and ``consensus_tiles`` are not ported yet.
+north-star workload), ``sparse_view_ct`` (workload 3) and
+``radio_interferometry`` (workload 4).  ``consensus_tiles`` (workload 5)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from pyxu_tpu_torch.runtime import resolve_device
 
-__all__ = ["lasso_deconvolution", "tv_deconvolution",
+__all__ = ["lasso_deconvolution", "tv_deconvolution", "sparse_view_ct",
            "radio_interferometry"]
 
 
@@ -82,6 +83,73 @@ def tv_deconvolution(shape=(2160, 3840), lam=0.01, seed=0, device=None,
     h = lam * L21Norm((2,) + shape, l2_axis=0)
     slv = CondatVu(f=f, h=h, K=D, **solver_kwargs)
     return slv, dict(x0=y), dict(x_true=x_true, y=y, K=K, D=D)
+
+
+def sparse_view_ct(shape=(128, 128), n_angles=30, lam=0.05, seed=0,
+                   method: str = "interp", device=None, **solver_kwargs):
+    """Workload 3: sparse-view CT, a parallel-beam Radon transform with a
+    positivity constraint and a TV prior, solved by PD3O::
+
+        min_x 0.5 ||A x - y||^2 + i_{x >= 0}(x) + lam ||D x||_{2,1}
+
+    The phantom is MATLAB's ``peaks`` on [-2.5, 2.5]^2, clipped at 0 and
+    scaled to a peak of 1; the ``n_angles`` views are evenly spaced over
+    [0, pi).  ``method="interp"``: :class:`RadonTransform` (a bilinear
+    gather); ``"fourier"``: :class:`FourierRadon`, whose gram is FFTs
+    only, so the iterations run no NUFFT: its spread and interp kernels run
+    in the set-up (the grams' Toeplitz builds, ``y = A x_true`` and the
+    loss's constant gradient A^T y).  ``||A||`` is estimated by 32 power
+    steps from a generator seeded with ``seed``.  Runs on ``device``
+    (default ``cuda``; raises when there is none) in float32.
+    ``solver_kwargs`` go to :class:`PD3O` (e.g. ``stop_rate``).  Returns
+    ``(solver, fit kwargs, extras)``; x0 = 0.
+    """
+    from pyxu_tpu_torch.operator.linop.nufft import _span
+    from pyxu_tpu_torch.operator.linop.xray import (FourierRadon,
+                                                    RadonTransform)
+    from pyxu_tpu_torch.utils.misc import peaks
+
+    dev = resolve_device(device)
+    shape = tuple(shape)
+    H, W = shape
+    yy, xx = np.meshgrid(np.linspace(-2.5, 2.5, H),
+                         np.linspace(-2.5, 2.5, W), indexing="ij")
+    x_true = torch.clamp(peaks(torch.from_numpy(xx), torch.from_numpy(yy)),
+                         min=0)
+    x_true = (x_true / x_true.max()).to(device=dev, dtype=torch.float32)
+    angles = np.linspace(0, np.pi, n_angles, endpoint=False)
+    op = FourierRadon if method == "fourier" else RadonTransform
+    with _span("A"):
+        A = op(shape, angles, dtype=torch.float32, device=dev)
+    with _span("lipschitz estimate"):
+        A.estimate_lipschitz(
+            maxiter=32, generator=torch.Generator(device=dev).manual_seed(
+                seed), dtype=torch.float32, device=dev)
+    with _span("y"):
+        y = A.apply(x_true)
+    _, _, _, D, slv = ct_pd3o(A, y, lam, **solver_kwargs)
+    return (slv, dict(x0=torch.zeros(shape, dtype=torch.float32, device=dev)),
+            dict(x_true=x_true, y=y, A=A, D=D))
+
+
+def ct_pd3o(A, y, lam, **solver_kwargs):
+    """The sparse-view CT problem over the Radon operator ``A`` and the
+    sinogram ``y``: ``f = 0.5 ||A . - y||^2``, ``g`` the positive orthant,
+    ``K`` the symmetric-mode gradient and ``h = lam ||.||_{2,1}``, solved by
+    :class:`PD3O` (``solver_kwargs``).  Returns ``(f, g, h, K, solver)``."""
+    from pyxu_tpu_torch.operator.func import (L21Norm, PositiveOrthant,
+                                              SquaredL2Norm)
+    from pyxu_tpu_torch.operator.linop import Gradient
+    from pyxu_tpu_torch.operator.linop.nufft import _span
+    from pyxu_tpu_torch.opt.solver import PD3O
+
+    shape = A.dim_shape
+    with _span("loss"):
+        f = 0.5 * SquaredL2Norm(A.codim_shape).asloss(y) * A
+    g = PositiveOrthant(shape)
+    K = Gradient(shape, mode="symmetric")
+    h = lam * L21Norm((2,) + shape, l2_axis=0)
+    return f, g, h, K, PD3O(f=f, g=g, h=h, K=K, **solver_kwargs)
 
 
 def radio_interferometry(shape=(256, 256), n_vis=5000, lam=0.02, seed=0,

@@ -1,3 +1,13 @@
+from pyxu_tpu_torch.operator.func.indicator import (  # noqa: F401
+    AffineSet,
+    ConvexSetIntersection,
+    HyperSlab,
+    L1Ball,
+    L2Ball,
+    LInfinityBall,
+    PositiveOrthant,
+    RangeSet,
+)
 from pyxu_tpu_torch.operator.func.norm import (  # noqa: F401
     L1Norm,
     L21Norm,

@@ -1,14 +1,16 @@
 """Norm functionals with closed-form proxes (counterpart of
 ``pyxu_tpu/operator/func/norm.py``).
 
-Ported: L1Norm, SquaredL2Norm and L21Norm.  L2Norm, SquaredL1Norm,
-LInfinityNorm and PositiveL1Norm are not ported yet.
+Ported: L1Norm, SquaredL2Norm and L21Norm, and the L1-ball projection
+that ``L1Ball`` takes.  L2Norm, SquaredL1Norm, LInfinityNorm and
+PositiveL1Norm are not ported yet.
 """
 
 from __future__ import annotations
 
 import math as _math
 
+import numpy as np
 import torch
 
 from pyxu_tpu_torch.abc.operator import ProxFunc, QuadraticFunc
@@ -97,3 +99,23 @@ class L21Norm(_NormFunc):
         n = torch.sqrt(torch.sum(arr * arr, dim=l2, keepdim=True))
         tiny = torch.finfo(arr.dtype).tiny
         return torch.clamp(1.0 - tau / torch.clamp(n, min=tiny), min=0.0) * arr
+
+
+def _project_l1_ball(arr, radius: float, dim_rank: int):
+    """Euclidean projection onto the L1 ball of ``radius``, by the exact
+    sort-based algorithm (Duchi et al. 2008), batched over the axes ahead
+    of the trailing ``dim_rank``."""
+    batch = arr.shape[: arr.ndim - dim_rank]
+    n = int(np.prod(arr.shape[arr.ndim - dim_rank:]))
+    flat = arr.reshape(batch + (n,))
+    a = torch.abs(flat)
+    inside = torch.sum(a, dim=-1, keepdim=True) <= radius
+    u = torch.sort(a, dim=-1, descending=True).values
+    css = torch.cumsum(u, dim=-1)
+    k = torch.arange(1, n + 1, dtype=arr.dtype, device=arr.device)
+    k_star = torch.sum(u * k > css - radius, dim=-1, keepdim=True)
+    idx = torch.clamp(k_star - 1, min=0)
+    theta = (torch.gather(css, -1, idx) - radius) / torch.clamp(
+        k_star.to(arr.dtype), min=1.0)
+    proj = torch.sign(flat) * torch.clamp(a - theta, min=0.0)
+    return torch.where(inside, flat, proj).reshape(arr.shape)

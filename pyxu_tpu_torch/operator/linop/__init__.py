@@ -22,3 +22,4 @@ from pyxu_tpu_torch.operator.linop.filter import (  # noqa: F401
     Scharr,
     Sobel,
 )
+from pyxu_tpu_torch.operator.linop.xray import FourierRadon, RadonTransform  # noqa: F401

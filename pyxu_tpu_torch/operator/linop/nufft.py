@@ -29,9 +29,11 @@ FFTs per apply and no spread or interp.  It is what ``A.gram()`` returns,
 and what the rule engine builds a ``QuadraticFunc`` over for
 ``0.5 * SquaredL2Norm().asloss(y) * A``.
 
-Not ported yet (ROADMAP Queue 1, item 8): d = 1, type 3 and its chunked
-plan, and the Toeplitz options ``kernel_shift``, ``weights``,
-``_chan_lam`` and ``_circulant_precond``.
+The Toeplitz gram takes the JAX package's ``scale``, ``weights`` and
+``kernel_shift`` (the FourierRadon gram's weighted Toeplitz and shifted
+Hankel sections).  Not ported yet (ROADMAP Queue 1): d = 1, type 3 and its
+chunked plan, and the Toeplitz options ``_chan_lam`` and
+``_circulant_precond``.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from pyxu_tpu_torch.utils.misc import next_fast_len
 
 __all__ = ["NUFFT", "ES_kernel", "nudft1", "nudft2"]
 
-_QUEUE = "is not ported yet: ROADMAP.md Queue 1 item 8"
+_QUEUE = "is not ported yet: ROADMAP.md Queue 1, the rest of the NUFFT"
 
 # Set-up tracing: None (off), or a callable(name) returning a context
 # manager that times the named part of a plan, a Toeplitz build or a
@@ -334,63 +336,99 @@ class _NUFFTToeplitz(SelfAdjointOp):
     For the type-2 operator :math:`A[m,k] = e^{i s \langle k, x_m\rangle}`,
 
     .. math:: (A^H A f)[k] = \sum_{k'} T[k-k'] f[k'],\qquad
-              T[j] = \sum_m e^{-i s \langle j, x_m\rangle},
+              T[j] = \sum_m w_m e^{-i s \langle j, x_m\rangle},
 
-    a uniform convolution over the mode grid.  One apply zero-pads to the
+    a uniform convolution over the mode grid, with the weights ``w``
+    (default ones) and times ``scale``.  One apply zero-pads to the
     ``next_fast_len(2N-1)`` circulant grid, multiplies the FFT by the
-    kernel's (real) spectrum and crops the inverse FFT.  ``T`` is built
-    once, at construction, by one type-1 NUFFT of ones on the ``(2N-1)``
-    mode grid (one spread), at the parent's eps for a float32 plan and at
-    ``min(eps, 1e-9)`` for a float64 one; in 3-D at upsampfac 1.25 where
-    that eps allows it (``>= 5e-5``), which makes the build's fine grid
-    2.5N per axis instead of 4N, else at 2.
+    kernel's spectrum and crops the inverse FFT.  ``T`` is built once, at
+    construction, by one type-1 NUFFT of the weights (one spread), at the
+    parent's eps for a float32 plan and at ``min(eps, 1e-9)`` for a float64
+    one; in 3-D at upsampfac 1.25 where that eps allows it (``>= 5e-5``),
+    which makes the build's fine grid 2.5N per axis instead of 4N, else at
+    2.
 
-    ``real_in``: the operator acts on real images with ``Re(T)``, whose
-    spectrum is the even-symmetrised half spectrum used by the rfft apply.
+    ``kernel_shift``: a per-axis offset ``d`` so that the apply computes
+    ``sum_{k'} T[k - k' + d] f[k']``; with an input flipped by the caller
+    this evaluates a Hankel section ``sum_{k'} T[k + k'] f[k']`` (the
+    FourierRadon gram's Nyquist term).  The build's mode grid is widened
+    to ``2(N + |d|) - 1`` per axis to hold lags ``[-(N-1)+d, (N-1)+d]``.  A
+    shifted kernel is not Hermitian: the operator acts with ``Re(T)``,
+    whose circulant spectrum is complex, so it takes ``real_in`` only.
+
+    ``real_in``: the operator acts on real images with ``Re(T)``; unshifted,
+    its spectrum is the even-symmetrised real spectrum, and the apply runs
+    on the rfft half spectrum.
     """
 
     def __init__(self, xh: torch.Tensor, N, isign: int, eps: float,
-                 real_in: bool = False, dtype=None):
+                 real_in: bool = False, dtype=None, scale: float = 1.0,
+                 weights=None, kernel_shift=None):
         N = tuple(N)
         d = len(N)
         M = xh.shape[0]
         dtype = default_fdtype() if dtype is None else dtype
+        shift = tuple(int(v) for v in (kernel_shift or (0,) * d))
+        if len(shift) != d:
+            raise ValueError(f"kernel_shift {shift}: want {d} offsets")
+        self._spec_complex = any(shift)
+        if self._spec_complex and not real_in:
+            raise ValueError("a shifted (Hankel) kernel takes real_in only")
         self._N, self._d, self._M = N, d, M
         self._isign = int(np.sign(isign)) or 1
         self._eps = float(eps)
         self._real_in = bool(real_in)
+        self._scale = float(scale)
         self._P = tuple(next_fast_len(2 * n - 1) for n in N)
         super().__init__(N if real_in else N + (2,))
+        Nbig = tuple(2 * (n + abs(sh)) - 1 for n, sh in zip(N, shift))
         eps_T = min(eps, 1e-9) if dtype == torch.float64 else eps
         upsampfac = 1.25 if (d == 3 and eps_T >= 5e-5) else 2.0
         with _span("type-1 plan"):
-            t1 = _NUFFT12(xh, tuple(2 * n - 1 for n in N),
-                          isign=self._isign, eps=eps_T, upsampfac=upsampfac,
-                          dtype=dtype, device=xh.device)
+            t1 = _NUFFT12(xh, Nbig, isign=self._isign, eps=eps_T,
+                          upsampfac=upsampfac, dtype=dtype, device=xh.device)
         self._build_params = t1.params()
-        ones = torch.zeros((M, 2), dtype=dtype, device=xh.device)
-        ones[:, 0] = 1.0
-        T = view_as_complex(t1.apply(ones))             # (*(2N-1)) complex
+        c = torch.zeros((M, 2), dtype=dtype, device=xh.device)
+        if weights is None:
+            c[:, 0] = 1.0
+            self._wsum = float(M)
+        else:
+            w = torch.as_tensor(weights, dtype=torch.float64)
+            c[:, 0] = w.to(device=xh.device, dtype=dtype)
+            self._wsum = float(w.sum())
+        T = view_as_complex(t1.apply(c))               # (*Nbig) complex
         with _span("pad, roll, fftn"):
+            # index i of the build grid holds lag i - Nbig//2: keep the lags
+            # [-(n-1)+sh, (n-1)+sh] of each axis
+            for ax, (n, nb, sh) in enumerate(zip(N, Nbig, shift)):
+                T = T.narrow(ax, -(n - 1) + sh + nb // 2, 2 * n - 1)
             T = torch.nn.functional.pad(
                 T, [v for p, n in zip(reversed(self._P), reversed(N))
                     for v in (0, p - (2 * n - 1))])
-            # index m of the build grid holds lag m - (n-1): rotate so that
-            # lag j sits at j mod P
+            # sliced index m holds lag -(n-1)+sh+m: rotate so that lag j
+            # sits at (j - sh) mod P
             T = torch.roll(T, shifts=tuple(-(n - 1) for n in N),
                            dims=tuple(range(d)))
-            self._that = torch.fft.fftn(T).real.contiguous()
+            half = self._P[-1] // 2 + 1
             self._that_half = None
-            if real_in:
-                neg = self._that
-                for ax in range(d):
-                    neg = torch.roll(torch.flip(neg, (ax,)), 1, ax)
-                lam_sym = 0.5 * (self._that + neg)
-                self._that_half = lam_sym[..., : self._P[-1] // 2 + 1] \
+            if self._spec_complex:
+                # the spectrum of Re(T), complex
+                self._that = self._scale * torch.fft.fftn(T.real)
+                self._that_half = self._that[..., :half].contiguous()
+            else:
+                self._that = self._scale * torch.fft.fftn(T).real \
                     .contiguous()
+                if real_in:
+                    neg = self._that
+                    for ax in range(d):
+                        neg = torch.roll(torch.flip(neg, (ax,)), 1, ax)
+                    lam_sym = 0.5 * (self._that + neg)
+                    self._that_half = lam_sym[..., :half].contiguous()
         # the largest circulant eigenvalue bounds the section's norm
         with _span("lipschitz read"):
-            self._lipschitz = float(self._that.max())
+            self._lipschitz = float(self._that.abs().max()
+                                    if self._spec_complex
+                                    else self._that.max())
         self._name = f"NUFFTGram[d={d}]"
 
     def _conv(self, F):
@@ -405,8 +443,9 @@ class _NUFFTToeplitz(SelfAdjointOp):
 
     def _conv_real(self, x):
         """The same for real inputs (B, *N) on the half spectrum: the data's
-        and the kernel's spectra are Hermitian, so ``irfftn`` of the product
-        is exactly the real part of the full convolution."""
+        and the kernel's spectra are Hermitian (the kernel, shifted or not,
+        is real), so ``irfftn`` of the product is exactly the real part of
+        the full convolution."""
         dims = tuple(range(1, self._d + 1))
         g = torch.fft.rfftn(x, s=self._P, dim=dims) * self._that_half
         out = torch.fft.irfftn(g, s=self._P, dim=dims)
@@ -427,9 +466,17 @@ class _NUFFTToeplitz(SelfAdjointOp):
         return self.apply(arr)
 
     def trace(self, **kwargs) -> float:
-        """Exact: every diagonal entry is T[0] = M (twice per complex entry
-        in the real view)."""
-        return float(self._M * np.prod(self._N) * (1 if self._real_in else 2))
+        """Exact for an unshifted kernel: every diagonal entry is
+        ``scale T[0] = scale sum(w)`` (twice per complex entry in the real
+        view).  A shifted kernel's diagonal varies (``T[2k + d]``): the
+        generic estimator (``kwargs``), by default exact, on the kernel's
+        device and dtype."""
+        if self._spec_complex:
+            kwargs.setdefault("device", self._that.device)
+            kwargs.setdefault("dtype", self._that.real.dtype)
+            return super().trace(**kwargs)
+        mult = 1 if self._real_in else 2
+        return self._scale * self._wsum * float(np.prod(self._N)) * mult
 
 
 # ----------------------------------------------------------- public API ----

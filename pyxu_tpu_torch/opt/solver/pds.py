@@ -6,9 +6,11 @@ the host at ``m_init`` from beta and ``||K||`` with the three tuning
 strategies of the reference; a constant that f or K does not declare is
 estimated there, on the state's dtype and device.
 
-Ported: ``_PrimalDualSplitting``, ``CondatVu`` (with its fusion pass) and
-``ADMM`` (all three x-updates).  The other ten solvers of the family are
-not ported yet.
+The whole family: ``CondatVu`` (with its fusion pass), ``PD3O``, ``ADMM``
+(all three x-updates), ``DouglasRachford``, and the specialisations
+``ChambollePock``, ``ForwardBackward`` and ``ProximalPoint`` (of
+``CondatVu``), ``LorisVerhoeven`` and ``DavisYin`` (of ``PD3O``), each
+under its short alias too.
 """
 
 from __future__ import annotations
@@ -25,7 +27,20 @@ from pyxu_tpu_torch.opt.stop import RelError
 from pyxu_tpu_torch.runtime import resolve_device
 from pyxu_tpu_torch.utils.misc import asarray_astype
 
-__all__ = ["CondatVu", "CV", "ADMM"]
+__all__ = [
+    "CondatVu", "CV", "PD3O", "ChambollePock", "CP", "LorisVerhoeven", "LV",
+    "DavisYin", "DY", "DouglasRachford", "DR", "ADMM", "ForwardBackward",
+    "FB", "ProximalPoint", "PP",
+]
+
+
+def _initial_state(x0, device):
+    """``x0`` as a tensor on its own device, or a host array on ``device``
+    (default ``cuda``), and that device."""
+    dev = resolve_device(device, like=x0)
+    if not isinstance(x0, torch.Tensor):
+        x0 = torch.from_numpy(np.ascontiguousarray(x0))
+    return x0.to(dev), dev
 
 
 class _PrimalDualSplitting(Solver):
@@ -119,10 +134,7 @@ class _PrimalDualSplitting(Solver):
         ``device`` (default ``cuda``).  ``dual_dtype`` (e.g.
         ``torch.bfloat16``) stores the dual state narrower than the
         primal; arithmetic stays at the primal precision."""
-        dev = resolve_device(device, like=x0)
-        if not isinstance(x0, torch.Tensor):
-            x0 = torch.from_numpy(np.ascontiguousarray(x0))
-        x0 = x0.to(dev)
+        x0, dev = _initial_state(x0, device)
         self._set_steps(tau, sigma, rho, tuning_strategy, dtype=x0.dtype,
                         device=dev)
         mst = {"x": x0}
@@ -228,6 +240,126 @@ class CondatVu(_PrimalDualSplitting):
 CV = CondatVu
 
 
+class PD3O(_PrimalDualSplitting):
+    r"""Primal-Dual Three-Operator splitting, one adjoint and one gradient
+    an iteration::
+
+        x  = prox_{tau g}(u - tau K^T z)
+        u+ = (1-rho) u + rho (x - tau grad f(x))
+        z+ = (1-rho) z + rho prox_{sigma h*}(z + sigma K(2x - tau grad f(x) - u))
+
+    with the state ``u`` started at x0.
+    """
+
+    def _m_init_extra(self, mst):
+        from pyxu_tpu_torch.operator.linop.base import NullFunc
+        x0 = mst["x"]
+        if self._h is None and isinstance(self._g, NullFunc):
+            # with g = h = 0 and u0 = x0 the first step would not move and
+            # the first RelError check would stop the solve at x0; the
+            # additive part nudges x0 = 0 too
+            mst["u"] = x0 * 1.01 + 0.01
+        else:
+            mst["u"] = x0
+        return mst
+
+    def m_step(self, mst):
+        u = mst["u"]
+        tau, sigma, rho = self._tau, self._sigma, self._rho
+        if self._h is None:
+            x = self._g.prox(u, tau)
+            ut = x - tau * self._f.grad(x)
+            return {"x": x, "u": u + rho * (ut - u)}
+        z = mst["z"]
+        x = self._g.prox(u - tau * self._Kt(z), tau)
+        ut = x - tau * self._f.grad(x)
+        zt = self._h.fenchel_prox(z + sigma * self._Kf(x + ut - u), sigma)
+        return {"x": x, "u": u + rho * (ut - u), "z": z + rho * (zt - z)}
+
+
+def ChambollePock(g=None, h=None, K=None, **kwargs):
+    """Condat-Vu with f = 0."""
+    slv = CondatVu(f=None, g=g, h=h, K=K, **kwargs)
+    slv._name = "ChambollePock"
+    return slv
+
+
+CP = ChambollePock
+
+
+def LorisVerhoeven(f=None, h=None, K=None, **kwargs):
+    """PD3O with g = 0."""
+    slv = PD3O(f=f, g=None, h=h, K=K, **kwargs)
+    slv._name = "LorisVerhoeven"
+    return slv
+
+
+LV = LorisVerhoeven
+
+
+def DavisYin(f=None, g=None, h=None, **kwargs):
+    """PD3O with K = identity."""
+    slv = PD3O(f=f, g=g, h=h, K=None, **kwargs)
+    slv._name = "DavisYin"
+    return slv
+
+
+DY = DavisYin
+
+
+class DouglasRachford(_PrimalDualSplitting):
+    r"""Condat-Vu with f = 0, K = identity and sigma = 1/tau::
+
+        x+ = prox_{tau g}(z)
+        z+ = z + prox_{tau h}(2 x+ - z) - x+
+    """
+
+    def __init__(self, g=None, h=None, **kwargs):
+        super().__init__(f=None, g=g, h=h, K=None, **kwargs)
+
+    def m_init(self, x0, z0=None, tau: float = 1.0, device=None):
+        """``x0`` as a tensor runs on its device; a host array goes to
+        ``device`` (default ``cuda``).  z0 defaults to x0."""
+        x0, dev = _initial_state(x0, device)
+        self._tau = float(tau)
+        self._sigma = 1.0 / self._tau
+        self._rho = 1.0
+        z0 = x0 if z0 is None else asarray_astype(z0, x0.dtype, dev)
+        return {"x": x0, "z": z0}
+
+    def m_step(self, mst):
+        z, tau = mst["z"], self._tau
+        xp = self._g.prox(z, tau)
+        zp = z + self._h.prox(2 * xp - z, tau) - xp
+        return {"x": xp, "z": zp}
+
+    def default_stop_crit(self):
+        return RelError(eps=1e-4, var="x", rank=len(self._dim_shape))
+
+
+DR = DouglasRachford
+
+
+def ForwardBackward(f=None, g=None, **kwargs):
+    """Condat-Vu with h = 0."""
+    slv = CondatVu(f=f, g=g, h=None, K=None, **kwargs)
+    slv._name = "ForwardBackward"
+    return slv
+
+
+FB = ForwardBackward
+
+
+def ProximalPoint(g=None, **kwargs):
+    """Condat-Vu with f = h = 0."""
+    slv = CondatVu(f=None, g=g, h=None, K=None, **kwargs)
+    slv._name = "ProximalPoint"
+    return slv
+
+
+PP = ProximalPoint
+
+
 class ADMM(_PrimalDualSplitting):
     r"""ADMM for ``min_x f(x) + h(K x)``.
 
@@ -267,10 +399,7 @@ class ADMM(_PrimalDualSplitting):
     def m_init(self, x0, z0=None, u0=None, tau: float = None, device=None):
         """``x0`` as a tensor runs on its device; a host array goes to
         ``device`` (default ``cuda``).  ``tau`` defaults to 1."""
-        dev = resolve_device(device, like=x0)
-        if not isinstance(x0, torch.Tensor):
-            x0 = torch.from_numpy(np.ascontiguousarray(x0))
-        x0 = x0.to(dev)
+        x0, dev = _initial_state(x0, device)
         self._tau = 1.0 if tau is None else float(tau)
         needs_gd = (not self._f.has(Property.QUADRATIC)
                     and not (self._K is None

@@ -8,7 +8,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["as_canonical_shape", "asarray_astype", "next_fast_len"]
+__all__ = ["as_canonical_shape", "asarray_astype", "next_fast_len", "peaks"]
 
 
 def as_canonical_shape(shape) -> tuple:
@@ -58,3 +58,18 @@ def next_fast_len(n: int) -> int:
                 c += 1
             b += 1
     return best
+
+
+def peaks(x, y):
+    """MATLAB's ``peaks`` surface, in the dtype and on the device of the
+    tensors ``x`` and ``y``::
+
+        f(x, y) = 3 (1 - x)^2 exp(-x^2 - (y + 1)^2)
+                  - 10 (x/5 - x^3 - y^5) exp(-x^2 - y^2)
+                  - exp(-(x + 1)^2 - y^2) / 3
+    """
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    a = 3 * (1 - x) ** 2 * torch.exp(-(x ** 2) - (y + 1) ** 2)
+    b = -10 * (x / 5 - x ** 3 - y ** 5) * torch.exp(-(x ** 2) - (y ** 2))
+    c = -torch.exp(-((x + 1) ** 2) - (y ** 2)) / 3
+    return a + b + c

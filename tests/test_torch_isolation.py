@@ -40,6 +40,15 @@ for real_sky in (True, False):
     slv.fit(stop_crit=MaxIter(10), max_iter=10, **fit)
     assert bool(slv.solution().isfinite().all())
     assert ex["A"].kernel_path == "kernel"
+from pyxu_tpu_torch.models import sparse_view_ct
+import pyxu_tpu_torch.operator.func.indicator, pyxu_tpu_torch.operator.linop.xray
+from pyxu_tpu_torch.opt.solver import (PD3O, ChambollePock, DavisYin,
+    DouglasRachford, ForwardBackward, LorisVerhoeven, ProximalPoint)
+for method in ("fourier", "interp"):
+    slv, fit, ex = sparse_view_ct((16, 16), n_angles=6, method=method,
+                                  device="cpu", stop_rate=5)
+    slv.fit(stop_crit=MaxIter(10), max_iter=10, **fit)
+    assert isinstance(slv, PD3O) and bool(slv.solution().isfinite().all())
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu")]
 assert not bad, bad
 print("ok")
@@ -72,11 +81,13 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
     from pyxu_tpu_torch.models import (
         lasso_deconvolution,
         radio_interferometry,
+        sparse_view_ct,
         tv_deconvolution,
     )
     from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    from pyxu_tpu_torch.operator.linop.xray import FourierRadon, RadonTransform
     from pyxu_tpu_torch.convert import nufft3_problem
-    from pyxu_tpu_torch.opt.solver import ADMM, CG, PGD, CondatVu
+    from pyxu_tpu_torch.opt.solver import ADMM, CG, PD3O, PGD, CondatVu
     from pyxu_tpu_torch.runtime import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -87,6 +98,12 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
         radio_interferometry((32, 32), n_vis=100)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NUFFT.type2(np.zeros((10, 2)), (8, 8))
+    for method in ("fourier", "interp"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sparse_view_ct((32, 32), method=method)
+    for op in (FourierRadon, RadonTransform):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            op((8, 8), [0.0, 1.0])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     # a host array without a device does not go to the CPU either
@@ -102,6 +119,10 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
     assert isinstance(slv, ADMM) and fit["x0"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         slv.fit(x0=fit["x0"].numpy(), tau=0.05, max_iter=1)
+    slv, fit, _ = sparse_view_ct((16, 16), n_angles=6, device="cpu")
+    assert isinstance(slv, PD3O) and fit["x0"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        slv.fit(x0=fit["x0"].numpy(), max_iter=1)
     slv, fit = nufft3_problem(np.zeros((10, 3)), np.zeros((10, 2)),
                               (4, 4, 4), 0.5, device="cpu")
     assert isinstance(slv, CG) and fit["b"].device.type == "cpu"

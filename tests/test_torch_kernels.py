@@ -1265,3 +1265,25 @@ def test_nufft3_operator_on_the_card(cuda, kind):
         got = ops[cuda].gram().apply(f.to(cuda)).cpu()
         assert float((got - want).abs().max()) <= 1e-9 * float(
             want.abs().max())
+
+
+@pytest.mark.cuda
+def test_sparse_view_ct_on_the_card(cuda):
+    """The CT path on the card against the same solve on the CPU (plain
+    versions): FourierRadon at 48x48 / 16 views, its spread and interp in
+    the set-up and the stencil in the iterations (4 launches an
+    iteration), 40 PD3O iterations within 2e-4.  (FourierRadon and its
+    gram at an odd fine-grid side are held on the card by the smoke
+    script's CT phase.)"""
+    from pyxu_tpu_torch.models import sparse_view_ct
+    from pyxu_tpu_torch.opt.stop import MaxIter
+    sols = {}
+    for dev in (cuda, "cpu"):
+        slv, fit, _ = sparse_view_ct((48, 48), n_angles=16, method="fourier",
+                                     device=dev, stop_rate=40)
+        n0 = st.separable_correlate2d.launches
+        slv.fit(stop_crit=MaxIter(40), max_iter=40, **fit)
+        if dev == cuda:
+            assert st.separable_correlate2d.launches - n0 == 4 * 40
+        sols[str(dev)] = slv.solution().cpu()
+    assert float((sols["cuda"] - sols["cpu"]).abs().max()) <= 2e-4
