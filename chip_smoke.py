@@ -98,6 +98,30 @@ Phases:
    FourierRadon and its gram at 9x13, whose fine grid has an odd side,
    with their launches counted.
    Phase 5 holds the 2-D kernels on this path's polar set too.
+12. the solver engine and the last two solvers (``engine_phase``; each
+   timed fit after a warm fit, each held to its full iteration count read
+   from its history): TV 2160x3840 under ``precision_schedule=[(bf16,
+   200), (f32, None)]`` (300 ``tv_step`` launches, ``fused_path`` "kernel"
+   in both phases, x and z stored in bf16 in the first, the same bits as
+   the two phases run as two fits, the objective within 1e-2 of the f32
+   solve's; each phase's it/s, then both as warm fits of 100 with the
+   cast outside the window, and ``tv_step`` timed on f32 and on bf16 x
+   and z); LASSO 2160x3840 sessions (``RelError |
+   MaxIter`` reads the device once a block but the last; 150 + 150
+   warm-started iterations give a cold 300's bits; ``update_operands``
+   onto seed 1's loss gives a fresh solve's bits; ``track_objective``'s
+   last row is ``objective_func``; ``writeback`` under the ``npz`` and
+   ``torch`` backends reads back the same bits; a schedule with a bf16
+   phase raises the stencil kernel's ValueError); NLCG on Tikhonov
+   deconvolution with the 9-tap blur and ProxAdam (adam, ``inner_iter``
+   10) on LASSO, 30 iterations each at 2160x3840 with their stencil
+   launches checked, line-search trials and host reads an iteration, and
+   their 64x48 forms card vs CPU within 2e-4, also from ``a0 = 10/L``,
+   where the line search backtracks (the same trials and steps on the
+   card as on the CPU); CT 512^2 in ASYNC mode with
+   ``ManualStop``, stopped after 0.5 s (iterations multiples of
+   ``stop_rate``, 4 stencils an iteration, x finite and >= 0), and 20
+   MANUAL steps against a 20-iteration BLOCK fit (same bits).
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -197,6 +221,7 @@ CT_CHECKS = (((64, 64), 16, "fourier", 100),     # card vs CPU: shape,
 CT_ODD = ((9, 13), 4, 12)       # shape, angles, n_det: a fine-grid side 27
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+ENGINE_SMALL = (64, 48)         # NLCG / ProxAdam card vs CPU
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
                                # takes to enqueue one timed run
 
@@ -1330,6 +1355,380 @@ def ct_phase(nu, st, sparse_view_ct, MaxIter):
     return out
 
 
+def _profiled_device_ms(fn, n):
+    """Device time of one ``fn()`` (ms) from ``torch.profiler``: the kernels'
+    self device time over ``n`` calls, divided by ``n``; None where the
+    profiler records no device time.  For a step that reads the host (the
+    line search), whose device idles while the host waits, so that CUDA
+    events around back-to-back calls would time the host too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    # the kernels' own events only: an operator's event on the host
+    # carries its kernels' time too
+    us = sum(getattr(e, "device_time_total", None)
+             or getattr(e, "cuda_time_total", 0)
+             for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / n if us > 0 else None
+
+
+def _last_iteration(slv):
+    return int(slv.stats()[1]["iteration"][-1])
+
+
+def _timed_fit(slv, want, **kw):
+    """Host seconds of ``slv.fit(**kw)`` ending in a synchronize; the fit
+    must have run ``want`` iterations (read from its history: a segment
+    that raised would keep its last good state and stop short)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slv.fit(**kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert _last_iteration(slv) == want, (_last_iteration(slv), want)
+    return dt
+
+
+def engine_phase(ft, st):
+    """Phase 12: the rest of the solver engine and NLCG / ProxAdam at full
+    width (see the module docstring)."""
+    import tempfile
+
+    from pyxu_tpu_torch.abc import Mode
+    from pyxu_tpu_torch.math.linesearch import backtracking_linesearch
+    from pyxu_tpu_torch.models import (lasso_deconvolution, sparse_view_ct,
+                                       tv_deconvolution)
+    from pyxu_tpu_torch.operator.func import SquaredL2Norm
+    from pyxu_tpu_torch.opt.solver import NLCG, PGD, ProxAdam
+    from pyxu_tpu_torch.opt.stop import ManualStop, MaxIter, RelError
+    from pyxu_tpu_torch.runtime import host_read
+    dev, shape, ct_shape, small = "cuda", SHAPE, CT_SHAPE, ENGINE_SMALL
+    counters = [ft.tv_step, ft.tv_stepk, st.separable_correlate2d]
+    out = {}
+
+    def assert_launches(got, want):
+        assert got == want, (got, want)
+
+    def launches():
+        return {"tv_step": ft.tv_step.launches,
+                "tv_stepk": ft.tv_stepk.launches,
+                "stencil": st.separable_correlate2d.launches}
+
+    # ---- TV 4K under a precision schedule ------------------------------
+    sched = [(torch.bfloat16, 200), (torch.float32, None)]
+    iters, rate = PATH_ITERS, STOP_RATE
+    slv, fit, _ = tv_deconvolution(shape, device=dev, stop_rate=rate)
+    slv.fit(stop_crit=MaxIter(rate), max_iter=rate, **fit)          # warm
+    slv.fit(stop_crit=MaxIter(2 * rate), max_iter=2 * rate,
+            precision_schedule=[(torch.bfloat16, rate),
+                                (torch.float32, None)], **fit)      # warm
+    dt32 = _timed_fit(slv, iters, stop_crit=MaxIter(iters), max_iter=iters,
+                      **fit)
+    obj32 = float(slv.objective_func(slv._mstate))
+    _reset(counters)
+    dts = _timed_fit(slv, iters - sched[0][1], stop_crit=MaxIter(iters),
+                     max_iter=iters, precision_schedule=sched, **fit)
+    sched_launches = launches()
+    assert_launches(sched_launches, {"tv_step": iters, "tv_stepk": 0,
+                                     "stencil": 0})
+    paths = [p["fused_path"] for p in slv.phase_log]
+    assert paths == ["kernel", "kernel"], paths
+    assert [p["iterations"] for p in slv.phase_log] == [200, 100]
+    xs = slv.solution()
+    assert xs.dtype == torch.float32 and bool(xs.isfinite().all())
+    objs = float(slv.objective_func(slv._mstate))
+    rel = abs(objs - obj32) / abs(obj32)
+    assert rel < 1e-2, (objs, obj32)
+    # the same two phases as two fits, each timed: the bf16 phase stores x
+    # and z in bf16, and the two fits give the schedule's bits
+    d16 = _timed_fit(slv, 200, stop_crit=MaxIter(200), max_iter=200,
+                     precision_schedule=[sched[0]], **fit)
+    assert slv._mstate["x"].dtype == slv._mstate["z"].dtype == torch.bfloat16
+    d32 = _timed_fit(slv, 100, stop_crit=MaxIter(100), max_iter=100,
+                     warm_start=True,
+                     precision_schedule=[(torch.float32, None)])
+    assert torch.equal(slv.solution(), xs)
+    # the phases' rates compared: warm fits of equal length, the state cast
+    # outside the window, in the order bf16, f32, f32, bf16
+    n_ph = 100
+    ph = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for dtype in (torch.bfloat16, torch.float32, torch.float32,
+                  torch.bfloat16):
+        slv._mstate = {k: v.to(dtype) if (isinstance(v, torch.Tensor)
+                                          and v.ndim and v.is_floating_point())
+                       else v for k, v in slv._mstate.items()}
+        torch.cuda.synchronize()
+        ph[dtype] += _timed_fit(slv, n_ph, stop_crit=MaxIter(n_ph),
+                                max_iter=n_ph, warm_start=True,
+                                precision_schedule=[(dtype, None)])
+        assert slv.fused_path == "kernel"
+    # and the kernel alone on each storage (CUDA events, as the kernel table)
+    fz = slv._fused
+    H, W = shape
+    tv_ms = {}
+    for dtype, nb in ((torch.float32, 4), (torch.bfloat16, 2)):
+        xk = slv._mstate["x"].to(dtype).contiguous()
+        zk = slv._mstate["z"].to(dtype).contiguous()
+        ms = _time_ms(lambda: ft.tv_step(xk, zk, fz.b, fz.params))
+        # x and z read and written once, b read once
+        tv_ms[str(dtype).replace("torch.", "")] = {
+            "ms": ms, "bound_ms": H * W * (4 + 6 * nb) / HBM_BYTES_PER_S * 1e3}
+    out["tv_schedule"] = {"it_per_s": iters / dts,
+                          "bf16_phase_it_per_s": 200 / d16,
+                          "f32_phase_it_per_s": 100 / d32,
+                          "warm_bf16_it_per_s": 2 * n_ph / ph[torch.bfloat16],
+                          "warm_f32_it_per_s": 2 * n_ph / ph[torch.float32],
+                          "tv_step": tv_ms,
+                          "f32_solve_it_per_s": iters / dt32,
+                          "objective_rel_to_f32": rel}
+    print(f"[engine] TV {shape[0]}x{shape[1]} schedule bf16 x200 + f32 x100:"
+          f" {iters / dts:.2f} it/s (bf16 phase {200 / d16:.2f} it/s, f32 "
+          f"phase {100 / d32:.2f} it/s; the f32 solve {iters / dt32:.2f} "
+          f"it/s); fused_path {paths}; launches {sched_launches}; objective "
+          f"{objs:.6e} against f32 {obj32:.6e} (rel {rel:.3e}, limit 1e-2)",
+          flush=True)
+    print(f"[engine] TV {shape[0]}x{shape[1]} warm fits of {n_ph}, cast "
+          f"outside the window (bf16, f32, f32, bf16): bf16 "
+          f"{2 * n_ph / ph[torch.bfloat16]:.2f} it/s, f32 "
+          f"{2 * n_ph / ph[torch.float32]:.2f} it/s; tv_step on x and z in "
+          + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f})"
+                      for k, v in tv_ms.items()), flush=True)
+    del slv, fit, xs, fz, xk, zk
+
+    # ---- LASSO 4K sessions ---------------------------------------------
+    rate = iters // 6          # blocks that divide the 150 + 150 split
+    slv, fit, ex = lasso_deconvolution(shape, device=dev, stop_rate=rate)
+    slv.fit(stop_crit=MaxIter(rate), max_iter=rate, **fit)          # warm
+    _reset(counters)
+    n0 = host_read.count
+    dt_cold = _timed_fit(slv, iters,
+                         stop_crit=RelError(0.0) | MaxIter(iters),
+                         max_iter=iters, **fit)
+    reads = host_read.count - n0
+    # a block's stop flag is read once, but MaxIter decides the last
+    # block on the host
+    assert reads == iters // rate - 1, reads
+    assert_launches(launches(), {"tv_step": 0, "tv_stepk": 0,
+                                 "stencil": 2 * iters})
+    cold = slv.solution().clone()
+    _timed_fit(slv, iters // 2, stop_crit=MaxIter(iters // 2),
+               max_iter=iters // 2, **fit)
+    dt_warm = _timed_fit(slv, iters // 2, stop_crit=MaxIter(iters // 2),
+                         max_iter=iters // 2, warm_start=True)
+    assert torch.equal(slv.solution(), cold)
+    other, fit1, _ = lasso_deconvolution(shape, seed=1, device=dev,
+                                         stop_rate=rate)
+    other.fit(stop_crit=MaxIter(iters), max_iter=iters, **fit1)
+    slv.update_operands(f=other._f)
+    _timed_fit(slv, iters, stop_crit=MaxIter(iters), max_iter=iters, **fit)
+    assert torch.equal(slv.solution(), other.solution())
+    dt_obj = _timed_fit(slv, iters, stop_crit=MaxIter(iters),
+                        max_iter=iters, track_objective=True, **fit)
+    last = float(slv.stats()[1]["objective"][-1])
+    want = float(slv.objective_func(slv._mstate))
+    assert abs(last - want) <= 1e-6 * abs(want), (last, want)
+    ckpt = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("npz", "torch"):
+            s = PGD(f=slv._f, g=slv._g, stop_rate=rate, writeback_rate=rate,
+                    folder=os.path.join(tmp, backend),
+                    checkpoint_backend=backend)
+            dtb = _timed_fit(s, iters, stop_crit=MaxIter(iters),
+                             max_iter=iters, **fit)
+            mstate, hist = PGD.read_checkpoint(os.path.join(tmp, backend))
+            got = torch.as_tensor(mstate["x"]).to(s.solution().device)
+            assert torch.equal(got, s.solution()), backend
+            assert list(hist["iteration"]) == list(range(rate, iters + 1,
+                                                         rate))
+            ckpt[backend] = iters / dtb
+    del other, fit1
+    # no bf16 in the stencil kernel and no fallback: the schedule raises
+    try:
+        slv.fit(stop_crit=MaxIter(iters), max_iter=iters,
+                precision_schedule=[(torch.bfloat16, rate),
+                                    (torch.float32, None)], **fit)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("a bf16 phase ran on the stencil path")
+    assert "float32 or float64" in refused and slv.phase_log == [], refused
+    print(f"[engine] LASSO {shape[0]}x{shape[1]} schedule with a bf16 phase "
+          f"raises: {refused}", flush=True)
+    out["lasso_sessions"] = {
+        "it_per_s": iters / dt_cold, "warm_it_per_s": (iters // 2) / dt_warm,
+        "track_objective_it_per_s": iters / dt_obj,
+        "writeback_it_per_s": ckpt, "host_reads": reads}
+    print(f"[engine] LASSO {shape[0]}x{shape[1]}: {iters / dt_cold:.2f} it/s "
+          f"with RelError | MaxIter ({reads} host reads, "
+          f"{iters // rate} blocks); 150 + 150 warm-started = 300 cold "
+          f"(same bits); update_operands = a fresh solve on seed 1 (same "
+          f"bits); track_objective {iters / dt_obj:.2f} it/s; writeback "
+          f"every {rate} iterations: "
+          + ", ".join(f"{b} {v:.2f} it/s" for b, v in ckpt.items())
+          + "; read_checkpoint gives the same bits", flush=True)
+
+    # ---- NLCG and ProxAdam at full width, their small forms card vs CPU --
+    K, y = ex["K"], ex["y"]
+    lam = 1e-2
+
+    def tikhonov(K, y):
+        return (0.5 * SquaredL2Norm(K.dim_shape).asloss(y) * K
+                + 0.5 * lam * SquaredL2Norm(K.dim_shape))
+    f = tikhonov(K, y)
+    nit, nrate = 30, 10
+    f.apply(y), f.grad(y)       # fills the constant-gradient cache
+    _reset(counters)
+    f.apply(y)
+    per_apply = launches()["stencil"]
+    f.grad(y)
+    per_grad = launches()["stencil"] - per_apply
+    nl = NLCG(f, stop_rate=nrate)
+    nl.fit(x0=torch.zeros_like(y), stop_crit=MaxIter(nrate), max_iter=nrate)
+    _reset(counters)
+    t0, r0 = backtracking_linesearch.trials, host_read.count
+    dt_nl = _timed_fit(nl, nit, x0=torch.zeros_like(y),
+                       stop_crit=MaxIter(nit), max_iter=nit)
+    trials = backtracking_linesearch.trials - t0
+    reads = host_read.count - r0
+    n_st = launches()["stencil"]
+    # a step: f.apply at x, at the first trial point and at each further
+    # trial, f.grad at the new point; m_init takes one gradient
+    assert_launches(n_st, per_apply * (2 * nit + trials)
+                    + per_grad * (nit + 1))
+    obj0 = float(nl.objective_func({"x": torch.zeros_like(y)}))
+    obj = float(nl.objective_func(nl._mstate))
+    assert obj < obj0 and bool(nl.solution().isfinite().all())
+    host_ms = 1e3 * dt_nl / nit
+    state = dict(nl._mstate)
+    dev_ms = _profiled_device_ms(lambda: nl.m_step(state), 5)
+    out["nlcg"] = {"it_per_s": nit / dt_nl, "host_ms": host_ms,
+                   "device_ms": dev_ms, "stencil_per_it": n_st / nit,
+                   "trials_per_it": trials / nit, "reads_per_it": reads / nit}
+    print(f"[engine] NLCG {shape[0]}x{shape[1]} Tikhonov (lam {lam}): "
+          f"{nit / dt_nl:.2f} it/s; host {host_ms:.4f} ms an iteration, "
+          f"device {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
+          f" (torch.profiler); stencil launches {n_st / nit:.2f} an "
+          f"iteration; line-search trials {trials / nit:.2f} an iteration; "
+          f"host reads {reads / nit:.2f} an iteration; objective {obj0:.6e}"
+          f" -> {obj:.6e}", flush=True)
+    g = slv._g
+    _reset(counters)
+    slv._f.grad(y)
+    per_grad_lasso = launches()["stencil"]      # K^T K x; K^T y is cached
+    pa = ProxAdam(slv._f, g, stop_rate=nrate)
+    pa.fit(x0=torch.zeros_like(y), variant="adam", inner_iter=10,
+           stop_crit=MaxIter(nrate), max_iter=nrate)
+    _reset(counters)
+    dt_pa = _timed_fit(pa, nit, x0=torch.zeros_like(y), variant="adam",
+                       inner_iter=10, stop_crit=MaxIter(nit), max_iter=nit)
+    n_st = launches()["stencil"]
+    assert_launches(n_st, per_grad_lasso * nit)
+    assert bool(pa.solution().isfinite().all())
+    state = dict(pa._mstate)
+    pa_ms = _time_ms(lambda: pa.m_step(state), reps=10)
+    out["prox_adam"] = {"it_per_s": nit / dt_pa, "device_ms": pa_ms,
+                        "host_ms": 1e3 * dt_pa / nit,
+                        "stencil_per_it": n_st / nit}
+    print(f"[engine] ProxAdam (adam, inner_iter 10) {shape[0]}x{shape[1]} "
+          f"LASSO: {nit / dt_pa:.2f} it/s; host {1e3 * dt_pa / nit:.4f} ms an"
+          f" iteration, device {pa_ms:.4f} ms; "
+          f"stencil launches {n_st / nit:.2f} an iteration", flush=True)
+    del nl, pa, state, slv, fit, ex, K, y, f, g
+    diffs, nnz = {}, {}
+    for name in ("nlcg", "prox_adam"):
+        sols = {}
+        for d in (dev, "cpu"):
+            # lam 1e-3: at this size a larger weight keeps x at 0
+            s, _, e = lasso_deconvolution(small, lam=1e-3, device=d)
+            if name == "nlcg":
+                s = NLCG(tikhonov(e["K"], e["y"]))
+                s.fit(x0=torch.zeros_like(e["y"]), stop_crit=MaxIter(nit),
+                      max_iter=nit)
+            else:
+                s = ProxAdam(s._f, s._g)
+                s.fit(x0=torch.zeros_like(e["y"]), variant="adam",
+                      stop_crit=MaxIter(nit), max_iter=nit)
+            sols[d] = s.solution().cpu()
+        diffs[name] = float((sols[dev] - sols["cpu"]).abs().max())
+        nnz[name] = int((sols["cpu"] != 0).sum())
+        assert diffs[name] <= 2e-4, (name, diffs[name])
+    print(f"[engine] {small[0]}x{small[1]}, {nit} iterations card vs CPU: "
+          f"NLCG max_abs_diff={diffs['nlcg']:.3e}, ProxAdam "
+          f"{diffs['prox_adam']:.3e} (atol 2e-4); nonzeros {nnz}",
+          flush=True)
+    out["small_card_vs_cpu"] = diffs
+    # the line search's backtracking branch: a0 = 10/L has to shrink; a
+    # batch of two points, then NLCG from that a0, card against CPU
+    bt = {}
+    for d in (dev, "cpu"):
+        _, _, e = lasso_deconvolution(small, lam=1e-3, device=d)
+        fs = tikhonov(e["K"], e["y"])
+        a0 = 10.0 / float(fs.diff_lipschitz)
+        xb = torch.stack([torch.zeros_like(e["y"]), e["y"]])
+        t0 = backtracking_linesearch.trials
+        a = backtracking_linesearch(fs, xb, -fs.grad(xb), a0=a0)
+        t1 = backtracking_linesearch.trials
+        s = NLCG(fs)
+        s.fit(x0=torch.zeros_like(e["y"]), a0=a0, stop_crit=MaxIter(nit),
+              max_iter=nit)
+        bt[d] = (a.cpu(), t1 - t0, backtracking_linesearch.trials - t1,
+                 s.solution().cpu())
+    (a_d, t_d, n_d, x_d), (a_c, t_c, n_c, x_c) = bt[dev], bt["cpu"]
+    assert t_d == t_c > 0 and n_d == n_c > 0, (t_d, t_c, n_d, n_c)
+    assert torch.equal(a_d, a_c), (a_d, a_c)
+    bt_diff = float((x_d - x_c).abs().max())
+    assert bt_diff <= 2e-4, bt_diff
+    out["backtracking"] = {"trials_batch": t_d, "trials_nlcg": n_d,
+                           "max_abs_diff": bt_diff}
+    print(f"[engine] {small[0]}x{small[1]} a0 = 10/L: line search on a batch"
+          f" of 2, {t_d} trials, steps x L "
+          f"{[float(v) * 10.0 / a0 for v in a_d]} equal on card and CPU; NLCG {nit} iterations {n_d} trials on "
+          f"both, max_abs_diff={bt_diff:.3e} (atol 2e-4)", flush=True)
+
+    # ---- CT 512^2: ASYNC with ManualStop, MANUAL against BLOCK ----------
+    crate = 20
+    slv, fit, _ = sparse_view_ct(ct_shape, n_angles=CT_ANGLES,
+                                 method="fourier", device=dev, stop_rate=crate)
+    slv.fit(stop_crit=MaxIter(crate), max_iter=crate, **fit)        # warm
+    torch.cuda.synchronize()
+    _reset(counters)
+    slv.fit(stop_crit=ManualStop(), max_iter=10 ** 7, segment_size=crate,
+            mode=Mode.ASYNC, **fit)
+    time.sleep(0.5)
+    assert slv.busy()
+    slv.stop()
+    torch.cuda.synchronize()
+    assert not slv.busy() and not slv._astate["worker"].is_alive()
+    hist = slv.stats()[1]
+    k = int(hist["iteration"][-1])
+    assert k > 0 and all(int(v) % crate == 0 for v in hist["iteration"])
+    async_launches = launches()
+    assert_launches(async_launches, {"tv_step": 0, "tv_stepk": 0,
+                                     "stencil": 4 * k})
+    xa = slv.solution()
+    assert bool(xa.isfinite().all()) and float(xa.min()) >= 0
+    del slv, fit, xa
+    slv, fit, _ = sparse_view_ct(ct_shape, n_angles=CT_ANGLES,
+                                 method="fourier", device=dev, stop_rate=1)
+    slv.fit(stop_crit=MaxIter(20), max_iter=20, **fit)
+    xb = slv.solution().clone()
+    steps = list(slv.fit(stop_crit=MaxIter(20), max_iter=20,
+                         mode=Mode.MANUAL, **fit))
+    assert len(steps) == 20 and torch.equal(slv.solution(), xb)
+    out["ct_async"] = {"iterations_in_0.5_s": k}
+    print(f"[engine] CT {ct_shape[0]}x{ct_shape[1]} ASYNC with ManualStop: "
+          f"{k} iterations before stop() at 0.5 s (segments of {crate}; "
+          f"stencil launches {async_launches['stencil']}); MANUAL x20 = "
+          f"BLOCK x20 at stop_rate 1 (same bits)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1503,6 +1902,10 @@ def main() -> int:
     ct = ct_phase(nu, st, sparse_view_ct, MaxIter)
     _mark("CT path")
 
+    # ---- phase 12: the solver engine, NLCG and ProxAdam ------------------
+    engine = engine_phase(ft, st)
+    _mark("engine phase")
+
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -1596,7 +1999,8 @@ def main() -> int:
                       "mri3d_128_setup_s": mri["setup_s"],
                       "ct_512_it_per_s": ct[CT_SHAPE]["rate"],
                       "ct_256_it_per_s": ct[CT_BENCH_SHAPE]["rate"],
-                      "ct_512_setup_s": ct[CT_SHAPE]["setup_s"]}),
+                      "ct_512_setup_s": ct[CT_SHAPE]["setup_s"],
+                      "engine": engine}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

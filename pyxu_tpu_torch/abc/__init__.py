@@ -18,4 +18,4 @@ from pyxu_tpu_torch.abc.operator import (  # noqa: F401
     infer_operator_class,
 )
 from pyxu_tpu_torch.abc import arithmetic  # noqa: F401
-from pyxu_tpu_torch.abc.solver import Solver, StoppingCriterion  # noqa: F401
+from pyxu_tpu_torch.abc.solver import Mode, Solver, StoppingCriterion  # noqa: F401

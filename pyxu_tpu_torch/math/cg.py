@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from pyxu_tpu_torch.runtime import host_read
+
 __all__ = ["cg_solve", "CHECK_RATE"]
 
 CHECK_RATE = 8      # iterations between host reads of the convergence flag
@@ -79,6 +81,6 @@ def cg_solve(matvec, b, x0=None, *, rtol: float = 1e-6, atol: float = 0.0,
         p = z + bcast(beta) * p
         rz = rz_new
         if (maxiter > CHECK_RATE and (k + 1) % CHECK_RATE == 0
-                and not bool(torch.any(rs > tol2))):
+                and not host_read(torch.any(rs > tol2))):
             break
     return x

@@ -17,4 +17,6 @@ from pyxu_tpu_torch.opt.solver.pds import (  # noqa: F401
     LorisVerhoeven,
     ProximalPoint,
 )
+from pyxu_tpu_torch.opt.solver.nlcg import NLCG  # noqa: F401
 from pyxu_tpu_torch.opt.solver.pgd import PGD  # noqa: F401
+from pyxu_tpu_torch.opt.solver.prox_adam import ProxAdam  # noqa: F401

@@ -30,6 +30,9 @@ class CG(Solver):
     """Conjugate gradient for ``A x = b``, ``A`` positive definite."""
 
     def __init__(self, A, **kwargs):
+        """``kwargs``: the engine's (:class:`~pyxu_tpu_torch.abc.solver.
+        Solver`), ``log_var`` ``("x",)`` by default."""
+        kwargs.setdefault("log_var", ("x",))
         super().__init__(**kwargs)
         self._A = A
 

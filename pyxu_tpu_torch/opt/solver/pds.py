@@ -47,6 +47,9 @@ class _PrimalDualSplitting(Solver):
     """Common problem spec and step-size machinery."""
 
     def __init__(self, f=None, g=None, h=None, K=None, **kwargs):
+        """``kwargs``: the engine's (:class:`~pyxu_tpu_torch.abc.solver.
+        Solver`), ``log_var`` ``("x", "z")`` by default."""
+        kwargs.setdefault("log_var", ("x", "z"))
         super().__init__(**kwargs)
         ref = f or g or (h if K is None else None)
         if ref is None and K is not None:
@@ -184,9 +187,12 @@ class CondatVu(_PrimalDualSplitting):
     Fusion pass: when the problem is the TV-deconvolution family (see
     :mod:`pyxu_tpu_torch.ops.fused_tv`) and ``fuse`` is on, each iteration
     runs as one fused step and the engine's K-step hook runs K iterations
-    per pass.  The choice is made once, at ``m_init``, and recorded in
-    ``fused_path``: ``"kernel"`` (CUDA kernels), ``"plain"`` (the plain
-    PyTorch version, CPU state) or ``None`` (the generic operator path).
+    per pass.  The choice is made at ``m_init``, and made again on the
+    state of a fit that skips it (``warm_start``, each phase of a
+    ``precision_schedule``: a bf16 phase takes the kernels with bf16
+    storage), and recorded in ``fused_path``: ``"kernel"`` (CUDA kernels),
+    ``"plain"`` (the plain PyTorch version, CPU state) or ``None`` (the
+    generic operator path).
     """
 
     def __init__(self, f=None, g=None, h=None, K=None, fuse: bool = True,
@@ -197,17 +203,21 @@ class CondatVu(_PrimalDualSplitting):
         self.fused_path = None
 
     def _m_init_extra(self, mst):
+        self._m_refresh(mst)
+        return mst
+
+    def _m_refresh(self, mst):
         from pyxu_tpu_torch.ops.fused_tv import match_fused_tv, match_fused_tv2
         self._fused, self.fused_path = None, None
         self._m_step2, self._m_step2_iters = None, 0
         if not self._fuse:
-            return mst
+            return
         x, z = mst["x"], mst.get("z")
         fused = match_fused_tv(self._f, self._g, self._h, self._K,
                                tau=self._tau, sigma=self._sigma,
                                rho=self._rho, x=x, z=z)
         if fused is None:
-            return mst
+            return
         self._fused = fused
         self.fused_path = "kernel" if x.is_cuda else "plain"
         n = match_fused_tv2(fused, tuple(x.shape))
@@ -216,7 +226,6 @@ class CondatVu(_PrimalDualSplitting):
                 xn, zn = fused.stepk(s["x"], s["z"], _n)
                 return {"x": xn, "z": zn}
             self._m_step2, self._m_step2_iters = step2, n
-        return mst
 
     def m_step(self, mst):
         x = mst["x"]
@@ -381,6 +390,7 @@ class ADMM(_PrimalDualSplitting):
         if f is None:
             from pyxu_tpu_torch.operator.linop.base import NullFunc
             f = NullFunc(K.dim_shape if K is not None else h.dim_shape)
+        kwargs.setdefault("log_var", ("x", "z", "u"))
         super().__init__(f=f, h=h, K=K, **kwargs)
         self._dim_shape = f.dim_shape
         self._solver_kwargs = dict(solver_kwargs or {})

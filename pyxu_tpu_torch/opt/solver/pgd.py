@@ -29,6 +29,9 @@ class PGD(Solver):
     r"""min_x f(x) + g(x), f differentiable, g proximable."""
 
     def __init__(self, f=None, g=None, **kwargs):
+        """``kwargs``: the engine's (:class:`~pyxu_tpu_torch.abc.solver.
+        Solver`), ``log_var`` ``("x",)`` by default."""
+        kwargs.setdefault("log_var", ("x",))
         super().__init__(**kwargs)
         if f is None and g is None:
             raise ValueError("at least one of f, g must be given")

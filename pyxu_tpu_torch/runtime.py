@@ -4,6 +4,10 @@
 an explicit device wins, then the device of a tensor argument, else
 ``cuda``.  With no GPU present and no device given it raises — the port
 never carries on on the CPU unasked.
+
+``host_read`` is the one place where the solver engine, the line search and
+the nested CG read a flag back from the device; ``host_read.count`` counts
+those reads.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ __all__ = [
     "getPrecision",
     "atol_for",
     "resolve_device",
+    "host_read",
 ]
 
 
@@ -45,3 +50,15 @@ def resolve_device(device=None, like=None) -> torch.device:
             "no CUDA device: pass device='cpu' (or CPU tensors) to run on "
             "the CPU")
     return torch.device("cuda")
+
+
+def host_read(flag) -> bool:
+    """``bool(flag)``.  A tensor is read back from its device (a wait for the
+    work queued before it) and counted in ``host_read.count``; a Python bool
+    is returned as it is, with no read."""
+    if isinstance(flag, torch.Tensor):
+        host_read.count += 1
+    return bool(flag)
+
+
+host_read.count = 0

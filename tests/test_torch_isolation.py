@@ -49,6 +49,36 @@ for method in ("fourier", "interp"):
                                   device="cpu", stop_rate=5)
     slv.fit(stop_crit=MaxIter(10), max_iter=10, **fit)
     assert isinstance(slv, PD3O) and bool(slv.solution().isfinite().all())
+import tempfile, time
+import numpy as np, torch
+from pyxu_tpu_torch.abc import Mode
+from pyxu_tpu_torch.math.linesearch import backtracking_linesearch
+from pyxu_tpu_torch.operator.func import L1Norm, SquaredL2Norm
+from pyxu_tpu_torch.opt.solver import NLCG, PGD, ProxAdam
+from pyxu_tpu_torch.opt.stop import (ManualStop, MaxCarbon, MaxDuration,
+    Memorize)
+y = torch.from_numpy(np.linspace(-1, 1, 8, dtype=np.float32))
+f, g = 0.5 * SquaredL2Norm((8,)).asloss(y), 0.1 * L1Norm((8,))
+for slv in (NLCG(f), ProxAdam(f, g)):
+    slv.fit(x0=torch.zeros(8), stop_crit=MaxIter(5) | Memorize("x"),
+            max_iter=5)
+    assert bool(slv.solution().isfinite().all())
+with tempfile.TemporaryDirectory() as d:
+    slv = PGD(f, g, folder=d, exist_ok=True, writeback_rate=5,
+              checkpoint_backend="torch")
+    slv.fit(x0=torch.zeros(8), stop_crit=MaxIter(10), max_iter=10,
+            precision_schedule=[(torch.bfloat16, 5), (torch.float32, None)])
+    assert PGD.read_checkpoint(d)[0]["x"].dtype == torch.float32
+slv = PGD(f, g)
+for _ in slv.fit(x0=torch.zeros(8), stop_crit=MaxIter(3), max_iter=3,
+                 mode=Mode.MANUAL):
+    pass
+slv.fit(x0=torch.zeros(8), stop_crit=ManualStop() | MaxDuration(60.0)
+        | MaxCarbon(1.0, watts=700.0), max_iter=10 ** 6, segment_size=10,
+        mode=Mode.ASYNC)
+time.sleep(0.05)
+slv.stop()
+assert not slv.busy()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu")]
 assert not bad, bad
 print("ok")
@@ -87,7 +117,16 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
     from pyxu_tpu_torch.operator.linop.nufft import NUFFT
     from pyxu_tpu_torch.operator.linop.xray import FourierRadon, RadonTransform
     from pyxu_tpu_torch.convert import nufft3_problem
-    from pyxu_tpu_torch.opt.solver import ADMM, CG, PD3O, PGD, CondatVu
+    from pyxu_tpu_torch.opt.solver import (
+        ADMM,
+        CG,
+        NLCG,
+        PD3O,
+        PGD,
+        CondatVu,
+        ProxAdam,
+    )
+    from pyxu_tpu_torch.operator.func import SquaredL2Norm
     from pyxu_tpu_torch.runtime import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -128,6 +167,10 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
     assert isinstance(slv, CG) and fit["b"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         slv.fit(b=fit["b"].numpy(), max_iter=1)
+    f = SquaredL2Norm((4,))
+    for slv in (NLCG(f), ProxAdam(f)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            slv.fit(x0=np.zeros(4, np.float32), max_iter=1)
 
 
 def test_tf32_off():

@@ -1287,3 +1287,95 @@ def test_sparse_view_ct_on_the_card(cuda):
             assert st.separable_correlate2d.launches - n0 == 4 * 40
         sols[str(dev)] = slv.solution().cpu()
     assert float((sols["cuda"] - sols["cpu"]).abs().max()) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_tv_schedule_on_the_card(cuda, monkeypatch):
+    """A precision schedule on the TV path at 96x67: the bf16 phase matches
+    the fused kernels again and launches ``tv_step`` on bf16 storage, the
+    f32 phase on f32; the result comes back in f32, its objective within
+    1e-2 of the f32 solve's."""
+    from pyxu_tpu_torch.convert import tv_problem
+    from pyxu_tpu_torch.opt.stop import MaxIter
+    y = np.random.default_rng(4).random((96, 67)).astype(np.float32)
+    taps = (_gauss(), _gauss())
+    seen = []
+    launch = ft._launch
+
+    def recording(entry, x, z, *args, **kw):
+        seen.append((entry, x.dtype, z.dtype))
+        return launch(entry, x, z, *args, **kw)
+    monkeypatch.setattr(ft, "_launch", recording)
+    objs = {}
+    for sched in (None, [(torch.bfloat16, 40), (torch.float32, None)]):
+        f, h, D, slv, fit = tv_problem(y, taps, (4, 4), device=cuda,
+                                       stop_rate=10)
+        seen.clear()
+        n0 = ft.tv_step.launches
+        slv.fit(stop_crit=MaxIter(60), max_iter=60, precision_schedule=sched,
+                **fit)
+        assert ft.tv_step.launches - n0 == 60 and len(seen) == 60
+        x = slv.solution()
+        assert x.dtype == torch.float32 and bool(x.isfinite().all())
+        objs[sched is None] = float(f.apply(x) + h.apply(D.apply(x)))
+    step = "tv_step_launch"
+    assert seen == [(step, torch.bfloat16, torch.bfloat16)] * 40 + \
+        [(step, torch.float32, torch.float32)] * 20
+    assert [p["fused_path"] for p in slv.phase_log] == ["kernel", "kernel"]
+    assert abs(objs[False] - objs[True]) <= 1e-2 * abs(objs[True]), objs
+
+
+@pytest.mark.cuda
+def test_stencil_schedule_bf16_phase_raises_on_the_card(cuda):
+    """The stencil kernel takes float32 and float64 only, and nothing falls
+    back: a LASSO schedule with a bfloat16 phase raises its ValueError and
+    leaves the state of the phase's start."""
+    from pyxu_tpu_torch.convert import lasso_problem
+    from pyxu_tpu_torch.opt.stop import MaxIter
+    y = np.random.default_rng(6).random((96, 67)).astype(np.float32)
+    _, _, _, slv, fit = lasso_problem(y, (_gauss(), _gauss()), (4, 4),
+                                      device=cuda, stop_rate=10)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        slv.fit(stop_crit=MaxIter(30), max_iter=30,
+                precision_schedule=[(torch.bfloat16, 20),
+                                    (torch.float32, None)], **fit)
+    assert slv.phase_log == [] and slv._mstate["x"].dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_sessions_on_the_card(cuda):
+    """warm_start and update_operands on the LASSO path at 96x67 (the
+    stencil kernel, two launches an iteration) give the same bits as fresh
+    solves; an ASYNC fit stops and its worker is joined."""
+    import time
+
+    from pyxu_tpu_torch.abc import Mode
+    from pyxu_tpu_torch.convert import lasso_problem
+    from pyxu_tpu_torch.opt.stop import ManualStop, MaxIter
+    rng = np.random.default_rng(5)
+    y1, y2 = (rng.random((96, 67)).astype(np.float32) for _ in range(2))
+    taps = (_gauss(), _gauss())
+
+    def fresh(y, n):
+        _, _, _, slv, fit = lasso_problem(y, taps, (4, 4), device=cuda,
+                                          stop_rate=10)
+        slv.fit(stop_crit=MaxIter(n), max_iter=n, **fit)
+        return slv, fit
+    slv, fit = fresh(y1, 20)
+    n0 = st.separable_correlate2d.launches
+    slv.fit(stop_crit=MaxIter(20), max_iter=20, warm_start=True)
+    assert st.separable_correlate2d.launches - n0 == 2 * 20
+    assert torch.equal(slv.solution(), fresh(y1, 40)[0].solution())
+    f2 = lasso_problem(y2, taps, (4, 4), device=cuda)[0]
+    slv.update_operands(f=f2)
+    slv.fit(stop_crit=MaxIter(30), max_iter=30, **fit)
+    assert torch.equal(slv.solution(), fresh(y2, 30)[0].solution())
+    slv.fit(stop_crit=ManualStop(), max_iter=10 ** 7, segment_size=10,
+            mode=Mode.ASYNC, **fit)
+    time.sleep(0.2)
+    assert slv.busy()
+    slv.stop()
+    worker = slv._astate["worker"]
+    assert not slv.busy() and not worker.is_alive()
+    k = slv.stats()[1]["iteration"][-1]
+    assert k > 0 and k % 10 == 0 and bool(slv.solution().isfinite().all())
