@@ -122,6 +122,25 @@ Phases:
    ``ManualStop``, stopped after 0.5 s (iterations multiples of
    ``stop_rate``, 4 stencils an iteration, x finite and >= 0), and 20
    MANUAL steps against a 20-iteration BLOCK fit (same bits).
+13. wide-field synthesis imaging (``t3_phase``, HVOX-style: sky pixels on
+   the sphere against non-coplanar visibilities, one 3-D type-3 NUFFT):
+   131 072 pixels on a 4 deg cap, 258 048 visibilities (64 antennas, 2016
+   baselines x 128 steps of an 8 h track at 1.4 GHz), ``A =
+   NUFFT.type3(pixels, 2 pi uvw, isign=-1)`` on its 1536x1536x60 grid
+   (f32, eps 1e-6, w = 7); both 3-D kernels on the plan's two clouds (x'
+   on half of each ring, s' on the frequency ring) against their plain
+   versions in float64, timed; A against a float64 direct sum at 1024
+   visibilities (f32 and a float64 plan) and the dot test; the chunked
+   plan (``fft_mem_mb=256, max_blocks=16``) against the monolithic apply;
+   the 2-D coplanar form against the direct sum on the 2-D kernels; CG on
+   ``(A^H A + 1e-2 K I) x = A^H y``, a warm fit and a timed fit of 20
+   iterations with 2 + 2 launches an iteration asserted (and the initial
+   residual's), an iteration's device time by part, the set-up by part
+   (``[setup]``); the same problem at 2000 pixels / 3000 visibilities
+   card against CPU.  The ``kernels`` line's NUFFT entries carry
+   ``t3_launches`` (the 3-D kernels' in the timed fit, the 2-D kernels'
+   in the coplanar form's apply and adjoint) and ``t3`` (per cloud: ms,
+   plain and bound ms, errors).
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -222,6 +241,15 @@ CT_ODD = ((9, 13), 4, 12)       # shape, angles, n_det: a fine-grid side 27
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 ENGINE_SMALL = (64, 48)         # NLCG / ProxAdam card vs CPU
+# wide-field synthesis imaging (phase 13): a 64-antenna array at latitude
+# -30.7 deg tracking declination -30 deg for 8 h at 1.4 GHz, a 4 deg sky cap
+T3_PIXELS, T3_ANTENNAS, T3_STEPS = 131_072, 64, 128
+T3_RADIUS_M, T3_LAMBDA_M, T3_CAP_DEG = 150.0, 0.21, 4.0
+T3_LAT_DEG, T3_DEC_DEG, T3_HOURS = -30.7, -30.0, 8.0
+T3_NF = (1536, 1536, 60)        # the plan's fine grid at this size
+T3_ITERS, T3_SOURCES, T3_LAM = 20, 200, 1e-2     # lam over K, diag(A^H A)
+T3_SMALL = (2000, 16, 25)       # card vs CPU: pixels, antennas, time steps
+T3_CHECK_VIS = 1024             # visibilities held against the direct sum
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
                                # takes to enqueue one timed run
 
@@ -613,9 +641,10 @@ def _nu_points(kind, M, rng):
 def _nu_bound(M, n_grid, w, elem, d=2):
     """Least time (ms) of one spread or interp in d dimensions: the plan's
     point data (perm, d left taps, d offsets) and the values read once and
-    the grid written or read once, or M (w^d complex-by-real multiply-adds
-    and their weight products, 5 operations a tap, plus d w ES evaluations
-    of 8 operations), whichever is larger."""
+    ``n_grid`` cells of the grid written or read once (phase 13 counts an
+    interp's as the cells its points reach), or M (w^d complex-by-real
+    multiply-adds and their weight products, 5 operations a tap, plus d w
+    ES evaluations of 8 operations), whichever is larger."""
     nbytes = M * (4 + 4 * d + d * elem + 2 * elem) + n_grid * 2 * elem
     ops = M * (5 * w ** d + 8 * d * w)
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
@@ -1729,6 +1758,297 @@ def engine_phase(ft, st):
     return out
 
 
+def _sky_data(n_pix, n_ant, n_steps, seed=0):
+    """The synthesis-imaging problem's data from ``seed`` (host numpy).
+
+    Sky: ``n_pix`` pixels on a Fibonacci lattice over a ``T3_CAP_DEG`` cap
+    around the phase centre, unit vectors (l, m, n).  Array: ``n_ant``
+    antennas uniform in a disk at latitude ``T3_LAT_DEG`` whose radius,
+    ``T3_RADIUS_M`` at full size, scales with sqrt(n_pix / T3_PIXELS), so
+    the pixels stay about Nyquist for the longest baseline.  Visibilities:
+    every baseline at ``n_steps`` hour angles over ``T3_HOURS`` tracking
+    declination ``T3_DEC_DEG``, uvw in wavelengths (Thompson, Moran and
+    Swenson, eq. 4.1), returned as z = 2 pi uvw.  ``T3_SOURCES`` point
+    sources on seeded pixels with fluxes from dN/dS ~ S^-2.5, S >= 1 (real
+    sky, imaginary part 0), and unit Gaussian noise per visibility and
+    part.  Returns ``(pixels, z, x_true, noise)``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    i = np.arange(n_pix) + 0.5
+    ct = 1.0 - (1.0 - np.cos(np.deg2rad(T3_CAP_DEG))) * i / n_pix
+    st = np.sqrt(1.0 - ct * ct)
+    phi = i * np.pi * (3.0 - np.sqrt(5.0))           # the golden angle
+    pix = np.stack([st * np.cos(phi), st * np.sin(phi), ct], axis=1)
+    radius = T3_RADIUS_M * np.sqrt(n_pix / T3_PIXELS)
+    r = radius * np.sqrt(rng.uniform(0, 1, n_ant))
+    a = rng.uniform(0, 2 * np.pi, n_ant)
+    east, north = r * np.cos(a), r * np.sin(a)
+    lat, dec = np.deg2rad(T3_LAT_DEG), np.deg2rad(T3_DEC_DEG)
+    # local (east, north, up = 0) to equatorial (X, Y, Z), in wavelengths
+    xyz = np.stack([-north * np.sin(lat), east, north * np.cos(lat)])
+    p, q = np.triu_indices(n_ant, 1)
+    L = (xyz[:, q] - xyz[:, p]) / T3_LAMBDA_M                # (3, baselines)
+    H = np.linspace(-0.5, 0.5, n_steps)[:, None] * T3_HOURS * 2 * np.pi / 24
+    sd, cd = np.sin(dec), np.cos(dec)
+    u = np.sin(H) * L[0] + np.cos(H) * L[1]
+    v = -sd * np.cos(H) * L[0] + sd * np.sin(H) * L[1] + cd * L[2]
+    w = cd * np.cos(H) * L[0] - cd * np.sin(H) * L[1] + sd * L[2]
+    z = 2 * np.pi * np.stack([u.ravel(), v.ravel(), w.ravel()], axis=1)
+    xt = np.zeros((n_pix, 2))
+    src = rng.choice(n_pix, T3_SOURCES, replace=False)
+    xt[src, 0] = (1.0 - rng.uniform(0, 1, T3_SOURCES)) ** (-1 / 1.5)
+    noise = rng.standard_normal((z.shape[0], 2))
+    return pix, z, xt, noise
+
+
+def _sky_problem(pix, z, xt, noise, device, dtype=torch.float32, span=None):
+    """Wide-field synthesis imaging through the public API: ``A =
+    NUFFT.type3(pixels, z, isign=-1, eps=1e-6)``, ``Q = A.gram() + lam K
+    I`` (A^H A's diagonal is K), ``y = A x_true`` plus 1% rms complex
+    noise, the dirty map ``b = A^H y``; ``span(name)``: a context around
+    each step (the set-up breakdown).  Returns ``(A, Q, b)``."""
+    from pyxu_tpu_torch.operator.linop import IdentityOp
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    span = span or (lambda name: contextlib.nullcontext())
+    with span("A = NUFFT.type3(sky, z)"):
+        A = NUFFT.type3(pix, z, isign=-1, eps=1e-6, dtype=dtype,
+                        device=device)
+    Q = A.gram() + T3_LAM * z.shape[0] * IdentityOp(A.dim_shape)
+    with span("y = A x + noise"):
+        y = A.apply(torch.from_numpy(xt).to(device=device, dtype=dtype))
+        scale = 0.01 * torch.sqrt(torch.mean(y * y))
+        y = y + scale * torch.from_numpy(noise).to(device=device,
+                                                   dtype=dtype)
+    with span("b = A^H y"):
+        b = A.adjoint(y)
+    return A, Q, b
+
+
+def _direct3(c, x, z, sel_x=None, sel_z=None, isign=-1):
+    """The type-3 sums in float64 on the card: ``f_k = sum_j c_j e^{isign
+    i <z_k, x_j>}`` at the frequencies ``sel_z``, or (``sel_x``) the
+    adjoint's ``c_j = sum_k f_k e^{-isign i <z_k, x_j>}`` at the points
+    ``sel_x``; the long sum in chunks.  Returns complex128."""
+    if sel_z is not None:
+        rows, cols, sign = z[sel_z], x, isign
+    else:
+        rows, cols, sign = x[sel_x], z, -isign
+    cc = torch.view_as_complex(c.double().contiguous())
+    out = torch.zeros(rows.shape[0], dtype=torch.complex128, device="cuda")
+    for j in range(0, cols.shape[0], 16384):
+        out += torch.exp(sign * 1j * (rows @ cols[j:j + 16384].T)) \
+            @ cc[j:j + 16384]
+    return out
+
+
+def _rel2(got, want):
+    """Relative l2 error of a (..., 2) real view against complex128."""
+    g = torch.view_as_complex(got.double().contiguous())
+    return float(torch.linalg.vector_norm(g - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def t3_phase(nu, MaxIter):
+    """Phase 13: wide-field synthesis imaging by CG over the 3-D type-3
+    NUFFT at full size (131 072 sky pixels, 258 048 visibilities), on the
+    H100's 3-D NUFFT kernels.  Returns its rates, launches and records."""
+    import numpy as np
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    from pyxu_tpu_torch.opt.solver import CG
+    pix, z, xt, noise = _sky_data(T3_PIXELS, T3_ANTENNAS, T3_STEPS)
+    M, K = pix.shape[0], z.shape[0]
+    uvw = np.abs(z).max(axis=0) / (2 * np.pi)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A, Q, b = _sky_problem(pix, z, xt, noise, "cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    cells = int(np.prod(A._nf))
+    print(f"[t3] sky: {M} pixels on a {T3_CAP_DEG} deg cap, {K} "
+          f"visibilities ({T3_ANTENNAS} antennas, {T3_STEPS} steps), max "
+          f"|u|, |v|, |w| {uvw[0]:.1f}, {uvw[1]:.1f}, {uvw[2]:.1f} "
+          f"wavelengths; nf {A._nf}: {cells} cells, {cells * 8 / 1e9:.3f} "
+          f"GB at complex64; w {A._w}, bins {A._plan_x.bins}; set-up "
+          f"{setup:.4f} s", flush=True)
+    assert A._nf == T3_NF and A.kernel_path == "kernel", (A._nf,
+                                                          A.kernel_path)
+
+    # ---- both 3-D kernels on this plan's two clouds, f32 and f64 ----------
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    grid = (1,) + A._nf + (2,)
+    recs = {}
+    for cloud, name, p, shape in (
+            ("x'", "nufft_spread3", A._plan_x, (1, M, 2)),
+            ("s'", "nufft_interp3", A._plan_s, grid),
+            ("s'", "nufft_spread3", A._plan_s, (1, K, 2)),
+            ("x'", "nufft_interp3", A._plan_x, grid)):
+        kern, plain = getattr(nu, name), getattr(nu, name + "_plain")
+        a = torch.randn(shape, generator=gen, device="cuda")
+        tag = f"{name}[t3 {cloud}, {'x'.join(map(str, p.nf))}, float32]"
+        err = _nu_check(tag, kern, plain, a, p, torch.float32, twice=True)
+        err64 = _nu_check(tag.replace("float32", "float64"), kern, plain,
+                          a.double(), p.astype(torch.float64), torch.float64)
+        ms = _time_ms(lambda: kern(a, p), reps=5)
+        plain_ms = _time_ms(lambda: plain(a, p), reps=2, runs=3)
+        # a spread writes the whole grid; an interp must read only the
+        # cells its points tap (the x' cloud fills 1/8 of the grid): those
+        # of nonzero weight in a spread of ones
+        reach = cells
+        if "interp" in name:
+            ones = torch.zeros((1, p.M, 2), device="cuda")
+            ones[..., 0] = 1.0
+            reach = int((nu.nufft_spread3(ones, p) != 0).any(-1).sum())
+            del ones
+        bound_ms, bound_by = _nu_bound(p.M, reach, A._w, 4, 3)
+        print(f"[kernel] {tag} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}; {reach} cells, "
+              f"{reach / cells:.1%} of the grid); points {p.M}; "
+              f"{_blocks(p, name)}", flush=True)
+        recs[(name, cloud)] = dict(max_abs_err=err, max_abs_err_f64=err64,
+                                   ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by)
+        del a
+    _mark("type-3 kernel checks")
+
+    # ---- A against the direct sum; the dot test ----------------------------
+    xd, zd = torch.from_numpy(pix).cuda(), torch.from_numpy(z).cuda()
+    sel = torch.from_numpy(np.random.default_rng(7).choice(
+        K, T3_CHECK_VIS, replace=False)).cuda()
+    c = torch.randn((M, 2), generator=gen, device="cuda", dtype=torch.float64)
+    f = torch.randn((K, 2), generator=gen, device="cuda", dtype=torch.float64)
+    ref = _direct3(c, xd, zd, sel_z=sel)
+    A64 = NUFFT.type3(pix, z, isign=-1, eps=1e-6, dtype=torch.float64,
+                      device="cuda")
+    errs = {"float32": _rel2(A.apply(c.float())[sel], ref),
+            "float64": _rel2(A64.apply(c)[sel], ref)}
+    dots = {}
+    for dt, op in (("float32", A), ("float64", A64)):
+        u, v = c.to(getattr(torch, dt)), f.to(getattr(torch, dt))
+        Au, Av = op.apply(u).double(), op.adjoint(v).double()
+        dots[dt] = float(((Au * v.double()).sum() - (u.double() * Av).sum())
+                         .abs() / (torch.linalg.vector_norm(Au)
+                                   * torch.linalg.vector_norm(v.double())))
+    del A64
+    print(f"[t3] A against the direct sum at {T3_CHECK_VIS} visibilities: "
+          f"rel l2 {errs['float32']:.3e} (float32, tol 1e-4), "
+          f"{errs['float64']:.3e} (float64 plan, tol 1e-5); dot test "
+          f"|<Ax, y> - <x, A^H y>| / (|Ax| |y|) {dots['float32']:.3e} "
+          f"(float32, tol 1e-5), {dots['float64']:.3e} (float64, tol 1e-12)",
+          flush=True)
+    assert errs["float32"] <= 1e-4 and errs["float64"] <= 1e-5, errs
+    assert dots["float32"] <= 1e-5 and dots["float64"] <= 1e-12, dots
+
+    # ---- the chunked plan against the monolithic one -----------------------
+    t0 = time.perf_counter()
+    C = NUFFT.type3(pix, z, isign=-1, eps=1e-6, chunked=True,
+                    fft_mem_mb=256, max_blocks=16, dtype=torch.float32,
+                    device="cuda")
+    torch.cuda.synchronize()
+    c_setup = time.perf_counter() - t0
+    st = C.stats()
+    largest = max(np.prod(v["n_fine"]) for v in C.params().values()) * 8e-6
+    rel = float(torch.linalg.vector_norm(C.apply(c.float()) - A.apply(
+        c.float())) / torch.linalg.vector_norm(A.apply(c.float())))
+    print(f"[t3] chunked (fft_mem_mb 256, max_blocks 16): {st['n_x_blocks']}"
+          f" x {st['n_z_blocks']} blocks, x sizes {st['x_block_sizes']}, z "
+          f"sizes {st['z_block_sizes']}, largest grid {largest:.1f} MB; "
+          f"set-up {c_setup:.4f} s; against the monolithic apply rel l2 "
+          f"{rel:.3e} (tol 1e-4)", flush=True)
+    assert rel <= 1e-4, rel
+    del C
+
+    # ---- the 2-D coplanar form (l, m; u, v) on the 2-D kernels -------------
+    _reset([nu.nufft_spread2, nu.nufft_interp2])
+    A2 = NUFFT.type3(pix[:, :2], z[:, :2], isign=-1, eps=1e-6,
+                     dtype=torch.float32, device="cuda")
+    sel_x = sel.remainder(M)
+    err2 = (_rel2(A2.apply(c.float())[sel], _direct3(c, xd[:, :2], zd[:, :2],
+                                                     sel_z=sel)),
+            _rel2(A2.adjoint(f.float())[sel_x], _direct3(
+                f, xd[:, :2], zd[:, :2], sel_x=sel_x)))
+    launches_2d = {"nufft_spread2": nu.nufft_spread2.launches,
+                   "nufft_interp2": nu.nufft_interp2.launches}
+    print(f"[t3] 2-D coplanar form: nf {A2._nf}; against the direct sum rel "
+          f"l2 {err2[0]:.3e} (apply), {err2[1]:.3e} (adjoint), tol 1e-4; "
+          f"launches {launches_2d}", flush=True)
+    assert A2.kernel_path == "kernel" and max(err2) <= 1e-4, err2
+    assert launches_2d == {"nufft_spread2": 2, "nufft_interp2": 2}
+    del A2, xd, zd
+    _mark("type-3 checks")
+
+    # ---- the timed fit -----------------------------------------------------
+    counters = [nu.nufft_spread3, nu.nufft_interp3, nu.nufft_spread2,
+                nu.nufft_interp2]
+    slv = CG(Q, stop_rate=T3_ITERS)
+    slv.fit(b=b, stop_crit=MaxIter(T3_ITERS), max_iter=T3_ITERS)     # warm
+    torch.cuda.synchronize()
+    _reset(counters)
+    dt = _timed_fit(slv, T3_ITERS, b=b, stop_crit=MaxIter(T3_ITERS),
+                    max_iter=T3_ITERS)
+    launches = {k.__name__: k.launches for k in counters}
+    # the gram A^H A an iteration (fw: spread at x', interp at s'; bw:
+    # spread at s', interp at x') and once for the initial residual
+    n = 2 * (T3_ITERS + 1)
+    want = {"nufft_spread3": n, "nufft_interp3": n, "nufft_spread2": 0,
+            "nufft_interp2": 0}
+    assert launches == want, (launches, want)
+    xs = slv.solution()
+    assert xs.shape == (M, 2) and bool(torch.isfinite(xs).all())
+    res0 = float(torch.sqrt(torch.sum(b * b)))
+    res = float(slv.objective_func(slv._mstate))
+    assert res < res0, (res, res0)
+    src = np.flatnonzero(xt[:, 0])
+    top = torch.topk(xs[:, 0], T3_SOURCES).indices.cpu().numpy()
+    found = len(np.intersect1d(top, src)) / T3_SOURCES
+    rate = T3_ITERS / dt
+    print(f"[t3] CG on (A^H A + {T3_LAM} K I) x = A^H y: {T3_ITERS} "
+          f"iterations in {dt:.4f} s: {rate:.2f} it/s; launches {launches} "
+          f"(2 spreads and 2 interps an iteration, and the initial "
+          f"residual's); residual {res0:.6e} -> {res:.6e}; the {T3_SOURCES}"
+          f" brightest pixels hold {found:.1%} of the sources", flush=True)
+
+    # ---- an iteration's device time by part --------------------------------
+    state = slv._mstate
+    g = torch.zeros(A._nf, dtype=torch.complex64, device="cuda")[None]
+    dims = (1, 2, 3)
+    with torch.no_grad():
+        dev_ms = _time_ms(lambda: slv.m_step(state), reps=5)
+        fft_ms = _time_ms(lambda: torch.fft.fftn(g, dim=dims), reps=5)
+        ifft_ms = _time_ms(lambda: torch.fft.ifftn(g, dim=dims,
+                                                   norm="forward"), reps=5)
+        dx_ms = _time_ms(lambda: A._mul_dx(g), reps=5)
+    del g
+    kern_ms = {f"{k[0]} {k[1]}": r["ms"] for k, r in recs.items()}
+    other = dev_ms - fft_ms - ifft_ms - 2 * dx_ms - sum(kern_ms.values())
+    wall_ms = 1e3 * dt / T3_ITERS
+    print(f"[breakdown] t3 sky: per iteration device {dev_ms:.4f} ms: FFTs "
+          f"{fft_ms:.4f} + {ifft_ms:.4f} ms, pre-deconvolution 2 x "
+          f"{dx_ms:.4f} ms, kernels " + ", ".join(
+              f"{k} {v:.4f}" for k, v in kern_ms.items())
+          + f" ms, other {other:.4f} ms; host {wall_ms:.4f} ms, device idle "
+          f"{1 - dev_ms / wall_ms:.1%}", flush=True)
+    del slv, A, Q, b, xs, state
+    _setup_breakdown("t3 sky", lambda span: _sky_problem(
+        pix, z, xt, noise, "cuda", span=span))
+
+    # ---- the same problem scaled down, card against the CPU ----------------
+    sols = {}
+    small = _sky_data(*T3_SMALL)
+    for dev in ("cuda", "cpu"):
+        _, Qs, bs = _sky_problem(*small, dev)
+        s = CG(Qs, stop_rate=T3_ITERS)
+        s.fit(b=bs, stop_crit=MaxIter(T3_ITERS), max_iter=T3_ITERS)
+        sols[dev] = s.solution().cpu()
+    diff = float((sols["cuda"] - sols["cpu"]).abs().max())
+    peak = float(sols["cpu"].abs().max())
+    print(f"[t3] {T3_ITERS} iterations at {T3_SMALL[0]} pixels, "
+          f"{small[1].shape[0]} visibilities, card vs CPU: max_abs_diff="
+          f"{diff:.3e}, {diff / peak:.3e} of max|x| (tol 2e-4)", flush=True)
+    assert diff <= 2e-4 * peak, (diff, peak)
+    return dict(rate=rate, setup_s=setup, launches=launches,
+                launches_2d=launches_2d, recs=recs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1906,6 +2226,10 @@ def main() -> int:
     engine = engine_phase(ft, st)
     _mark("engine phase")
 
+    # ---- phase 13: wide-field synthesis imaging over the type-3 NUFFT ---
+    t3 = t3_phase(nu, MaxIter)
+    _mark("type-3 sky phase")
+
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -1981,6 +2305,12 @@ def main() -> int:
             "bound_ms": mixed("bound_ms"), "bound_by": rs[top]["bound_by"],
             "library_ms": None, "path_mix": mix,
             "ct_launches": ct[CT_SHAPE]["launches"].get(kname, 0),
+            # phase 13: the 3-D kernels' launches in the timed fit, the 2-D
+            # kernels' in the coplanar form's apply and adjoint
+            "t3_launches": (t3["launches"][kname] if kname.endswith("3")
+                            else t3["launches_2d"][kname]),
+            "t3": {cloud: r for (k, cloud), r in t3["recs"].items()
+                   if k == kname},
             "variants": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                                 "max_abs_err", "phases")
                              if f in v}
@@ -2000,6 +2330,8 @@ def main() -> int:
                       "ct_512_it_per_s": ct[CT_SHAPE]["rate"],
                       "ct_256_it_per_s": ct[CT_BENCH_SHAPE]["rate"],
                       "ct_512_setup_s": ct[CT_SHAPE]["setup_s"],
+                      "t3_sky_it_per_s": t3["rate"],
+                      "t3_sky_setup_s": t3["setup_s"],
                       "engine": engine}),
           flush=True)
     print(smi, flush=True)

@@ -6,6 +6,7 @@ from pyxu_tpu_torch.operator.linop.base import (  # noqa: F401
     NullOp,
 )
 from pyxu_tpu_torch.operator.linop.diff import Gradient, PartialDerivative  # noqa: F401
+from pyxu_tpu_torch.operator.linop.fft import FFT  # noqa: F401
 from pyxu_tpu_torch.operator.linop.pad import Pad  # noqa: F401
 from pyxu_tpu_torch.operator.linop.stencil import (  # noqa: F401
     Convolve,

@@ -1,4 +1,4 @@
-r"""Non-uniform FFT, types 1 and 2 in d = 2 and d = 3 (counterpart of
+r"""Non-uniform FFT, types 1, 2 and 3 in d = 1, 2 and 3 (counterpart of
 ``pyxu_tpu/operator/linop/nufft.py``).
 
 The FINUFFT algorithm (Barnett, Magland, af Klinteberg) as the JAX package
@@ -11,12 +11,18 @@ writes it:
 * type 1 = spread (scatter-add) -> FFT -> deconvolve by the kernel's
   Fourier factors phihat (Gauss-Legendre quadrature, host float64);
 * type 2 = its adjoint with the opposite sign: deconvolve -> FFT ->
-  interp (gather).
+  interp (gather);
+* type 3 = spread at the rescaled points -> FFT -> interp at the rescaled
+  frequencies, with a deconvolution on each side and centring phases
+  (:class:`_NUFFT3`), or the same on blocks of a partition of both clouds
+  (:class:`_NUFFT3Chunked`).
 
-Spread and interp run through :mod:`pyxu_tpu_torch.ops.nufft`: the
-hand-written CUDA kernels on a CUDA tensor, their plain versions on a CPU
-tensor.  The decision is static (d = 2 or 3, a float32/float64 plan) and is
-recorded on the operator as ``kernel_path``.  The FFTs are ``torch.fft``.
+Spread and interp run through :mod:`pyxu_tpu_torch.ops.nufft`: at d = 2
+and 3 the hand-written CUDA kernels on a CUDA tensor and their plain
+versions on a CPU tensor; at d = 1, which has no kernel (nor a Pallas one
+in the JAX package), the plain versions on either device.  The decision is
+static (d and a float32/float64 plan) and is recorded on the operator as
+``kernel_path`` (``"kernel"`` or ``"plain"``).  The FFTs are ``torch.fft``.
 
 The JAX package's global x64 switch becomes the ``dtype`` given at plan
 time: the plan's offsets and the inputs it takes are of that dtype.  The
@@ -27,13 +33,9 @@ public API is real-valued with a trailing size-2 axis
 transform (and the type-1 ``A A^H``) by Toeplitz/circulant embedding: two
 FFTs per apply and no spread or interp.  It is what ``A.gram()`` returns,
 and what the rule engine builds a ``QuadraticFunc`` over for
-``0.5 * SquaredL2Norm().asloss(y) * A``.
-
-The Toeplitz gram takes the JAX package's ``scale``, ``weights`` and
-``kernel_shift`` (the FourierRadon gram's weighted Toeplitz and shifted
-Hankel sections).  Not ported yet (ROADMAP Queue 1): d = 1, type 3 and its
-chunked plan, and the Toeplitz options ``_chan_lam`` and
-``_circulant_precond``.
+``0.5 * SquaredL2Norm().asloss(y) * A``.  It takes the JAX package's
+``scale``, ``weights`` and ``kernel_shift``, and offers T. Chan's circulant
+(``_chan_lam``) as an opt-in preconditioner (``_circulant_precond``).
 """
 
 from __future__ import annotations
@@ -51,12 +53,14 @@ from pyxu_tpu_torch.info.dtypes import default_fdtype
 from pyxu_tpu_torch.info.warnings import PerformanceWarning
 from pyxu_tpu_torch.ops import nufft as _kern
 from pyxu_tpu_torch.runtime import resolve_device
-from pyxu_tpu_torch.utils.complex import view_as_complex, view_as_real
+from pyxu_tpu_torch.utils.complex import (
+    complex_dtype,
+    view_as_complex,
+    view_as_real,
+)
 from pyxu_tpu_torch.utils.misc import next_fast_len
 
-__all__ = ["NUFFT", "ES_kernel", "nudft1", "nudft2"]
-
-_QUEUE = "is not ported yet: ROADMAP.md Queue 1, the rest of the NUFFT"
+__all__ = ["NUFFT", "ES_kernel", "nudft1", "nudft2", "nudft3"]
 
 # Set-up tracing: None (off), or a callable(name) returning a context
 # manager that times the named part of a plan, a Toeplitz build or a
@@ -110,28 +114,148 @@ def _phi_hat(n_modes: int, n_f: int, w: int, beta: float):
     (host float64)."""
     h = 2 * np.pi / n_f
     alpha = w * h / 2.0
-    q = max(2 * w, 24)
-    zq, wq = np.polynomial.legendre.leggauss(q)
-    phi = np.exp(beta * (np.sqrt(np.clip(1 - zq ** 2, 0, None)) - 1.0))
+    zq, pw = _es_quad(w, beta)
     ks = np.arange(-(n_modes // 2), (n_modes + 1) // 2)
     c = np.cos(np.outer(ks * alpha, zq))
-    return ks, alpha * (c * (phi * wq)).sum(axis=1) / h
+    return ks, alpha * (c * pw).sum(axis=1) / h
 
 
-def _points(x, device) -> torch.Tensor:
-    """(M, d) float64 points on ``device``, folded into [0, 2 pi)."""
+def _es_quad(w: int, beta: float):
+    """Gauss-Legendre nodes z_q on [-1, 1] and the weights phi(z_q) w_q of
+    the ES kernel's Fourier integrals, q = max(2 w, 24) (host float64)."""
+    zq, wq = np.polynomial.legendre.leggauss(max(2 * w, 24))
+    return zq, np.exp(beta * (np.sqrt(np.clip(1 - zq ** 2, 0, None)) - 1.0)) \
+        * wq
+
+
+def _cloud(x, device) -> torch.Tensor:
+    """(M, d) float64 points on ``device`` (a 1-D input is d = 1)."""
     if isinstance(x, torch.Tensor):
         x = x.detach().to(device=device, dtype=torch.float64)
     else:
         x = torch.from_numpy(np.array(x, np.float64)).to(device)
-    if x.ndim == 1:
-        x = x[:, None]
-    return torch.remainder(x, 2 * np.pi)
+    return x[:, None] if x.ndim == 1 else x
+
+
+def _points(x, device) -> torch.Tensor:
+    """(M, d) float64 points on ``device``, folded into [0, 2 pi)."""
+    return torch.remainder(_cloud(x, device), 2 * np.pi)
+
+
+def _plan_dtype(dtype) -> torch.dtype:
+    dtype = default_fdtype() if dtype is None else dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype {dtype}: want float32 or float64")
+    return dtype
+
+
+def _kernels(d: int):
+    """The plan, spread and interp functions of ``d`` dimensions and the path
+    they take: the CUDA kernels' wrappers at d = 2 and 3, the plain
+    versions at d = 1, which has no kernel."""
+    if d == 1:
+        return (_kern.plan1, _kern.nufft_spread1_plain,
+                _kern.nufft_interp1_plain, "plain")
+    if d == 2:
+        return _kern.plan2, _kern.nufft_spread2, _kern.nufft_interp2, "kernel"
+    if d == 3:
+        return _kern.plan3, _kern.nufft_spread3, _kern.nufft_interp3, "kernel"
+    raise ValueError(f"d = {d}: the NUFFT takes d = 1, 2 or 3")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _mode_grid_flat(N) -> np.ndarray:
+    """(prod(N), d) centred integer mode grid, row-major."""
+    A = np.meshgrid(*[np.arange(-(n // 2), (n - 1) // 2 + 1) for n in N],
+                    indexing="ij")
+    return np.stack(A, axis=0).reshape((len(N), -1)).T
+
+
+def _unit_mesh(N, dtype) -> np.ndarray:
+    """(*N, d) centred integer grid."""
+    axes = [np.arange(-(n // 2), (n - 1) // 2 + 1, dtype=dtype) for n in N]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+
+
+_CHUNKED_ONLY = ("{}() only applies to chunked type-3 transforms "
+                 "(NUFFT.type3(..., chunked=True)).")
+
+
+class _NUFFTDiagnostics:
+    """Plan introspection shared by the NUFFT operators: ``params``,
+    ``plot_kernel``, ``mesh`` and ``ascomplexarray`` (host numpy).
+    ``auto_chunk``, ``allocate``, ``diagnostic_plot`` and ``stats`` belong
+    to the chunked type 3 and raise elsewhere."""
+
+    def params(self) -> NUFFT_PARAMS:
+        """The plan's parameters (type 3: the rescale per axis as
+        ``dilation_factor``)."""
+        gamma = getattr(self, "_gamma", None)
+        return NUFFT_PARAMS(
+            upsample_factor=getattr(self, "_upsampfac", 2.0),
+            kernel_width=self._w, kernel_beta=self._beta,
+            fft_shape=tuple(self._nf),
+            dilation_factor=None if gamma is None else tuple(
+                float(g) for g in gamma))
+
+    def plot_kernel(self, ax=None, **kwargs):
+        """Plot the spreading kernel of each axis on its support (needs
+        matplotlib, imported here)."""
+        import matplotlib
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        z = np.linspace(-1, 1, 100)
+        for dd, n in zip(range(self._d), self._nf):
+            x = z / (np.pi * self._w / n)
+            ax.plot(x, ES_kernel(x, self._beta), label=rf"$\phi_{dd}$",
+                    **kwargs)
+        if self._d > 1:
+            ax.legend()
+        return ax
+
+    def auto_chunk(self, max_mem=10, max_anisotropy=5):
+        raise NotImplementedError(_CHUNKED_ONLY.format("auto_chunk"))
+
+    def allocate(self, x_chunks, z_chunks, direct_eval_threshold=10_000):
+        raise NotImplementedError(_CHUNKED_ONLY.format("allocate"))
+
+    def diagnostic_plot(self, domain: str = "x"):
+        raise NotImplementedError(_CHUNKED_ONLY.format("diagnostic_plot"))
+
+    def stats(self):
+        raise NotImplementedError(_CHUNKED_ONLY.format("stats"))
+
+    def mesh(self, dtype=None, scale: str = "unit",
+             upsampled: bool = False) -> np.ndarray:
+        """(N1, ..., Nd, d) grid of the modes (or of the fine grid):
+        ``scale`` "unit", the integer mode indices, or "source", the n DFT
+        sample positions over [-pi, pi) per axis."""
+        dtype = np.float64 if dtype is None else dtype
+        N = tuple(self._nf) if upsampled else tuple(self._N)
+        if scale == "unit":
+            return _unit_mesh(N, dtype)
+        if scale == "source":
+            axes = [np.linspace(-np.pi, np.pi, num=n, endpoint=False,
+                                dtype=dtype) for n in N]
+            return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+        raise ValueError(f"scale={scale!r}")
+
+    def ascomplexarray(self, dtype=None) -> np.ndarray:
+        """The transform's dense complex matrix (host numpy, float64
+        points): type 1 (prod(N), M), type 2 (M, prod(N)), type 3 (K, M)."""
+        dtype = np.complex128 if dtype is None else dtype
+        return self._dense_complex().astype(dtype)
 
 
 # ------------------------------------------------------------ type 1 / 2 ---
 
-class _NUFFT12(LinOp):
+class _NUFFT12(_NUFFTDiagnostics, LinOp):
     r"""Type-1 operator (nonuniform points -> uniform modes); type 2 is its
     adjoint.
 
@@ -139,15 +263,15 @@ class _NUFFT12(LinOp):
     type 2 (adjoint, isign -s): c_j = sum_k f_k exp(-s i <k, x_j>)
 
     Real view: dim (M, 2) (``(M,)`` with ``real_in``), codim (*N, 2).
+    d = 1 runs the plain spread and interp on either device
+    (``kernel_path`` "plain").
     """
 
     def __init__(self, x, N, isign: int = +1, eps: float = 1e-6,
                  real_in: bool = False, upsampfac: float = 2.0, dtype=None,
                  device=None):
         dev = resolve_device(device, like=x)
-        dtype = default_fdtype() if dtype is None else dtype
-        if dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"dtype {dtype}: want float32 or float64")
+        dtype = _plan_dtype(dtype)
         with _span("points"):
             xh = _points(x, dev)
         M, d = xh.shape
@@ -155,8 +279,7 @@ class _NUFFT12(LinOp):
             int(n) for n in N)
         if len(N) != d:
             raise ValueError(f"N = {N} does not match the points' d = {d}")
-        if d not in (2, 3):
-            raise NotImplementedError(f"the d = {d} NUFFT {_QUEUE}")
+        plan, self._spread, self._interp, self.kernel_path = _kernels(d)
         if upsampfac not in (1.25, 2.0):
             raise ValueError(f"upsampfac must be 1.25 or 2.0, got {upsampfac}")
         if upsampfac == 1.25:
@@ -187,21 +310,16 @@ class _NUFFT12(LinOp):
                 ph = ph * f.reshape(shape)
             self._phihat = torch.from_numpy(1.0 / ph).to(device=dev,
                                                          dtype=dtype)
-        plan = _kern.plan2 if d == 2 else _kern.plan3
         with _span("plan"):
             self._plan = plan(xh, self._nf, w, beta, dtype)
-        self._spread = _kern.nufft_spread2 if d == 2 else _kern.nufft_spread3
-        self._interp = _kern.nufft_interp2 if d == 2 else _kern.nufft_interp3
-        self.kernel_path = "kernel"
         super().__init__((M,) if real_in else (M, 2), N + (2,))
         self._lipschitz = float(np.sqrt(np.prod(N) * M))
         self._name = f"NUFFT1[d={d}]"
 
-    def params(self) -> NUFFT_PARAMS:
-        """The plan's parameters."""
-        return NUFFT_PARAMS(upsample_factor=self._upsampfac,
-                            kernel_width=self._w, kernel_beta=self._beta,
-                            fft_shape=tuple(self._nf), dilation_factor=None)
+    def _dense_complex(self) -> np.ndarray:
+        """(prod(N), M) type-1 matrix exp(i s <k, x_j>)."""
+        return np.exp(1j * self._isign
+                      * (_mode_grid_flat(self._N) @ _host(self._xh).T))
 
     # -- helpers (batched: a leading axis B) ---------------------------------
     def _extract(self, ghat):
@@ -290,7 +408,7 @@ class _NUFFT12(LinOp):
                                   dtype=self._dtype)
 
 
-class _NUFFT2(LinOp):
+class _NUFFT2(_NUFFTDiagnostics, LinOp):
     """Type 2: the adjoint of a :class:`_NUFFT12` planned with the opposite
     isign."""
 
@@ -309,8 +427,18 @@ class _NUFFT2(LinOp):
         self.kernel_path = self._t1op.kernel_path
         self._name = f"NUFFT2[d={self._t1op._d}]"
 
-    def params(self) -> NUFFT_PARAMS:
-        return self._t1op.params()
+    # the plan's introspection is its type-1 pair's
+    _w = property(lambda self: self._t1op._w)
+    _beta = property(lambda self: self._t1op._beta)
+    _nf = property(lambda self: self._t1op._nf)
+    _N = property(lambda self: self._t1op._N)
+    _d = property(lambda self: self._t1op._d)
+    _upsampfac = property(lambda self: self._t1op._upsampfac)
+
+    def _dense_complex(self) -> np.ndarray:
+        """(M, prod(N)) type-2 matrix: the conjugate transpose of its pair's
+        (planned with the opposite isign)."""
+        return self._t1op._dense_complex().conj().T
 
     def apply(self, arr):
         if self._real_in:
@@ -478,12 +606,575 @@ class _NUFFTToeplitz(SelfAdjointOp):
         mult = 1 if self._real_in else 2
         return self._scale * self._wsum * float(np.prod(self._N)) * mult
 
+    _chan_cache = None
+
+    def _chan_lam(self) -> torch.Tensor:
+        """T. Chan's optimal circulant of the Toeplitz section: its spectrum
+        on the mode grid N (standard FFT order, the kernel's dtype),
+        computed once and cached.
+
+        Per axis the circulant's kernel averages the wrapped diagonals with
+        triangular weights, ``c_j = ((n - j) T[j] + j T[j - n]) / n``, the
+        circulant closest to the section in the Frobenius norm (T. Chan
+        1988), applied axis by axis in d-D.  Clipped at 0, so that ``I +
+        alpha C`` stays positive definite for every alpha >= 0.  A shifted
+        (Hankel) kernel is not Toeplitz: ValueError."""
+        if self._spec_complex:
+            raise ValueError("a shifted (Hankel) kernel has no circulant "
+                             "approximation")
+        if self._chan_cache is not None:
+            return self._chan_cache
+        that = self._that
+        c = torch.fft.ifftn(that.to(complex_dtype(that.dtype)))
+        np_dt = np.float32 if that.dtype == torch.float32 else np.float64
+        for ax, n in enumerate(self._N):
+            pos = torch.arange(n, device=that.device)
+            neg = torch.remainder(pos - n, c.shape[ax])
+            w = torch.from_numpy(((n - np.arange(n)) / n).astype(np_dt)).to(
+                that.device)
+            shape = [1] * c.ndim
+            shape[ax] = n
+            c = (c.index_select(ax, pos) * w.reshape(shape)
+                 + c.index_select(ax, neg) * (1.0 - w).reshape(shape))
+        self._chan_cache = torch.clamp(torch.fft.fftn(c).real, min=0.0)
+        return self._chan_cache
+
+    def _circulant_precond(self):
+        """``solve(r, alpha)``, which applies ``(I + alpha C)^{-1}`` with
+        C the Chan circulant of :meth:`_chan_lam` (one FFT pair on the mode
+        grid), or None for a shifted kernel.
+
+        Opt in only, as ``quad._prox_precond = A.gram()._circulant_precond()``
+        (:meth:`QuadraticFunc.prox` reads it): the JAX package measured
+        circulant-preconditioned CG slower than plain CG on scattered-point
+        kernels, whose ~sqrt(M) noise at every lag the circulant misses."""
+        if self._spec_complex:
+            return None
+        lam = self._chan_lam()
+        dims = tuple(range(-self._d, 0))
+
+        def _inv(c, alpha):
+            den = 1.0 + alpha * lam.to(c.real.dtype)
+            return torch.fft.ifftn(torch.fft.fftn(c, dim=dims) / den,
+                                   dim=dims)
+
+        if self._real_in:
+            def solve(r, alpha):
+                return _inv(r, alpha).real.to(r.dtype).contiguous()
+        else:
+            def solve(r, alpha):
+                return view_as_real(_inv(view_as_complex(r), alpha)).to(
+                    r.dtype)
+        return solve
+
+
+# ----------------------------------------------------------------- type 3 --
+
+def _t3_dx_axes(nf, w: int, beta: float) -> list:
+    """Per axis, 1 / psihat2 over the n grid points centred on the ring
+    (psi2 is the unit-spacing frequency kernel; host float64, n each): the
+    factors of the JAX package's spatial pre-deconvolution grid
+    (``_t3_dx_np``, their outer product)."""
+    zq, pw = _es_quad(w, beta)
+    out = []
+    for n in nf:
+        xm = np.mod(np.arange(n) * (2 * np.pi / n) + np.pi, 2 * np.pi) - np.pi
+        c = np.cos(np.outer(xm * (w / 2.0), zq))
+        out.append(1.0 / ((w / 2.0) * (c * pw).sum(axis=1)))
+    return out
+
+
+def _t3_geometry(xmin, xmax, zmin, zmax, w: int):
+    """The type-3 plan's centres xm and zm, rescale gamma and least fine
+    grid per axis from the clouds' bounds (host float64).  Rounding is
+    monotone, so the largest |x - xm| and |z - zm| over the points are the
+    bounds', as the JAX package finds them over the points."""
+    xm = 0.5 * (xmax + xmin)
+    zm = 0.5 * (zmax + zmin)
+    gamma = 2.0 * np.maximum(np.maximum(xmax - xm, xm - xmin), 1e-9) / np.pi
+    smax = np.maximum(zmax - zm, zm - zmin) * gamma
+    nf = tuple(max(next_fast_len(int(4 * (sm + w + 2))), 4 * w + 8)
+               for sm in smax)
+    return xm, zm, gamma, nf
+
+
+def _t3_nf_np(xb, zb, w):
+    """The fine grid a :class:`_NUFFT3` plan picks for the clouds (xb, zb)
+    (host numpy): the chunked planner budgets FFT memory with it without
+    building plans."""
+    return _t3_geometry(xb.min(axis=0), xb.max(axis=0), zb.min(axis=0),
+                        zb.max(axis=0), w)[3]
+
+
+class _NUFFT3(_NUFFTDiagnostics, LinOp):
+    r"""Type 3: f_k = sum_j c_j exp(s i <z_k, x_j>) for points x_j and
+    frequencies z_k anywhere in R^d (d = 1, 2, 3).
+
+    The JAX package's plan (FINUFFT's type 3, Barnett et al. 2019, sec.
+    3.3).  Both clouds are centred on their midpoints xm, zm, so the
+    transform is a core one wrapped in a pre-phase exp(i s <zm, x_j>) on c
+    and a post-phase exp(i s <z_k - zm, xm>) on f.  The core rescales x' =
+    (x - xm) / gamma, gamma = 2 max|x - xm| / pi, so that x' fills half of
+    the ring, [-pi/2, pi/2], and s' = s (z - zm) gamma; it spreads c at x'
+    onto the fine grid nf (spacing 2 pi / nf), divides by psihat2 over the
+    grid (``dx``), takes the unnormalised inverse FFT, interpolates at s'
+    on the unit-spacing ring and divides by psihat1(s') (``ds``).  The
+    adjoint runs the transposed steps.  Per axis nf is at least
+    ``next_fast_len(4 (max|s'| + w + 2))`` and ``4 w + 8``; ``nf`` may
+    raise it.
+
+    Both clouds go through the type-1/2 plans and kernels
+    (:mod:`pyxu_tpu_torch.ops.nufft`): x' folded into [0, 2 pi), and s' as
+    ``2 pi s' / nf`` folded, so that the plan's left tap ``ceil(s' - w/2)``
+    is the JAX package's.  Where ``s' - w/2`` lies within rounding of an
+    integer the two may pick taps one cell apart; the tap that moves weighs
+    ~exp(-beta) (~1e-7 at w = 7), below the tolerances the transform is
+    held to.  ``kernel_path``: "kernel" at d = 2 and 3 (a CUDA input
+    launches the kernels or raises), "plain" at d = 1.
+
+    The set-up runs on the points' device in float64, with one host read:
+    the clouds' bounds, from which nf (a shape) follows.  ``dx`` stays per
+    axis and is multiplied in by broadcasting, the leading axes' product
+    (a table of n_1 ... n_{d-1}) and then the last axis, never as a full
+    grid; ``ds`` takes K x q cosines an axis.  The JAX package's ``mm3``
+    (its TPU slab plans) and ``dx`` (a precomputed grid) options have no
+    counterpart.
+    """
+
+    def __init__(self, x, z, isign: int = +1, eps: float = 1e-6,
+                 real_in: bool = False, nf: tuple = None, dtype=None,
+                 device=None):
+        dev = resolve_device(device, like=x if isinstance(x, torch.Tensor)
+                             else z)
+        dtype = _plan_dtype(dtype)
+        with _span("points"):
+            x, z = _cloud(x, dev), _cloud(z, dev)
+        (M, d), (K, dz) = x.shape, z.shape
+        if d != dz:
+            raise ValueError(f"points of d = {d}, frequencies of d = {dz}")
+        plan, self._spread, self._interp, self.kernel_path = _kernels(d)
+        w, beta = _es_params(eps)
+        self._M, self._K, self._d = M, K, d
+        self._isign = int(np.sign(isign)) or 1
+        self._w, self._beta, self._eps = w, beta, float(eps)
+        self._real_in = bool(real_in)
+        self._dtype = dtype
+        with _span("bounds read"):
+            xm, zm, gamma, nf_min = _t3_geometry(*_host(torch.stack(
+                [x.amin(0), x.amax(0), z.amin(0), z.amax(0)])), w)
+        nf = nf_min if nf is None else tuple(int(n) for n in nf)
+        if len(nf) != d or any(a < b for a, b in zip(nf, nf_min)):
+            raise ValueError(f"nf = {nf}: want {d} sides of at least "
+                             f"{nf_min}")
+        self._nf, self._gamma = nf, gamma
+        s = float(self._isign)
+        xm, zm, gamma = (torch.from_numpy(v).to(dev) for v in (xm, zm, gamma))
+        with _span("phases"):
+            cdt = complex_dtype(dtype)
+            self._ph_x = torch.exp(1j * s * (x @ zm)).to(cdt)
+            self._ph_z = torch.exp(1j * s * ((z - zm) @ xm)).to(cdt)
+        sp = (z - zm) * s * gamma
+        with _span("plans"):
+            self._plan_x = plan(torch.remainder((x - xm) / gamma, 2 * np.pi),
+                                nf, w, beta, dtype)
+            ring = torch.tensor(nf, dtype=torch.float64, device=dev)
+            self._plan_s = plan(torch.remainder(2 * np.pi * sp / ring,
+                                                2 * np.pi), nf, w, beta, dtype)
+        with _span("dx"):
+            f = [torch.from_numpy(v).to(dev) for v in _t3_dx_axes(nf, w, beta)]
+            lead = None
+            for v in f[:-1]:
+                lead = v if lead is None else lead[..., None] * v
+            self._dx_lead = None if lead is None else lead.to(dtype)
+            self._dx_last = f[-1].to(dtype)
+        with _span("ds"):
+            zq, pw = (torch.from_numpy(v).to(dev) for v in _es_quad(w, beta))
+            ds = torch.ones(K, dtype=torch.float64, device=dev)
+            for ax in range(d):
+                h = 2 * np.pi / nf[ax]
+                alpha = w * h / 2.0
+                c = torch.cos(torch.outer(sp[:, ax] * alpha, zq))
+                ds = ds * (1.0 / (alpha * (c @ pw) / h))
+            self._ds = ds.to(dtype)
+        self._x, self._z = x, z
+        self._dims = tuple(range(1, d + 1))
+        super().__init__((M,) if real_in else (M, 2), (K, 2))
+        self._lipschitz = float(np.sqrt(M * K))
+        self._name = f"NUFFT3[d={d}]"
+
+    def _mul_dx(self, g):
+        """g (B, *nf) complex, a fresh tensor, times the pre-deconvolution
+        grid, in place: two broadcast passes."""
+        if self._dx_lead is not None:
+            g.mul_(self._dx_lead.unsqueeze(-1))
+        g.mul_(self._dx_last)
+        return g
+
+    def _fw(self, c):
+        """Strengths (B, M) complex -> values (B, K) complex."""
+        c = c * self._ph_x
+        with _span("spread"):
+            g = self._spread(view_as_real(c).contiguous(), self._plan_x)
+        g = self._mul_dx(view_as_complex(g))
+        with _span("fft"):
+            # the ring's spectrum with e^{+i q m h}: the unnormalised
+            # inverse FFT (isign is folded into s')
+            ghat = torch.fft.ifftn(g, dim=self._dims, norm="forward")
+        with _span("interp"):
+            v = self._interp(view_as_real(ghat), self._plan_s)
+        return view_as_complex(v) * self._ds * self._ph_z
+
+    def _bw(self, f):
+        """Values (B, K) complex -> strengths (B, M) complex: the adjoint."""
+        f = f * self._ph_z.conj() * self._ds
+        with _span("spread"):
+            ghat = self._spread(view_as_real(f).contiguous(), self._plan_s)
+        with _span("fft"):
+            g = torch.fft.fftn(view_as_complex(ghat), dim=self._dims)
+        with _span("interp"):
+            v = self._interp(view_as_real(self._mul_dx(g)), self._plan_x)
+        return view_as_complex(v) * self._ph_x.conj()
+
+    def apply(self, arr):
+        if self._real_in:
+            def single(a):
+                return view_as_real(self._fw(view_as_complex(
+                    torch.stack([a, torch.zeros_like(a)], dim=-1))))
+            return self._map_batched(single, arr, 1, self.codim_shape)
+
+        def single(a):
+            return view_as_real(self._fw(view_as_complex(a)))
+        return self._map_batched(single, arr, 2, self.codim_shape)
+
+    def adjoint(self, arr):
+        def single(a):
+            c = view_as_real(self._bw(view_as_complex(a)))
+            return c[..., 0] if self._real_in else c
+        return self._map_batched(single, arr, 2, self.dim_shape)
+
+    def _dense_complex(self) -> np.ndarray:
+        """(K, M) type-3 matrix exp(i s <z_k, x_j>)."""
+        return np.exp(1j * self._isign * (_host(self._z) @ _host(self._x).T))
+
+    def mesh(self, dtype=None, scale: str = "unit",
+             upsampled: bool = False) -> np.ndarray:
+        """The fine grid: "unit", its integer indices; "source" or
+        "target", the same mapped onto the points' or the frequencies'
+        bounding box."""
+        return _t3_mesh(self._nf, _host(self._x), _host(self._z), dtype,
+                        scale)
+
+
+def _t3_mesh(nf, x, z, dtype, scale):
+    """A type-3 fine grid, as integer indices or mapped onto the bounding
+    box of the points ``x`` or the frequencies ``z`` (host numpy)."""
+    dtype = np.float64 if dtype is None else dtype
+    grid = _unit_mesh(tuple(nf), dtype)
+    if scale == "unit":
+        return grid
+    if scale not in ("source", "target"):
+        raise ValueError(f"scale={scale!r}")
+    pts = x if scale == "source" else z
+    c = 0.5 * (pts.max(axis=0) + pts.min(axis=0))
+    hw = np.maximum(0.5 * (pts.max(axis=0) - pts.min(axis=0)), 1e-9)
+    return grid / (np.asarray(nf, dtype) / 2.0) * hw + c
+
+
+# ------------------------------------------------- chunked type 3 (host) --
+# The partition is the JAX package's, in host numpy, so that the blocks'
+# index lists, stats() and params() are its own for the same points.
+
+def _norm_widths_np(pts, idx, X):
+    """A block's data-box widths over the whole domain's, per axis (NaN
+    where the domain has no width)."""
+    if len(idx) == 0:
+        return None
+    w = pts[idx].max(axis=0) - pts[idx].min(axis=0)
+    X = np.asarray(X, np.float64)
+    out = np.full(w.shape, np.nan)
+    ok = X > 1e-12
+    out[ok] = w[ok] / X[ok]
+    return out
+
+
+def _block_aniso_np(r):
+    """max/min of the valid (finite, non-zero) normalised widths."""
+    if r is None:
+        return 1.0
+    v = r[np.isfinite(r) & (r > 1e-12)]
+    if len(v) < 2:
+        return 1.0
+    return float(v.max() / v.min())
+
+
+def _mid_split_np(pts, idx, ax):
+    """Split a block at the midpoint of its data box along ``ax``."""
+    lo, hi = pts[idx, ax].min(), pts[idx, ax].max()
+    sel = pts[idx, ax] <= 0.5 * (lo + hi)
+    return idx[sel], idx[~sel]
+
+
+def _widest(r):
+    return int(np.nanargmax(np.where(np.isfinite(r), r, -np.inf)))
+
+
+def _enforce_anisotropy_np(pts, parts, alpha, max_blocks=4096):
+    """Every block's normalised shape ratio <= alpha: midpoint splits along
+    the widest normalised axis; empty halves are dropped."""
+    out = []
+    work = [np.asarray(p, np.int64) for p in parts if len(p)]
+    X = pts.max(axis=0) - pts.min(axis=0)
+    guard = 0
+    while work and guard < 10 * max_blocks:
+        guard += 1
+        idx = work.pop()
+        r = _norm_widths_np(pts, idx, X)
+        if (_block_aniso_np(r) <= alpha or len(idx) <= 1
+                or len(out) + len(work) >= max_blocks):
+            out.append(idx)
+            continue
+        a, b = _mid_split_np(pts, idx, _widest(r))
+        if len(a) == 0 or len(b) == 0:
+            out.append(idx)
+            continue
+        work.extend([a, b])
+    return out + work
+
+
+def _enforce_cross_anisotropy_np(xh, x_parts, zh, z_parts, alpha,
+                                 max_blocks=4096):
+    """x-block widths against z-block widths (normalised, every pair of
+    axes) within alpha: the block holding the widest normalised axis is
+    split at its midpoint until the ratio fits or the block budget is
+    spent (best effort)."""
+    Xx = xh.max(axis=0) - xh.min(axis=0)
+    Xz = zh.max(axis=0) - zh.min(axis=0)
+
+    def extremes(pts, parts, X):
+        """((block, axis, width) of the widest, the narrowest width)."""
+        best, mn = None, np.inf
+        for i, p in enumerate(parts):
+            r = _norm_widths_np(pts, p, X)
+            if r is None:
+                continue
+            v = r[np.isfinite(r) & (r > 1e-12)]
+            if len(v) == 0:
+                continue
+            mn = min(mn, float(v.min()))
+            ax = _widest(r)
+            if best is None or r[ax] > best[2]:
+                best = (i, ax, float(r[ax]))
+        return best, mn
+
+    for _ in range(64):
+        bx, mnx = extremes(xh, x_parts, Xx)
+        bz, mnz = extremes(zh, z_parts, Xz)
+        if bx is None or bz is None:
+            break
+        viol = max(bx[2] / mnz if np.isfinite(mnz) else 1.0,
+                   bz[2] / mnx if np.isfinite(mnx) else 1.0)
+        if viol <= alpha or len(x_parts) + len(z_parts) >= max_blocks:
+            break
+        pts, parts, (i, ax, _) = ((xh, x_parts, bx) if bx[2] >= bz[2]
+                                  else (zh, z_parts, bz))
+        a, b = _mid_split_np(pts, parts[i], ax)
+        if len(a) == 0 or len(b) == 0:
+            break
+        parts[i:i + 1] = [a, b]
+    return x_parts, z_parts
+
+
+def _median_split_np(pts, idx):
+    """A block cut at the median of its widest axis (unsplit when it holds
+    at most 8 points or a half would be empty)."""
+    if len(idx) <= 8:
+        return [idx]
+    ax = int(np.argmax(pts[idx].max(axis=0) - pts[idx].min(axis=0)))
+    med = np.median(pts[idx, ax])
+    lo, hi = idx[pts[idx, ax] <= med], idx[pts[idx, ax] > med]
+    return [idx] if len(lo) == 0 or len(hi) == 0 else [lo, hi]
+
+
+def _partition_np(xh, zh, w, itemsize, mem_mb, blk_cap):
+    """x and z index lists such that every block's fine grid takes at most
+    ``mem_mb`` MB, or the blocks number ``blk_cap``: the side with fewer
+    parts is cut at medians, at most five times."""
+    x_parts, z_parts = [np.arange(len(xh))], [np.arange(len(zh))]
+    for _ in range(5):
+        worst = max(np.prod(_t3_nf_np(xh[ip], zh[iq], w)) * itemsize / 1e6
+                    for ip in x_parts for iq in z_parts)
+        if worst <= mem_mb or len(x_parts) * len(z_parts) >= blk_cap:
+            break
+        if len(x_parts) <= len(z_parts):
+            x_parts = [p for ip in x_parts for p in _median_split_np(xh, ip)]
+        else:
+            z_parts = [p for iq in z_parts for p in _median_split_np(zh, iq)]
+    return x_parts, z_parts
+
+
+class _NUFFT3Chunked(_NUFFTDiagnostics, LinOp):
+    r"""Type 3 on a partition of both clouds: the points into P blocks and
+    the frequencies into Q by median bisection (host numpy), each pair (q,
+    p) with its own :class:`_NUFFT3` on a grid that scales with the pair's
+    own space-bandwidth product, and ``f[q] = sum_p A_qp c[p]``.  The
+    partition keeps every block's fine grid within ``fft_mem_mb`` MB (8
+    bytes a cell at float32, 16 at float64) or stops at ``max_blocks``
+    blocks.  ``apply`` and ``adjoint`` loop the blocks with
+    ``index_select`` / ``index_copy_`` on the device.  Complex input only.
+    """
+
+    def __init__(self, x, z, isign: int = +1, eps: float = 1e-6,
+                 fft_mem_mb: float = 64.0, max_blocks: int = 16, dtype=None,
+                 device=None):
+        dev = resolve_device(device, like=x if isinstance(x, torch.Tensor)
+                             else z)
+        self._dtype = _plan_dtype(dtype)
+        x, z = _cloud(x, dev), _cloud(z, dev)
+        (M, d), (K, _) = x.shape, z.shape
+        super().__init__((M, 2), (K, 2))
+        self._xd, self._zd = x, z
+        self._xh, self._zh = _host(x), _host(z)
+        self._isign, self._eps = int(isign), float(eps)
+        self._itemsize = 8 if self._dtype == torch.float32 else 16
+        self._rebuild(*_partition_np(self._xh, self._zh, _es_params(eps)[0],
+                                     self._itemsize, fft_mem_mb, max_blocks))
+        self._lipschitz = float(np.sqrt(M * K))
+
+    def _rebuild(self, x_parts, z_parts):
+        """The (q, p) blocks' plans from the two index lists."""
+        dev = self._xd.device
+        self._x_parts = tuple(tuple(int(i) for i in p) for p in x_parts)
+        self._z_parts = tuple(tuple(int(i) for i in p) for p in z_parts)
+        self._x_idx = [torch.tensor(p, dtype=torch.int64, device=dev)
+                       for p in self._x_parts]
+        self._z_idx = [torch.tensor(p, dtype=torch.int64, device=dev)
+                       for p in self._z_parts]
+        self._blocks = tuple(
+            tuple(_NUFFT3(self._xd.index_select(0, ip),
+                          self._zd.index_select(0, iq), isign=self._isign,
+                          eps=self._eps, dtype=self._dtype, device=dev)
+                  for ip in self._x_idx)
+            for iq in self._z_idx)
+        self.kernel_path = self._blocks[0][0].kernel_path
+        self._name = (f"NUFFT3Chunked[{len(self._x_parts)}x"
+                      f"{len(self._z_parts)}]")
+
+    def auto_chunk(self, max_mem=10, max_anisotropy=5):
+        """(x_chunks, z_chunks) index lists that meet a per-block FFT
+        memory of ``max_mem`` MB under an anisotropy cap: the median
+        bisection, then midpoint splits along each offending block's widest
+        normalised axis, within a domain and across the two.  Splits are
+        dyadic, so caps below 1.5 are raised to 1.5."""
+        alpha = max(1.5, float(max_anisotropy))
+        x_parts, z_parts = _partition_np(self._xh, self._zh,
+                                         _es_params(self._eps)[0],
+                                         self._itemsize, float(max_mem), 4096)
+        x_parts = _enforce_anisotropy_np(self._xh, x_parts, alpha)
+        z_parts = _enforce_anisotropy_np(self._zh, z_parts, alpha)
+        x_parts, z_parts = _enforce_cross_anisotropy_np(
+            self._xh, x_parts, self._zh, z_parts, alpha)
+        return ([np.asarray(p, np.int64) for p in x_parts],
+                [np.asarray(p, np.int64) for p in z_parts])
+
+    def allocate(self, x_chunks, z_chunks, direct_eval_threshold=10_000):
+        """Plan again on the given index lists, which must partition
+        ``range(M)`` and ``range(K)`` (ValueError otherwise).
+        ``direct_eval_threshold`` (FINUFFT's direct sum for tiny blocks) is
+        accepted and has no effect."""
+        del direct_eval_threshold
+        M, K = self.dim_shape[0], self.codim_shape[0]
+        for chunks, n, dom in ((x_chunks, M, "x"), (z_chunks, K, "z")):
+            seen = np.concatenate([np.asarray(c).ravel() for c in chunks])
+            if not (len(seen) == n and np.array_equal(np.sort(seen),
+                                                      np.arange(n))):
+                raise ValueError(
+                    f"{dom}_chunks must partition range({n}) exactly")
+        self._rebuild([np.asarray(c, np.int64).ravel() for c in x_chunks],
+                      [np.asarray(c, np.int64).ravel() for c in z_chunks])
+        return self
+
+    # the first block's plan answers the mixin's introspection
+    _w = property(lambda self: self._blocks[0][0]._w)
+    _beta = property(lambda self: self._blocks[0][0]._beta)
+    _nf = property(lambda self: self._blocks[0][0]._nf)
+    _d = property(lambda self: self._blocks[0][0]._d)
+
+    def _dense_complex(self) -> np.ndarray:
+        return np.exp(1j * self._blocks[0][0]._isign
+                      * (self._zh @ self._xh.T))
+
+    def mesh(self, dtype=None, scale: str = "unit",
+             upsampled: bool = False) -> np.ndarray:
+        """"unit": the first block's fine grid; "source" / "target": the
+        same mapped onto the whole clouds' bounding boxes."""
+        return _t3_mesh(self._nf, self._xh, self._zh, dtype, scale)
+
+    def stats(self) -> dict:
+        """The partition: block counts and sizes."""
+        return {
+            "n_x_blocks": len(self._x_parts),
+            "n_z_blocks": len(self._z_parts),
+            "x_block_sizes": [len(p) for p in self._x_parts],
+            "z_block_sizes": [len(p) for p in self._z_parts],
+        }
+
+    def params(self) -> dict:
+        """Per (z block, x block): its fine grid, w, M and K."""
+        return {
+            (qi, pi): {"n_fine": blk._nf, "w": blk._w,
+                       "M": len(self._x_parts[pi]),
+                       "K": len(self._z_parts[qi])}
+            for qi, row in enumerate(self._blocks)
+            for pi, blk in enumerate(row)
+        }
+
+    def diagnostic_plot(self, domain: str = "x"):
+        """Scatter one domain's points coloured by block (needs matplotlib,
+        imported here); returns the Figure."""
+        import matplotlib
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        if domain not in ("x", "z"):
+            raise ValueError(f"domain={domain!r}: want 'x' or 'z'")
+        parts = self._x_parts if domain == "x" else self._z_parts
+        cloud = self._xh if domain == "x" else self._zh
+        fig, ax = plt.subplots(figsize=(5, 4))
+        for bi, idx in enumerate(parts):
+            p = cloud[list(idx)]
+            ax.scatter(p[:, 0], p[:, 1] if p.shape[1] > 1 else
+                       np.zeros(len(p)), s=4, label=f"block {bi}")
+        ax.set_title(f"NUFFT3 chunked partition ({domain}-domain, "
+                     f"{len(parts)} blocks)")
+        ax.legend(fontsize=6, markerscale=2)
+        return fig
+
+    def apply(self, arr):
+        def single(a):
+            out = a.new_empty((a.shape[0],) + self.codim_shape)
+            for row, iq in zip(self._blocks, self._z_idx):
+                acc = sum(blk.apply(a.index_select(1, ip))
+                          for blk, ip in zip(row, self._x_idx))
+                out.index_copy_(1, iq, acc)
+            return out
+        return self._map_batched(single, arr, 2, self.codim_shape)
+
+    def adjoint(self, arr):
+        def single(a):
+            out = a.new_empty((a.shape[0],) + self.dim_shape)
+            for pi, ip in enumerate(self._x_idx):
+                acc = sum(row[pi].adjoint(a.index_select(1, iq))
+                          for row, iq in zip(self._blocks, self._z_idx))
+                out.index_copy_(1, ip, acc)
+            return out
+        return self._map_batched(single, arr, 2, self.dim_shape)
+
 
 # ----------------------------------------------------------- public API ----
 
 class NUFFT:
-    """Factory namespace: ``NUFFT.type1`` and ``NUFFT.type2`` for d = 2
-    and d = 3.
+    """Factory namespace: ``NUFFT.type1``, ``NUFFT.type2`` and
+    ``NUFFT.type3`` for d = 1, 2 and 3.
 
     ``dtype`` (default: the precision policy's) and ``device`` (default:
     the points' if they are a tensor, else ``cuda``) are fixed at plan
@@ -508,8 +1199,21 @@ class NUFFT:
 
     @staticmethod
     def type3(x, z, isign: int = +1, eps: float = 1e-6, real: bool = False,
-              **plan_kwargs):
-        raise NotImplementedError(f"the type-3 NUFFT {_QUEUE}")
+              chunked: bool = False, fft_mem_mb: float = 64.0,
+              max_blocks: int = 16, dtype=None, device=None, **plan_kwargs):
+        """``chunked=True``: the partitioned plan, every block's fine grid
+        within ``fft_mem_mb`` MB or at most ``max_blocks`` blocks
+        (:class:`_NUFFT3Chunked`; complex input only)."""
+        _ignore_finufft_kwargs(plan_kwargs)
+        if chunked:
+            if real:
+                raise ValueError("the chunked type 3 takes complex input only")
+            return _NUFFT3Chunked(x, z, isign=isign, eps=eps,
+                                  fft_mem_mb=fft_mem_mb,
+                                  max_blocks=max_blocks, dtype=dtype,
+                                  device=device)
+        return _NUFFT3(x, z, isign=isign, eps=eps, real_in=real, dtype=dtype,
+                       device=device)
 
 
 # performance-only FINUFFT options: results are identical without them
@@ -571,3 +1275,13 @@ def nudft2(f, x, N, isign=-1):
         x = x[:, None]
     N = (N,) * x.shape[1] if isinstance(N, int) else tuple(N)
     return np.exp(1j * isign * (x @ _modes(N).T)) @ np.asarray(f).ravel()
+
+
+def nudft3(c, x, z, isign=+1):
+    """Direct type 3: f_k = sum_j c_j e^{isign i <z_k, x_j>} (host
+    numpy)."""
+    x = np.asarray(x, np.float64)
+    z = np.asarray(z, np.float64)
+    x = x[:, None] if x.ndim == 1 else x
+    z = z[:, None] if z.ndim == 1 else z
+    return np.exp(1j * isign * (z @ x.T)) @ np.asarray(c)

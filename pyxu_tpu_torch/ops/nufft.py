@@ -44,6 +44,10 @@ as ``(..., 2)`` real pairs: strengths ``(B, M, 2)`` and grids ``(B, *nf,
 The kernels take float32 and float64, 2 to 16 taps and any grid size.  An
 empty point set (M = 0) launches nothing: spread gives zeros, interp an
 empty result.
+
+d = 1 has no kernel (the JAX package has no Pallas kernel for it either):
+:func:`plan1` and :func:`nufft_spread1_plain` / :func:`nufft_interp1_plain`
+run the plain versions on either device.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ __all__ = [
     "Plan",
     "plan2",
     "plan3",
+    "plan1",
     "bin3",
     "neighbourhood",
     "spread_tasks",
@@ -69,6 +74,8 @@ __all__ = [
     "es_weights",
     "nufft_spread2_plain",
     "nufft_interp2_plain",
+    "nufft_spread1_plain",
+    "nufft_interp1_plain",
     "nufft_spread3_plain",
     "nufft_interp3_plain",
     "nufft_spread2",
@@ -99,7 +106,7 @@ _DTYPES = (torch.float32, torch.float64)
 @dataclasses.dataclass(frozen=True, eq=False)
 class Plan:
     """Geometry of M points on the periodic fine grid ``nf`` (d = 2 or 3
-    axes).
+    axes; d = 1 from :func:`plan1`, one bin and no tasks).
 
     ``bins``: the bin's side per axis; ``nbins``: bins per axis.  ``perm``
     (M,) int32: the original index of each sorted point.  ``i0`` (d, M)
@@ -449,6 +456,31 @@ def plan3(x: torch.Tensor, nf, w: int, beta: float,
     return _plan(x, nf, w, beta, dtype, bin3(w, dtype))
 
 
+def plan1(x: torch.Tensor, nf, w: int, beta: float,
+          dtype: torch.dtype) -> Plan:
+    """Plan of the points ``x`` ((M, 1) float64, folded into [0, 2 pi)) on
+    the ring ``nf = (n,)``: left taps and offsets, in the points' order
+    (one bin, no tasks).  No kernel takes d = 1: the plain versions
+    (:func:`nufft_spread1_plain`, :func:`nufft_interp1_plain`) read it on
+    either device."""
+    if x.dtype != torch.float64 or x.ndim != 2 or x.shape[1] != 1:
+        raise ValueError("x must be an (M, 1) float64 tensor")
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype {dtype}: want float32 or float64")
+    (n,) = (int(v) for v in nf)
+    dev, M, hw = x.device, x.shape[0], w // 2
+    xs = x[:, 0] / (2 * math.pi / n)
+    i0 = torch.ceil(xs - w / 2.0)
+    base = torch.remainder(i0.to(torch.int64) + hw, n)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    return Plan(
+        nf=(n,), w=int(w), beta=float(beta), M=M, bins=(n,), nbins=(1,),
+        perm=torch.arange(M, dtype=torch.int32, device=dev),
+        i0=(base - hw)[None].to(torch.int32), off=(xs - i0)[None].to(dtype),
+        sub=none.reshape(0, 3), sbins=(n,), nsbins=(1,), sbstart=none,
+        sbcount=none, tasks=none.reshape(0, 7))
+
+
 # ------------------------------------------------------------ plain version --
 
 def es_weights(off: torch.Tensor, w: int, beta: float) -> torch.Tensor:
@@ -540,6 +572,20 @@ def nufft_interp2_plain(g: torch.Tensor, plan: Plan) -> torch.Tensor:
     """Grid ``(B, n1, n2, 2)`` -> values ``(B, M, 2)``, by a gather of the
     w^2 taps and a weighted sum."""
     _plain_check(g, plan, 2)
+    return _interp_plain(g, plan)
+
+
+def nufft_spread1_plain(c: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """Strengths ``(B, M, 2)`` -> ring ``(B, n, 2)``, by ``index_add_`` of
+    the w taps (d = 1 has no kernel: this runs on either device)."""
+    _plain_check(c, plan, 1)
+    return _spread_plain(c, plan)
+
+
+def nufft_interp1_plain(g: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """Ring ``(B, n, 2)`` -> values ``(B, M, 2)``, by a gather of the w taps
+    and a weighted sum (either device)."""
+    _plain_check(g, plan, 1)
     return _interp_plain(g, plan)
 
 

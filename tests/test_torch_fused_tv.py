@@ -23,6 +23,16 @@ from pyxu_tpu_torch.ops.stencil import adj_axis, fwd_axis
 from pyxu_tpu_torch.opt.solver import CondatVu
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the arrays here are small, and the suite's
+    workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _state(H, W, dtype=np.float32, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.random((H, W)).astype(dtype)

@@ -10,6 +10,17 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the arrays here are small, and the suite's
+    workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "pyxu_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -79,6 +90,17 @@ slv.fit(x0=torch.zeros(8), stop_crit=ManualStop() | MaxDuration(60.0)
 time.sleep(0.05)
 slv.stop()
 assert not slv.busy()
+from pyxu_tpu_torch.operator.linop import FFT
+from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+rng = np.random.default_rng(0)
+x3, z3 = rng.uniform(-1, 1, (40, 3)), rng.uniform(-5, 5, (30, 3))
+for kw in ({}, {"chunked": True, "fft_mem_mb": 0.05}):
+    A = NUFFT.type3(x3, z3, device="cpu", **kw)
+    out = A.adjoint(A.apply(torch.ones(40, 2)))
+    assert out.shape == (40, 2) and bool(out.isfinite().all())
+A = NUFFT.type1(rng.uniform(-3, 3, 20), 8, device="cpu")
+assert A.kernel_path == "plain" and A.apply(torch.ones(20, 2)).shape == (8, 2)
+assert FFT((4, 6), real=True).apply(torch.ones(4, 6)).shape == (4, 6, 2)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu")]
 assert not bad, bad
 print("ok")
@@ -137,6 +159,9 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
         radio_interferometry((32, 32), n_vis=100)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NUFFT.type2(np.zeros((10, 2)), (8, 8))
+    for chunked in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            NUFFT.type3(np.zeros((10, 2)), np.zeros((5, 2)), chunked=chunked)
     for method in ("fourier", "interp"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sparse_view_ct((32, 32), method=method)

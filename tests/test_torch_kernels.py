@@ -1267,6 +1267,75 @@ def test_nufft3_operator_on_the_card(cuda, kind):
             want.abs().max())
 
 
+def _card_vs_cpu(ops, cuda, inputs):
+    """Each (method, input) on the card against the CPU operator: 1e-9 of
+    the largest value (cuFFT and the CPU's FFT round in another order)."""
+    for name, a in inputs:
+        want = getattr(ops["cpu"], name)(a)
+        got = getattr(ops[cuda], name)(a.to(cuda)).cpu()
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-9 * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,isign,real,chunked", [
+    (2, 1, False, False), (2, -1, True, False), (3, -1, False, False),
+    (3, 1, True, False), (2, 1, False, True), (3, -1, False, True)])
+def test_nufft_type3_on_the_card(cuda, d, isign, real, chunked):
+    """Type 3 on the card against the same operator on the CPU (plain
+    versions), float64: an apply and an adjoint launch the spread and the
+    interp of d dimensions twice each (a chunked plan twice a block)."""
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    rng = np.random.default_rng(d + 2 * isign)
+    x = rng.uniform(-1.0, 2.0, (3000, d))
+    z = rng.uniform(-15.0, 12.0, (2000, d))
+    kw = dict(chunked=True, fft_mem_mb={2: 0.05, 3: 0.5}[d]) if chunked \
+        else {}
+    ops = {dev: NUFFT.type3(x, z, isign=isign, real=real, eps=1e-8,
+                            dtype=torch.float64, device=dev, **kw)
+           for dev in ("cpu", cuda)}
+    assert ops[cuda].kernel_path == "kernel"
+    blocks = 1
+    if chunked:
+        assert ops[cuda].stats() == ops["cpu"].stats()
+        blocks = len(ops[cuda].params())
+        assert blocks > 1
+    spread = nu.nufft_spread2 if d == 2 else nu.nufft_spread3
+    interp = nu.nufft_interp2 if d == 2 else nu.nufft_interp3
+    n0 = (spread.launches, interp.launches)
+    c = torch.randn((2,) + ops["cpu"].dim_shape, dtype=torch.float64)
+    f = torch.randn((2, 2000, 2), dtype=torch.float64)
+    _card_vs_cpu(ops, cuda, (("apply", c), ("adjoint", f)))
+    assert (spread.launches - n0[0], interp.launches - n0[1]) == (
+        2 * blocks, 2 * blocks)
+
+
+@pytest.mark.cuda
+def test_nufft_d1_on_the_card(cuda):
+    """d = 1 runs the plain spread and interp on the card (no kernel, no
+    launch): types 1, 2 and 3 against the CPU."""
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    rng = np.random.default_rng(1)
+    x, z = rng.uniform(-np.pi, np.pi, 500), rng.uniform(-40, 40, 300)
+    n0 = [k.launches for k in (nu.nufft_spread2, nu.nufft_interp2,
+                               nu.nufft_spread3, nu.nufft_interp3)]
+    for make in (lambda dev: NUFFT.type1(x, 64, eps=1e-8, device=dev,
+                                         dtype=torch.float64),
+                 lambda dev: NUFFT.type2(x, 64, eps=1e-8, device=dev,
+                                         dtype=torch.float64),
+                 lambda dev: NUFFT.type3(x, z, eps=1e-8, device=dev,
+                                         dtype=torch.float64)):
+        ops = {dev: make(dev) for dev in ("cpu", cuda)}
+        assert ops[cuda].kernel_path == "plain"
+        _card_vs_cpu(ops, cuda, (
+            ("apply", torch.randn(ops["cpu"].dim_shape, dtype=torch.float64)),
+            ("adjoint", torch.randn(ops["cpu"].codim_shape,
+                                    dtype=torch.float64))))
+    assert n0 == [k.launches for k in (nu.nufft_spread2, nu.nufft_interp2,
+                                       nu.nufft_spread3, nu.nufft_interp3)]
+
+
 @pytest.mark.cuda
 def test_sparse_view_ct_on_the_card(cuda):
     """The CT path on the card against the same solve on the CPU (plain

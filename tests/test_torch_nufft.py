@@ -283,12 +283,13 @@ def test_complex_views_match_jax():
 
 
 def test_unported_forms_and_plan_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnu.NUFFT.type1(np.zeros((5, 1)), 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnu.NUFFT.type2(np.zeros(5), 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnu.NUFFT.type3(np.zeros((5, 2)), np.zeros((4, 2)))
+    # d = 1 and type 3 build now (tests/test_torch_nufft_t3.py holds them)
+    op = tnu.NUFFT.type1(np.zeros((5, 1)), 8, device="cpu")
+    assert op.kernel_path == "plain" and op.codim_shape == (8, 2)
+    op = tnu.NUFFT.type2(np.zeros(5), 8, device="cpu")
+    assert op.kernel_path == "plain" and op.dim_shape == (8, 2)
+    op = tnu.NUFFT.type3(np.zeros((5, 2)), np.zeros((4, 2)), device="cpu")
+    assert op.kernel_path == "kernel" and op.codim_shape == (4, 2)
     with pytest.raises(NotImplementedError, match="modeord"):
         tnu.NUFFT.type1(_x(), N, device="cpu", modeord=1)
     with pytest.raises(TypeError):

@@ -20,6 +20,17 @@ from pyxu_tpu_torch.abc.arithmetic import CastMixin, ChainMixin
 from pyxu_tpu_torch.abc.operator import LinFunc, QuadraticFunc, _GramOp
 from pyxu_tpu_torch.opt.solver import CondatVu as TCondatVu
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the arrays here are small, and the suite's
+    workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 H, W = 13, 11
 
 

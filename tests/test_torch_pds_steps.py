@@ -27,6 +27,17 @@ from pyxu_tpu_torch.operator.func import L1Norm, SquaredL2Norm
 from pyxu_tpu_torch.opt.solver import CondatVu
 from pyxu_tpu_torch.opt.stop import MaxIter
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the arrays here are small, and the suite's
+    workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 M, N = 20, 12
 ITERS = 30
 RTOL = 1e-4          # power iteration from two random starts (see above)

@@ -24,6 +24,17 @@ from pyxu_tpu_torch.convert import lasso_problem
 from pyxu_tpu_torch.models import lasso_deconvolution
 from pyxu_tpu_torch.opt.stop import MaxIter, RelError
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the arrays here are small, and the suite's
+    workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPE = (64, 48)
 TAPS = (_gauss1d(2.0, 9), _gauss1d(2.0, 9))
 

@@ -20,6 +20,17 @@ import pyxu_tpu_torch.operator.linop as tlin
 from pyxu_tpu.ops.pallas_stencil import separable_correlate2d as pallas_corr
 from pyxu_tpu_torch.math import linalg
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the arrays here are small, and the suite's
+    workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # an image taller than two of the kernel's tiles, and for the 9x9 taps one
 # whose pad width equals its height
 SHAPES = {"9x9": (4, 9)}
