@@ -141,6 +141,28 @@ Phases:
    ``t3_launches`` (the 3-D kernels' in the timed fit, the 2-D kernels'
    in the coplanar form's apply and adjoint) and ``t3`` (per cloud: ms,
    plain and bound ms, errors).
+14. Bayesian uncertainty for 4K deblurring by MYULA (``uq_phase``; Durmus,
+   Moulines & Pereyra, SIAM J. Imaging Sci. 11(1), 2018, section 4): at
+   2160x3840, f32, workload 1's sparse image blurred by the 9-tap sigma = 2
+   Stencil (symmetric padding) with 1% noise, f = 0.5 ||Kx - y||^2 / 0.01^2
+   and g = 0.05 ||x||_1 / 0.01^2, ``MYULA(f, g)`` with its default lamb and
+   gamma (printed, with f's diff-Lipschitz constant); a warm chain, then
+   500 burn-in steps and 2000 samples through ``samples()`` into
+   ``OnlineMoment(1)`` and ``OnlineStd()`` (steps/s, samples/s, device ms a
+   step by CUDA events, idle share; mean and std finite, std > 0), 2
+   stencil launches a step asserted; ``run(n=16, thin=8)`` against a
+   two-pass mean and std of its stack (1e-5 relative); the drift against
+   ``f.grad + g.moreau_envelope(lamb).grad`` (1e-6 relative); the same
+   seed twice, the same bits; the 64x48 form, 100 steps with the CPU's
+   noise fed to both devices (2e-4 of max|x|).  Then Tikhonov deblurring,
+   ``K.pinv(y, damp=1e-2)`` at 2160x3840: the same bits as
+   ``K.dagger(1e-2).apply(y)``, the relative normal-equation residual
+   within 2 rtol, the stencil's launches (1 for K^T y, 2 for the initial
+   residual, 2 a CG iteration, the iterations a multiple of
+   ``math.cg.CHECK_RATE``), CG iterations/s, and the 64x48 form card vs
+   CPU.  The stencil's entry on the ``kernels`` line gains
+   ``uq_launches`` and ``pinv_launches``; the JSON line
+   ``myula_4k_it_per_s`` and ``pinv_4k_it_per_s``.
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -158,6 +180,7 @@ import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
@@ -250,6 +273,13 @@ T3_NF = (1536, 1536, 60)        # the plan's fine grid at this size
 T3_ITERS, T3_SOURCES, T3_LAM = 20, 200, 1e-2     # lam over K, diag(A^H A)
 T3_SMALL = (2000, 16, 25)       # card vs CPU: pixels, antennas, time steps
 T3_CHECK_VIS = 1024             # visibilities held against the direct sum
+# Bayesian uncertainty for 4K deblurring by MYULA (phase 14): noise sigma,
+# the L1 weight, the chain's lengths, run()'s stack, the Tikhonov damping
+UQ_SIGMA, UQ_LAM = 0.01, 0.05
+UQ_WARM, UQ_BURN, UQ_SAMPLES = 200, 500, 2000
+UQ_RUN_N, UQ_RUN_THIN, UQ_SAME_BITS = 16, 8, 20
+UQ_SMALL, UQ_SMALL_STEPS = (64, 48), 100
+UQ_DAMP = 1e-2
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
                                # takes to enqueue one timed run
 
@@ -2049,6 +2079,199 @@ def t3_phase(nu, MaxIter):
                 launches_2d=launches_2d, recs=recs)
 
 
+def _uq_problem(shape, device):
+    """The MYULA posterior of phase 14 from the public API: workload 1's
+    sparse image and 9-tap sigma = 2 blur K (symmetric padding), y = K x +
+    ``UQ_SIGMA`` n with n drawn from ``numpy.random.default_rng(0)`` after
+    the image, f = 0.5 ||K x - y||^2 / sigma^2, g = lam ||x||_1 /
+    sigma^2."""
+    import numpy as np
+    from pyxu_tpu_torch.models import lasso_deconvolution
+    from pyxu_tpu_torch.operator.func import L1Norm, SquaredL2Norm
+    rng = np.random.default_rng(0)
+    rng.random(shape)                       # the factory's draw of the image
+    n = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    _, _, ex = lasso_deconvolution(shape, device=device)
+    K = ex["K"]
+    y = ex["y"] + UQ_SIGMA * n.to(device)
+    f = (0.5 / UQ_SIGMA ** 2) * SquaredL2Norm(shape).asloss(y) * K
+    g = (UQ_LAM / UQ_SIGMA ** 2) * L1Norm(shape)
+    return f, g, K, y
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def uq_phase(st):
+    """Phase 14: Bayesian uncertainty for 4K deblurring by MYULA, and
+    Tikhonov deblurring by ``K.pinv`` (see the module docstring)."""
+    from pyxu_tpu_torch.math.cg import CHECK_RATE
+    from pyxu_tpu_torch.sampler import MYULA, OnlineMoment, OnlineStd
+    H, W = SHAPE
+    f, g, K, y = _uq_problem(SHAPE, "cuda")
+    assert K.kernel_path == "kernel", K.kernel_path
+    declared = math.isfinite(f.diff_lipschitz)
+    M = MYULA(f, g)
+    print(f"[uq] MYULA {H}x{W}: lamb {M.lamb:.6e}, gamma {M.gamma:.6e}; "
+          f"beta_f {f.diff_lipschitz:.6e} ("
+          f"{'declared: the Stencil bound' if declared else 'estimated'})",
+          flush=True)
+    x0 = torch.zeros(SHAPE, device="cuda")
+    chain = M.samples(x0, seed=0)
+    for _ in range(UQ_WARM):            # also fills the loss's gradient cache
+        x = next(chain)
+    torch.cuda.synchronize()
+    # the timed chain: burn-in, then the samples into the statistics
+    mean, std = OnlineMoment(1), OnlineStd()
+    chain = M.samples(x0, seed=1)
+    _reset([st.separable_correlate2d])
+    steps = UQ_BURN + UQ_SAMPLES
+    t0 = time.perf_counter()
+    for i in range(steps):
+        x = next(chain)
+        if i >= UQ_BURN:
+            mean.update(x)
+            std.update(x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = st.separable_correlate2d.launches
+    assert launches == 2 * steps, (launches, 2 * steps)
+    mu, sd = mean.stat(), std.stat()
+    assert mu.shape == sd.shape == SHAPE
+    assert bool(mu.isfinite().all()) and bool(sd.isfinite().all())
+    assert bool((sd > 0).all()), float(sd.min())
+    # device time of one loop iteration (a step and both updates), and of
+    # the step's two stencil launches
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    m2, s2 = OnlineMoment(1), OnlineStd()
+
+    def body():
+        xs = M._step(x, gen)
+        m2.update(xs)
+        s2.update(xs)
+    dev_ms = _time_ms(body, reps=10)
+    step_ms = _time_ms(lambda: M._step(x, gen), reps=10)
+    sten_ms = sum(_time_ms(lambda adj=adj: st.separable_correlate2d(
+        x, K._taps, adj)) for adj in (False, True))
+    host_ms = 1e3 * dt / steps
+    rate = steps / dt
+    # the chain's device time: burn-in steps bare, samples with statistics
+    idle = 1 - (UQ_BURN * step_ms + UQ_SAMPLES * dev_ms) / (1e3 * dt)
+    print(f"[uq] timed chain: {UQ_BURN} burn-in + {UQ_SAMPLES} samples in "
+          f"{dt:.4f} s: {rate:.2f} steps/s, {UQ_SAMPLES / dt:.2f} samples/s "
+          f"(statistics included); stencil launches {launches} (2 a step); "
+          f"device {dev_ms:.4f} ms a sample (step {step_ms:.4f}, of it the "
+          f"stencil {sten_ms:.4f} ms; statistics {dev_ms - step_ms:.4f}), "
+          f"host {host_ms:.4f} ms a step, device idle {idle:.1%};"
+          f" posterior mean in [{float(mu.min()):.4e}, {float(mu.max()):.4e}"
+          f"], std in [{float(sd.min()):.4e}, {float(sd.max()):.4e}] "
+          f"(mean {float(sd.mean()):.4e})", flush=True)
+    # run() against a two-pass mean and std of its stack
+    _reset([st.separable_correlate2d])
+    S = M.run(x0, n=UQ_RUN_N, thin=UQ_RUN_THIN, seed=3)
+    n_run = st.separable_correlate2d.launches
+    assert tuple(S.shape) == (UQ_RUN_N,) + SHAPE, S.shape
+    assert n_run == 2 * UQ_RUN_N * UQ_RUN_THIN, n_run
+    mean, std = OnlineMoment(1), OnlineStd()
+    for s in S:
+        mean.update(s)
+        std.update(s)
+    e_mean = _rel(mean.stat(), torch.mean(S, 0))
+    e_std = _rel(std.stat(), torch.std(S, 0, correction=0))
+    print(f"[uq] run(n={UQ_RUN_N}, thin={UQ_RUN_THIN}): online mean and std"
+          f" against two passes of the stack: {e_mean:.3e}, {e_std:.3e} "
+          f"relative (tol 1e-5)", flush=True)
+    assert e_mean <= 1e-5 and e_std <= 1e-5, (e_mean, e_std)
+    del S
+    # the drift against f's gradient and g's Moreau envelope
+    e_drift = _rel(M._drift(x), f.grad(x) + g.moreau_envelope(M.lamb).grad(x))
+    # the same seed twice gives the same bits
+    runs = []
+    for _ in range(2):
+        c = M.samples(x0, seed=4)
+        for _ in range(UQ_SAME_BITS):
+            xs = next(c)
+        runs.append(xs)
+    same = torch.equal(runs[0], runs[1])
+    print(f"[uq] drift vs f.grad + g.moreau_envelope(lamb).grad: {e_drift:.3e}"
+          f" relative (tol 1e-6); seed 4 twice, {UQ_SAME_BITS} steps: same "
+          f"bits {same}", flush=True)
+    assert e_drift <= 1e-6 and same, (e_drift, same)
+    del runs, c, xs
+    # the small problem: noise drawn on the CPU and fed to both devices
+    small = {}
+    for dev in ("cuda", "cpu"):
+        fs, gs, _, _ = _uq_problem(UQ_SMALL, dev)
+        small[dev] = MYULA(fs, gs)
+    assert (small["cuda"].gamma, small["cuda"].lamb) == (
+        small["cpu"].gamma, small["cpu"].lamb)
+    gen = torch.Generator().manual_seed(5)
+    xc = {d: torch.zeros(UQ_SMALL, device=d) for d in small}
+    for _ in range(UQ_SMALL_STEPS):
+        w = torch.randn(UQ_SMALL, generator=gen)
+        for d, m in small.items():
+            xc[d] = m._update(xc[d], w.to(d))
+    diff = float((xc["cuda"].cpu() - xc["cpu"]).abs().max())
+    peak = float(xc["cpu"].abs().max())
+    print(f"[uq] MYULA {UQ_SMALL[0]}x{UQ_SMALL[1]}, {UQ_SMALL_STEPS} steps "
+          f"card vs CPU (the CPU's noise): max_abs_diff={diff:.3e}, "
+          f"{diff / peak:.3e} of max|x| (tol 2e-4)", flush=True)
+    assert diff <= 2e-4 * peak, (diff, peak)
+    del mean, std, m2, s2, chain, x, mu, sd
+
+    # ---- pinv at 4K: Tikhonov deblurring ----------------------------------
+    xp = K.pinv(y, damp=UQ_DAMP)                # warm
+    same_dagger = torch.equal(K.dagger(UQ_DAMP).apply(y), xp)
+    torch.cuda.synchronize()
+    _reset([st.separable_correlate2d])
+    t0 = time.perf_counter()
+    xp = K.pinv(y, damp=UQ_DAMP)
+    torch.cuda.synchronize()
+    dt_p = time.perf_counter() - t0
+    n_p = st.separable_correlate2d.launches
+    # K^T y (1), the initial residual (2), 2 an iteration; a budget above
+    # CHECK_RATE stops at a check
+    iters = (n_p - 3) // 2
+    maxiter = min(max(2 * K.dim_size, 20), 1000)
+    assert n_p == 3 + 2 * iters and iters % CHECK_RATE == 0, n_p
+    assert 0 < iters < maxiter, iters
+    # the solve's device time (the kernels' own, torch.profiler): CG reads
+    # its flag every CHECK_RATE iterations, so events would time the host
+    p_dev = _profiled_device_ms(lambda: K.pinv(y, damp=UQ_DAMP), 1)
+    p_host = 1e3 * dt_p
+    b = K.adjoint(y)
+    res = float(torch.linalg.vector_norm(
+        K.adjoint(K.apply(xp)) + UQ_DAMP * xp - b)
+        / torch.linalg.vector_norm(b))
+    rtol = max(100 * torch.finfo(torch.float32).eps, 1e-6)
+    p_rate = iters / dt_p
+    p_idle = "not measured" if p_dev is None else f"{1 - p_dev / p_host:.1%}"
+    print(f"[uq] pinv {H}x{W} (damp {UQ_DAMP}): {iters} CG iterations in "
+          f"{dt_p:.4f} s: {p_rate:.2f} it/s; device "
+          + ("not measured" if p_dev is None else f"{p_dev:.4f} ms")
+          + f" (torch.profiler), host {p_host:.4f} ms, device idle {p_idle};"
+          f" stencil launches {n_p} (1 + 2 + "
+          f"2 an iteration); relative normal-equation residual {res:.3e} "
+          f"(tol {2 * rtol:.3e}); dagger(damp).apply gives the same bits "
+          f"{same_dagger}", flush=True)
+    assert res <= 2 * rtol and same_dagger, (res, same_dagger)
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        _, _, Ks, ys = _uq_problem(UQ_SMALL, dev)
+        sols[dev] = Ks.pinv(ys, damp=UQ_DAMP).cpu()
+    diff = float((sols["cuda"] - sols["cpu"]).abs().max())
+    peak = float(sols["cpu"].abs().max())
+    print(f"[uq] pinv {UQ_SMALL[0]}x{UQ_SMALL[1]} card vs CPU: max_abs_diff="
+          f"{diff:.3e}, {diff / peak:.3e} of max|x| (tol 2e-4)", flush=True)
+    assert diff <= 2e-4 * peak, (diff, peak)
+    return dict(rate=rate, samples_per_s=UQ_SAMPLES / dt, launches=launches,
+                device_ms=dev_ms, step_ms=step_ms, stencil_ms=sten_ms,
+                host_ms=host_ms, idle=idle, pinv_rate=p_rate,
+                pinv_launches=n_p, pinv_iters=iters, pinv_device_ms=p_dev,
+                pinv_host_ms=p_host)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2230,6 +2453,10 @@ def main() -> int:
     t3 = t3_phase(nu, MaxIter)
     _mark("type-3 sky phase")
 
+    # ---- phase 14: 4K MYULA uncertainty and Tikhonov pinv --------------
+    uq = uq_phase(st)
+    _mark("MYULA and pinv phase")
+
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -2265,6 +2492,11 @@ def main() -> int:
                 for k, v in st_recs64.items()},
         "sweep": st_sweep,
         "ct_launches": ct[CT_SHAPE]["launches"]["stencil"],
+        # phase 14: the timed MYULA chain's and the timed pinv's launches
+        "uq_launches": uq["launches"], "pinv_launches": uq["pinv_launches"],
+        "uq": {k: uq[k] for k in ("stencil_ms", "step_ms", "device_ms",
+                                  "idle", "pinv_device_ms", "pinv_host_ms",
+                                  "pinv_iters")},
     })
     # the RI 1024^2 path spreads twice on the Toeplitz grid and once (A^H y)
     # on A's; it interpolates once (y) on A's grid.  The MRI 128^3 path
@@ -2332,6 +2564,8 @@ def main() -> int:
                       "ct_512_setup_s": ct[CT_SHAPE]["setup_s"],
                       "t3_sky_it_per_s": t3["rate"],
                       "t3_sky_setup_s": t3["setup_s"],
+                      "myula_4k_it_per_s": uq["rate"],
+                      "pinv_4k_it_per_s": uq["pinv_rate"],
                       "engine": engine}),
           flush=True)
     print(smi, flush=True)

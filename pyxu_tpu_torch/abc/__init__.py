@@ -7,13 +7,16 @@ from pyxu_tpu_torch.abc.operator import (  # noqa: F401
     Map,
     NormalOp,
     Operator,
+    OrthProjOp,
     PosDefOp,
+    ProjOp,
     Property,
     ProxDiffFunc,
     ProxFunc,
     QuadraticFunc,
     SelfAdjointOp,
     SquareOp,
+    UnitOp,
     core_operators,
     infer_operator_class,
 )

@@ -9,9 +9,12 @@ linear operator: those rules rebuild a genuine ``QuadraticFunc`` whose
 ``(Q, c, t)`` spec is itself made of composed operators.  Lipschitz
 constants propagate through every rule.
 
-Ported rules: Scale, ArgShift, Add, Chain (with ``compose``), Transpose and
-Cast, each with its Lipschitz estimators.  ArgScale and Power are not
-ported yet; neither the TV nor the LASSO path reaches them.
+Rules: Scale, ArgScale, ArgShift, Add, Chain (with ``compose``), Power,
+Transpose and Cast, each with its Lipschitz estimators, ``jacobian``,
+``svdvals``/``trace``/``asarray`` where the JAX package has them, and
+``_expr`` for :meth:`Operator.expr`.  A rule's ``jacobian`` composes its
+parts' Jacobians, so a linear part is applied as itself, never
+differentiated through.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from pyxu_tpu_torch.abc.operator import (
     infer_operator_class,
 )
 
-__all__ = ["add", "compose", "scale", "argshift", "transpose", "cast_op"]
+__all__ = ["add", "compose", "scale", "argscale", "argshift", "power",
+           "transpose", "cast_op"]
 
 _LINEAR_SUBPROPS = frozenset({
     P.LINEAR_SQUARE, P.LINEAR_NORMAL, P.LINEAR_IDEMPOTENT,
@@ -68,6 +72,9 @@ class ScaleMixin:
         if _finite(op._diff_lipschitz):
             self._diff_lipschitz = abs(cst) * op._diff_lipschitz
 
+    def _expr(self):
+        return (f"scale[{self._cst}]", self._op)
+
     def apply(self, arr):
         return self._cst * self._op.apply(arr)
 
@@ -84,6 +91,11 @@ class ScaleMixin:
             return arr - tau * self.grad(arr)
         raise NotImplementedError
 
+    def jacobian(self, arr):
+        if self.has(P.LINEAR):
+            return self
+        return scale(self._op.jacobian(arr), self._cst)
+
     def estimate_lipschitz(self, **kw):
         self._lipschitz = abs(self._cst) * self._op.estimate_lipschitz(**kw)
         return self._lipschitz
@@ -92,6 +104,15 @@ class ScaleMixin:
         self._diff_lipschitz = abs(self._cst) * \
             self._op.estimate_diff_lipschitz(**kw)
         return self._diff_lipschitz
+
+    def svdvals(self, k: int = 1, **kw):
+        return abs(self._cst) * self._op.svdvals(k=k, **kw)
+
+    def trace(self, **kw):
+        return self._cst * self._op.trace(**kw)
+
+    def asarray(self, dtype=None, device=None):
+        return self._cst * self._op.asarray(dtype=dtype, device=device)
 
 
 def _scale_properties(op: Operator, cst: float) -> frozenset:
@@ -126,6 +147,89 @@ def scale(op: Operator, cst: float) -> Operator:
     return _make(ScaleMixin, _scale_properties(op, cst), op, cst)
 
 
+# ================================================================== argscale =
+
+class ArgScaleMixin:
+    """out = op(cst * .)."""
+
+    def __init__(self, op: Operator, cst: float):
+        Operator.__init__(self, op.dim_shape, op.codim_shape)
+        self._op = op
+        self._cst = float(cst)
+        self._name = "ArgScale"
+        if _finite(op._lipschitz):
+            self._lipschitz = abs(cst) * op._lipschitz
+        if _finite(op._diff_lipschitz):
+            self._diff_lipschitz = cst * cst * op._diff_lipschitz
+
+    def _expr(self):
+        return (f"argscale[{self._cst}]", self._op)
+
+    def apply(self, arr):
+        return self._op.apply(self._cst * arr)
+
+    def grad(self, arr):
+        return self._cst * self._op.grad(self._cst * arr)
+
+    def adjoint(self, arr):
+        return self._cst * self._op.adjoint(arr)
+
+    def prox(self, arr, tau):
+        c = self._cst
+        return self._op.prox(c * arr, c * c * tau) / c
+
+    def jacobian(self, arr):
+        if self.has(P.LINEAR):
+            return self
+        return scale(self._op.jacobian(self._cst * torch.as_tensor(arr)),
+                     self._cst)
+
+    def estimate_lipschitz(self, **kw):
+        self._lipschitz = abs(self._cst) * self._op.estimate_lipschitz(**kw)
+        return self._lipschitz
+
+    def estimate_diff_lipschitz(self, **kw):
+        self._diff_lipschitz = self._cst ** 2 * \
+            self._op.estimate_diff_lipschitz(**kw)
+        return self._diff_lipschitz
+
+    def svdvals(self, k: int = 1, **kw):
+        return abs(self._cst) * self._op.svdvals(k=k, **kw)
+
+    def trace(self, **kw):
+        return self._cst * self._op.trace(**kw)
+
+    def asarray(self, dtype=None, device=None):
+        return self._cst * self._op.asarray(dtype=dtype, device=device)
+
+
+def _argscale_properties(op: Operator, cst: float) -> frozenset:
+    p = set(op.properties())
+    if abs(cst) != 1.0:
+        p.discard(P.LINEAR_UNITARY)
+    if cst != 1.0:
+        p.discard(P.LINEAR_IDEMPOTENT)
+    if cst < 0:
+        p.discard(P.LINEAR_POSITIVE_DEFINITE)
+    return frozenset(p)
+
+
+def argscale(op: Operator, cst: float) -> Operator:
+    cst = float(cst)
+    if cst == 1.0:
+        return op
+    if cst == 0.0:
+        raise ValueError("argscale by 0 is degenerate")
+    if isinstance(op, ArgScaleMixin):
+        return argscale(op._op, cst * op._cst)
+    if op.has(P.QUADRATIC):
+        Q, c, t = op._quad_spec()
+        return QuadraticFunc(op.dim_shape,
+                             Q=scale(Q, cst * cst).asop(PosDefOp),
+                             c=scale(c, cst), t=t)
+    return _make(ArgScaleMixin, _argscale_properties(op, cst), op, cst)
+
+
 # ================================================================== argshift =
 
 class ArgShiftMixin:
@@ -141,6 +245,9 @@ class ArgShiftMixin:
         if _finite(op._diff_lipschitz):
             self._diff_lipschitz = op._diff_lipschitz
 
+    def _expr(self):
+        return ("argshift", self._op)
+
     def apply(self, arr):
         return self._op.apply(arr + self._shift)
 
@@ -149,6 +256,9 @@ class ArgShiftMixin:
 
     def prox(self, arr, tau):
         return self._op.prox(arr + self._shift, tau) - self._shift
+
+    def jacobian(self, arr):
+        return self._op.jacobian(torch.as_tensor(arr) + self._shift)
 
     def estimate_lipschitz(self, **kw):
         self._lipschitz = self._op.estimate_lipschitz(**kw)
@@ -193,6 +303,9 @@ class AddMixin:
         if _finite(lhs._diff_lipschitz) and _finite(rhs._diff_lipschitz):
             self._diff_lipschitz = lhs._diff_lipschitz + rhs._diff_lipschitz
 
+    def _expr(self):
+        return ("add", self._lhs, self._rhs)
+
     def apply(self, arr):
         return self._lhs.apply(arr) + self._rhs.apply(arr)
 
@@ -212,6 +325,12 @@ class AddMixin:
             raise NotImplementedError
         return f.prox(arr - tau * lin.grad(arr), tau)
 
+    def jacobian(self, arr):
+        if self.has(P.LINEAR):
+            return self
+        arr = torch.as_tensor(arr)
+        return add(self._lhs.jacobian(arr), self._rhs.jacobian(arr))
+
     def estimate_lipschitz(self, **kw):
         if self.has(P.LINEAR):      # tight estimate on the composite
             self._lipschitz = LinOp.estimate_lipschitz(self, **kw)
@@ -224,6 +343,13 @@ class AddMixin:
         self._diff_lipschitz = (self._lhs.estimate_diff_lipschitz(**kw)
                                 + self._rhs.estimate_diff_lipschitz(**kw))
         return self._diff_lipschitz
+
+    def trace(self, **kw):
+        return self._lhs.trace(**kw) + self._rhs.trace(**kw)
+
+    def asarray(self, dtype=None, device=None):
+        return (self._lhs.asarray(dtype=dtype, device=device)
+                + self._rhs.asarray(dtype=dtype, device=device))
 
 
 def _add_properties(lhs: Operator, rhs: Operator) -> frozenset:
@@ -300,6 +426,9 @@ class ChainMixin:
                 and _finite(rhs._diff_lipschitz):
             self._diff_lipschitz = lhs._lipschitz * rhs._diff_lipschitz
 
+    def _expr(self):
+        return ("compose", self._lhs, self._rhs)
+
     def apply(self, arr):
         return self._lhs.apply(self._rhs.apply(arr))
 
@@ -324,9 +453,20 @@ class ChainMixin:
         return _autograd_grad(self, arr)
 
     def prox(self, arr, tau):
+        # prox_{f o U}(x) = U^T prox_f(U x) for unitary U
+        if self._lhs.has(P.PROXIMABLE) and self._rhs.has(P.LINEAR_UNITARY):
+            return self._rhs.adjoint(self._lhs.prox(self._rhs.apply(arr),
+                                                    tau))
         if self.has(P.LINEAR, P.FUNCTIONAL):
             return LinFunc.prox(self, arr, tau)
         raise NotImplementedError
+
+    def jacobian(self, arr):
+        if self.has(P.LINEAR):
+            return self
+        arr = torch.as_tensor(arr)
+        return compose(self._lhs.jacobian(self._rhs.apply(arr)),
+                       self._rhs.jacobian(arr))
 
     def estimate_lipschitz(self, **kw):
         if self.has(P.LINEAR):
@@ -351,6 +491,14 @@ class ChainMixin:
             dL = _math.inf
         self._diff_lipschitz = dL
         return dL
+
+    def asarray(self, dtype=None, device=None):
+        lhs, rhs = self._lhs, self._rhs
+        L = lhs.asarray(dtype=dtype, device=device).reshape(lhs.codim_size,
+                                                            lhs.dim_size)
+        R = rhs.asarray(dtype=dtype, device=device).reshape(rhs.codim_size,
+                                                            rhs.dim_size)
+        return (L @ R).reshape(self.codim_shape + self.dim_shape)
 
 
 def _chain_properties(lhs: Operator, rhs: Operator) -> frozenset:
@@ -417,6 +565,28 @@ def _homothety_cst(Q: Operator):
     return None
 
 
+# ===================================================================== power =
+
+def power(op: Operator, k: int) -> Operator:
+    """op**k for a square operator; ``k = 0`` gives the identity.  The
+    normal, unitary, self-adjoint and positive-definite properties survive
+    (a cast restores what the chain of compositions lost)."""
+    assert op.has(P.LINEAR_SQUARE) or op.dim_shape == op.codim_shape
+    from pyxu_tpu_torch.operator.linop.base import IdentityOp
+    if k == 0:
+        return IdentityOp(op.dim_shape)
+    out = op
+    for _ in range(k - 1):
+        out = compose(out, op)
+    keep = op.properties() & {P.LINEAR_NORMAL, P.LINEAR_UNITARY,
+                              P.LINEAR_SELF_ADJOINT,
+                              P.LINEAR_POSITIVE_DEFINITE}
+    want = frozenset(out.properties() | keep)
+    if want != out.properties():
+        out = cast_op(out, infer_operator_class(want))
+    return out
+
+
 # ================================================================= transpose =
 
 class TransposeMixin:
@@ -430,6 +600,9 @@ class TransposeMixin:
             self._lipschitz = op._lipschitz
         self._diff_lipschitz = 0.0
 
+    def _expr(self):
+        return ("transpose", self._op)
+
     def apply(self, arr):
         return self._op.adjoint(arr)
 
@@ -439,6 +612,18 @@ class TransposeMixin:
     def estimate_lipschitz(self, **kw):
         self._lipschitz = self._op.estimate_lipschitz(**kw)
         return self._lipschitz
+
+    def svdvals(self, k: int = 1, **kw):
+        return self._op.svdvals(k=k, **kw)
+
+    def trace(self, **kw):
+        return self._op.trace(**kw)
+
+    def asarray(self, dtype=None, device=None):
+        op = self._op
+        A = op.asarray(dtype=dtype, device=device).reshape(op.codim_size,
+                                                           op.dim_size)
+        return A.T.reshape(self.codim_shape + self.dim_shape)
 
 
 def transpose(op: Operator) -> Operator:
@@ -470,6 +655,9 @@ class CastMixin:
             self._lipschitz = op._lipschitz
         if _finite(op._diff_lipschitz):
             self._diff_lipschitz = op._diff_lipschitz
+
+    def _expr(self):
+        return ("cast", self._op)
 
     def apply(self, arr):
         out = self._op.apply(arr)

@@ -6,7 +6,8 @@ The class tower and property sets follow ``pyxu_tpu``::
      │       │                                  │                LinFunc
      └── DiffMap ── DiffFunc ───────────────────┘
            │
-           └── LinOp ── SquareOp ── NormalOp ── SelfAdjointOp ── PosDefOp
+           └── LinOp ── SquareOp ── NormalOp ── UnitOp / SelfAdjointOp ── PosDefOp
+                           └── ProjOp ── OrthProjOp
 
 Operators are plain Python objects holding tensors (or host taps); their
 methods are functions of ``(self, tensor)`` that run on the tensor's
@@ -14,17 +15,24 @@ device.  Shapes are multi-dimensional: ``dim_shape``/``codim_shape`` are
 tuples and functionals have ``codim_shape == ()``; leading batch axes are
 allowed.  A generic ``LinOp.adjoint`` comes from autograd (the vector-
 Jacobian product of the linear ``apply``); the operators of the TV path
-override it with closed forms.
+override it with closed forms.  ``DiffMap.jacobian`` linearises ``apply``
+with ``torch.func.jvp``/``vjp``; the CUDA kernel wrappers have no
+autograd rule, so a transform that reaches one on a CUDA tensor raises
+(the rules compose their parts' Jacobians, so a linear part such as a
+Stencil is applied as itself, never differentiated).
 """
 
 from __future__ import annotations
 
 import enum
+import functools
 import math as _math
 
 import numpy as np
 import torch
 
+from pyxu_tpu_torch.info.dtypes import default_fdtype
+from pyxu_tpu_torch.runtime import resolve_device
 from pyxu_tpu_torch.utils.misc import as_canonical_shape
 
 __all__ = [
@@ -41,8 +49,11 @@ __all__ = [
     "LinFunc",
     "SquareOp",
     "NormalOp",
+    "UnitOp",
     "SelfAdjointOp",
     "PosDefOp",
+    "ProjOp",
+    "OrthProjOp",
     "core_operators",
     "infer_operator_class",
 ]
@@ -132,6 +143,34 @@ class Operator:
         from pyxu_tpu_torch.abc.arithmetic import cast_op
         return cast_op(self, cast_to)
 
+    def squeeze(self) -> "Operator":
+        """Specialise a codim-1 operator to its functional class:
+        Map -> Func, DiffMap -> DiffFunc, LinOp -> LinFunc."""
+        if self.codim_shape == () or self.codim_size != 1:
+            return self
+        if self.has(Property.LINEAR):
+            cls = LinFunc
+        elif self.has(Property.DIFFERENTIABLE):
+            cls = DiffFunc
+        else:
+            cls = Func
+        return self.asop(cls)
+
+    def _expr(self) -> tuple:
+        """(head, *children) for expression-tree printing."""
+        return (self._name,)
+
+    def expr(self, level: int = 0, strip: bool = True) -> str:
+        """The expression tree, one node a line, children indented."""
+        head, *tail = self._expr()
+        lines = ["  " * level + str(head)]
+        for t in tail:
+            if isinstance(t, Operator):
+                lines.append(t.expr(level + 1, strip=False))
+            else:
+                lines.append("  " * (level + 1) + str(t))
+        return "\n".join(lines)
+
     def __repr__(self) -> str:
         return f"{self._name}(dim={self.dim_shape}, codim={self.codim_shape})"
 
@@ -165,6 +204,22 @@ class Operator:
         if isinstance(other, (int, float, np.integer, np.floating)):
             return arithmetic.scale(self, float(other))
         return NotImplemented
+
+    def __truediv__(self, other):
+        from pyxu_tpu_torch.abc import arithmetic
+        if isinstance(other, (int, float, np.integer, np.floating)):
+            return arithmetic.scale(self, 1.0 / float(other))
+        return NotImplemented
+
+    def __pow__(self, k):
+        from pyxu_tpu_torch.abc import arithmetic
+        if isinstance(k, (int, np.integer)) and k >= 0:
+            return arithmetic.power(self, int(k))
+        return NotImplemented
+
+    def argscale(self, scalar) -> "Operator":
+        from pyxu_tpu_torch.abc import arithmetic
+        return arithmetic.argscale(self, float(scalar))
 
     def argshift(self, shift) -> "Operator":
         from pyxu_tpu_torch.abc import arithmetic
@@ -240,6 +295,10 @@ class DiffMap(Map):
     def properties(cls) -> frozenset:
         return Map.properties() | {Property.DIFFERENTIABLE}
 
+    def jacobian(self, arr) -> "LinOp":
+        """Jacobian at ``arr`` (unbatched), by ``torch.func.jvp``/``vjp``."""
+        return _JacobianOp(self, torch.as_tensor(arr))
+
     @property
     def diff_lipschitz(self) -> float:
         return self._diff_lipschitz
@@ -286,6 +345,10 @@ class ProxFunc(Func):
         r"""prox of the convex conjugate, by Moreau's identity:
         prox_{sigma f*}(x) = x - sigma prox_{f/sigma}(x/sigma)."""
         return arr - sigma * self.prox(arr / sigma, 1.0 / sigma)
+
+    def moreau_envelope(self, mu: float) -> "DiffFunc":
+        """Moreau-Yosida smoothing of parameter ``mu``."""
+        return _MoreauEnvelope(self, float(mu))
 
 
 class ProxDiffFunc(ProxFunc, DiffFunc):
@@ -375,6 +438,9 @@ class LinOp(DiffMap):
             (g,) = torch.autograd.grad(self.apply(x), x, grad_outputs=arr)
         return g
 
+    def jacobian(self, arr) -> "LinOp":
+        return self
+
     @property
     def T(self) -> "LinOp":
         from pyxu_tpu_torch.abc import arithmetic
@@ -419,6 +485,86 @@ class LinOp(DiffMap):
         """A A^T."""
         return _GramOp(self, cogram=True)
 
+    def asarray(self, dtype=None, device=None) -> torch.Tensor:
+        """The dense ``(*codim_shape, *dim_shape)`` matrix, by one batched
+        apply of the basis (small operators only: tests, explicit solves).
+        ``device`` is resolved as every entry point resolves it."""
+        dt = default_fdtype() if dtype is None else dtype
+        n = self.dim_size
+        basis = torch.eye(n, dtype=dt, device=resolve_device(device))
+        with torch.no_grad():
+            cols = self.apply(basis.reshape((n,) + self.dim_shape))
+        mat = cols.reshape(n, self.codim_size).T
+        return mat.reshape(self.codim_shape + self.dim_shape)
+
+    def pinv(self, arr, damp: float = 0.0, kwargs_init=None, **kwargs):
+        """Moore-Penrose pseudo-inverse applied to ``arr``: CG
+        (:func:`pyxu_tpu_torch.math.cg.cg_solve`) on the damped normal
+        equations ``(A^T A + damp I) x = A^T arr``.  ``rtol`` defaults to
+        ``max(100 eps(dtype), 1e-6)``, ``maxiter`` to ``min(max(2
+        dim_size, 20), 1000)``; ``kwargs_init["x0"]`` warm-starts CG."""
+        from pyxu_tpu_torch.math.cg import cg_solve
+        b = self.adjoint(arr)
+        damp = float(damp)
+        gram = self.gram()
+        unknown = set(kwargs) - {"rtol", "maxiter"}
+        assert not unknown, f"unknown pinv kwargs: {unknown}"
+        rtol = kwargs.get("rtol")
+        if rtol is None:
+            rtol = max(100.0 * torch.finfo(b.dtype).eps, 1e-6)
+        maxiter = kwargs.get("maxiter")
+        if maxiter is None:
+            maxiter = min(max(2 * self.dim_size, 20), 1000)
+        x0 = (kwargs_init or {}).get("x0")
+        return cg_solve(lambda x: gram.apply(x) + damp * x, b, x0=x0,
+                        rtol=rtol, maxiter=maxiter)
+
+    def dagger(self, damp: float = 0.0, **kwargs) -> "LinOp":
+        """The pseudo-inverse as a LinOp."""
+        return _DaggerOp(self, float(damp))
+
+    @classmethod
+    def from_array(cls, A, dim_rank: int = 1, device=None) -> "LinOp":
+        """Wrap a dense matrix ``(*codim_shape, *dim_shape)`` as an
+        :class:`~pyxu_tpu_torch.operator.linop.base.ExplicitLinOp` (a
+        tensor keeps its device; a host array goes to ``device``).  Sparse
+        matrices raise: their operator is not ported yet."""
+        from pyxu_tpu_torch.operator.linop.base import (ExplicitLinOp,
+                                                        _is_sparse)
+        if _is_sparse(A):
+            raise NotImplementedError(
+                "sparse matrices: SparseExplicitLinOp is not ported yet "
+                "(ROADMAP.md, Queue 1 item 4)")
+        return ExplicitLinOp(A, dim_rank=dim_rank, device=device)
+
+    def to_sciop(self, dtype=None, device=None):
+        """A ``scipy.sparse.linalg.LinearOperator`` on flattened vectors
+        (host arrays in and out; the applies run on ``device``)."""
+        import scipy.sparse.linalg as spl
+        dt = default_fdtype() if dtype is None else dtype
+        dev = resolve_device(device)
+        np_dt = torch.empty(0, dtype=dt).numpy().dtype
+
+        def run(fn, v, shape):
+            x = torch.from_numpy(np.ascontiguousarray(v, dtype=np_dt))
+            with torch.no_grad():
+                y = fn(x.reshape(shape).to(dev))
+            return y.cpu().numpy()
+
+        def mv(v):
+            return run(self.apply, v, self.dim_shape).ravel()
+
+        def rmv(v):
+            return run(self.adjoint, v, self.codim_shape).ravel()
+
+        def mm(V):
+            Y = run(self.apply, np.asarray(V).T, (-1,) + self.dim_shape)
+            return Y.reshape(V.shape[1], -1).T
+
+        return spl.LinearOperator(shape=(self.codim_size, self.dim_size),
+                                  dtype=np_dt, matvec=mv, rmatvec=rmv,
+                                  matmat=mm)
+
 
 class SquareOp(LinOp):
     """Endomorphism: dim_shape == codim_shape."""
@@ -450,6 +596,38 @@ class NormalOp(SquareOp):
         return SquareOp.properties() | {Property.LINEAR_NORMAL}
 
 
+class UnitOp(NormalOp):
+    """A A^T = A^T A = I."""
+
+    @classmethod
+    def properties(cls) -> frozenset:
+        return NormalOp.properties() | {Property.LINEAR_UNITARY}
+
+    def __init__(self, dim_shape, codim_shape=None):
+        super().__init__(dim_shape, codim_shape)
+        self._lipschitz = 1.0
+
+    def estimate_lipschitz(self, **kwargs) -> float:
+        return 1.0
+
+    def pinv(self, arr, damp: float = 0.0, **kwargs):
+        out = self.adjoint(arr)
+        if damp != 0.0:
+            out = out / (1.0 + damp)
+        return out
+
+    def dagger(self, damp: float = 0.0, **kwargs) -> "LinOp":
+        from pyxu_tpu_torch.abc import arithmetic
+        op = arithmetic.transpose(self)
+        if damp != 0.0:
+            op = arithmetic.scale(op, 1.0 / (1.0 + damp))
+        return op
+
+    def svdvals(self, k: int = 1, dtype=None, device=None, **kwargs):
+        return torch.ones(k, dtype=dtype or default_fdtype(),
+                          device=resolve_device(device))
+
+
 class SelfAdjointOp(NormalOp):
     """A = A^T."""
 
@@ -467,6 +645,46 @@ class PosDefOp(SelfAdjointOp):
     @classmethod
     def properties(cls) -> frozenset:
         return SelfAdjointOp.properties() | {Property.LINEAR_POSITIVE_DEFINITE}
+
+
+class ProjOp(SquareOp):
+    """A^2 = A."""
+
+    @classmethod
+    def properties(cls) -> frozenset:
+        return SquareOp.properties() | {Property.LINEAR_IDEMPOTENT}
+
+
+class OrthProjOp(ProjOp, SelfAdjointOp):
+    """A^2 = A = A^T."""
+
+    @classmethod
+    def properties(cls) -> frozenset:
+        return ProjOp.properties() | SelfAdjointOp.properties()
+
+    def __init__(self, dim_shape, codim_shape=None):
+        super().__init__(dim_shape, codim_shape)
+        self._lipschitz = 1.0
+
+    def estimate_lipschitz(self, **kwargs) -> float:
+        return 1.0
+
+    def gram(self):
+        return self
+
+    def cogram(self):
+        return self
+
+    def pinv(self, arr, damp: float = 0.0, **kwargs):
+        out = self.apply(arr)
+        if damp != 0.0:
+            out = out / (1.0 + damp)
+        return out
+
+    def dagger(self, damp: float = 0.0, **kwargs) -> "LinOp":
+        from pyxu_tpu_torch.abc import arithmetic
+        return arithmetic.scale(self, 1.0 / (1.0 + damp)) if damp != 0.0 \
+            else self
 
 
 class LinFunc(ProxDiffFunc, LinOp):
@@ -500,6 +718,18 @@ class LinFunc(ProxDiffFunc, LinOp):
         self._lipschitz = float(torch.linalg.vector_norm(self._w(one)))
         return self._lipschitz
 
+    def svdvals(self, k: int = 1, dtype=None, device=None, **kwargs):
+        """The rank-1 spectrum ``||w||``, padded with zeros, ascending."""
+        out = torch.zeros(k, dtype=dtype or default_fdtype(),
+                          device=resolve_device(device))
+        out[-1] = self.estimate_lipschitz(dtype=dtype, device=device)
+        return out
+
+    def asarray(self, dtype=None, device=None):
+        one = torch.ones((), dtype=dtype or default_fdtype(),
+                         device=resolve_device(device))
+        return self.adjoint(one)
+
 
 class _GramOp(SelfAdjointOp):
     """A^T A (or, with ``cogram``, A A^T): self-adjoint composition
@@ -523,12 +753,107 @@ class _GramOp(SelfAdjointOp):
         self._lipschitz = L * L
         return self._lipschitz
 
+    def _expr(self):
+        return ("cogram" if self._cogram else "gram", self._op)
 
+
+class _JacobianOp(LinOp):
+    """The Jacobian of a DiffMap at a point (unbatched): ``apply`` is
+    ``torch.func.jvp`` of the map's ``apply``, ``adjoint`` its ``vjp``.  A
+    batch of tangents is linearised at the point repeated along the batch
+    (the map's ``apply`` takes batches; its samples are independent)."""
+
+    def __init__(self, op: DiffMap, at: torch.Tensor):
+        super().__init__(op.dim_shape, op.codim_shape)
+        self._op = op
+        self._at = at
+        self._name = f"Jacobian[{op.name}]"
+
+    def _primal(self, n: int, like: torch.Tensor) -> torch.Tensor:
+        at = self._at.to(dtype=like.dtype, device=like.device)
+        return at.expand((n,) + tuple(at.shape)).contiguous()
+
+    def apply(self, arr):
+        def fn(v):
+            _, jv = torch.func.jvp(self._op.apply, (self._primal(len(v), v),),
+                                   (v,))
+            return jv
+        return self._map_batched(fn, arr, self.dim_rank, self.codim_shape)
+
+    def adjoint(self, arr):
+        def fn(w):
+            _, vjp = torch.func.vjp(self._op.apply, self._primal(len(w), w))
+            (x,) = vjp(w)
+            return x
+        return self._map_batched(fn, arr, self.codim_rank, self.dim_shape)
+
+    def _expr(self):
+        return ("jacobian", self._op)
+
+
+class _MoreauEnvelope(DiffFunc):
+    r"""f^mu(x) = min_y f(y) + ||x - y||^2 / (2 mu); grad = (x - prox_{mu
+    f}(x)) / mu, diff-Lipschitz 1/mu."""
+
+    def __init__(self, func: ProxFunc, mu: float):
+        assert mu > 0
+        super().__init__(func.dim_shape)
+        self._func = func
+        self._mu = mu
+        self._diff_lipschitz = 1.0 / mu
+        self._name = f"MoreauEnvelope[{func.name}]"
+
+    def apply(self, arr):
+        p = self._func.prox(arr, self._mu)
+        return self._func.apply(p) + _sum_core(
+            (arr - p) ** 2, self.dim_rank) / (2 * self._mu)
+
+    def grad(self, arr):
+        return (arr - self._func.prox(arr, self._mu)) / self._mu
+
+    def _expr(self):
+        return (f"moreau_envelope[mu={self._mu}]", self._func)
+
+
+class _DaggerOp(LinOp):
+    """The Moore-Penrose pseudo-inverse of ``op`` as an operator: ``apply``
+    is ``op.pinv``, ``adjoint`` the transpose's ``pinv``.  Each sample of a
+    batch is solved on its own, as the JAX package's vmap does."""
+
+    def __init__(self, op: LinOp, damp: float):
+        super().__init__(op.codim_shape, op.dim_shape)
+        self._op = op
+        self._damp = damp
+        self._name = f"Dagger[{op.name}]"
+
+    def _each(self, fn, arr, rank):
+        if arr.ndim == rank:
+            return fn(arr)
+        batch = arr.shape[: arr.ndim - rank]
+        flat = arr.reshape((-1,) + tuple(arr.shape[arr.ndim - rank:]))
+        out = torch.stack([fn(a) for a in flat])
+        return out.reshape(batch + tuple(out.shape[1:]))
+
+    def apply(self, arr):
+        return self._each(lambda y: self._op.pinv(y, damp=self._damp), arr,
+                          self.dim_rank)
+
+    def adjoint(self, arr):
+        from pyxu_tpu_torch.abc import arithmetic
+        opT = arithmetic.transpose(self._op)
+        return self._each(lambda x: opT.pinv(x, damp=self._damp), arr,
+                          self.codim_rank)
+
+    def _expr(self):
+        return (f"dagger[damp={self._damp}]", self._op)
+
+
+@functools.cache
 def core_operators() -> tuple:
-    """The core classes of the port's tower."""
+    """The 16 core classes of the tower."""
     return (Map, Func, DiffMap, DiffFunc, ProxFunc, ProxDiffFunc,
-            QuadraticFunc, LinOp, LinFunc, SquareOp, NormalOp, SelfAdjointOp,
-            PosDefOp)
+            QuadraticFunc, LinOp, LinFunc, SquareOp, NormalOp, UnitOp,
+            SelfAdjointOp, PosDefOp, ProjOp, OrthProjOp)
 
 
 def infer_operator_class(properties: frozenset) -> type:

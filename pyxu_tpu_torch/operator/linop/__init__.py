@@ -1,5 +1,7 @@
 from pyxu_tpu_torch.operator.linop.base import (  # noqa: F401
+    DiagonalOp,
     ExplicitLinFunc,
+    ExplicitLinOp,
     HomothetyOp,
     IdentityOp,
     NullFunc,

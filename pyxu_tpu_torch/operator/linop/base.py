@@ -1,32 +1,63 @@
 """Elementary linear operators (counterpart of ``pyxu_tpu/operator/linop/base.py``).
 
-Ported: IdentityOp, NullOp, NullFunc, HomothetyOp and ExplicitLinFunc — the
-operators the rule engine creates on the TV path.  DiagonalOp,
-ExplicitLinOp and SparseExplicitLinOp are not ported yet.
+IdentityOp, NullOp, NullFunc, HomothetyOp, DiagonalOp, ExplicitLinOp and
+ExplicitLinFunc, with their closed-form ``svdvals``/``trace``/``pinv``/
+``asarray``.  SparseExplicitLinOp is not ported yet (ROADMAP.md, Queue 1
+item 4): ``LinOp.from_array`` raises on a sparse matrix.
+
+Where an operator is built from a host array it goes to ``device``,
+resolved as every entry point resolves it (``cuda`` unless asked); a
+tensor keeps its own device.  Methods that build a result from nothing
+(``svdvals``, ``asarray``) take ``dtype`` and ``device`` the same way.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pyxu_tpu_torch.abc.operator import (
     LinFunc,
     LinOp,
+    OrthProjOp,
     PosDefOp,
     SelfAdjointOp,
 )
+from pyxu_tpu_torch.info.dtypes import default_fdtype
+from pyxu_tpu_torch.runtime import resolve_device
+from pyxu_tpu_torch.utils.misc import as_canonical_shape
 
 __all__ = [
     "IdentityOp",
     "NullOp",
     "NullFunc",
     "HomothetyOp",
+    "DiagonalOp",
+    "ExplicitLinOp",
     "ExplicitLinFunc",
 ]
 
 
-class IdentityOp(PosDefOp):
-    """x -> x."""
+def _eye(op, cst, dtype, device):
+    """``cst`` times the identity as a dense ``(*codim, *dim)`` tensor."""
+    dt = default_fdtype() if dtype is None else dtype
+    eye = torch.eye(op.dim_size, dtype=dt, device=resolve_device(device))
+    return (cst * eye).reshape(op.codim_shape + op.dim_shape)
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """``arr`` as a tensor: a tensor stays where it is (unless ``device`` is
+    given); a host array goes to ``device``."""
+    if isinstance(arr, torch.Tensor):
+        return arr if device is None else arr.to(device)
+    host = torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
+    return host.to(resolve_device(device))
+
+
+class IdentityOp(OrthProjOp):
+    """x -> x.  Also positive-definite and unitary; kept an ``OrthProjOp``
+    as in the JAX package, the strongest class whose API (``gram`` is
+    itself, ``pinv`` is ``apply``) fits."""
 
     def __init__(self, dim_shape):
         super().__init__(dim_shape)
@@ -38,8 +69,18 @@ class IdentityOp(PosDefOp):
     def adjoint(self, arr):
         return arr
 
-    def gram(self):
-        return self
+    def svdvals(self, k: int = 1, dtype=None, device=None, **kw):
+        return torch.ones(k, dtype=dtype or default_fdtype(),
+                          device=resolve_device(device))
+
+    def trace(self, **kw):
+        return float(self.dim_size)
+
+    def pinv(self, arr, damp: float = 0.0, **kw):
+        return arr / (1.0 + damp)
+
+    def asarray(self, dtype=None, device=None):
+        return _eye(self, 1.0, dtype, device)
 
 
 class NullOp(LinOp):
@@ -56,6 +97,18 @@ class NullOp(LinOp):
     def adjoint(self, arr):
         batch = arr.shape[: arr.ndim - self.codim_rank]
         return arr.new_zeros(batch + self.dim_shape)
+
+    def svdvals(self, k: int = 1, dtype=None, device=None, **kw):
+        return torch.zeros(k, dtype=dtype or default_fdtype(),
+                           device=resolve_device(device))
+
+    def estimate_lipschitz(self, **kw):
+        return 0.0
+
+    def asarray(self, dtype=None, device=None):
+        return torch.zeros(self.codim_shape + self.dim_shape,
+                           dtype=dtype or default_fdtype(),
+                           device=resolve_device(device))
 
 
 class NullFunc(LinFunc):
@@ -77,6 +130,9 @@ class NullFunc(LinFunc):
     def prox(self, arr, tau):
         return arr
 
+    def estimate_lipschitz(self, **kw):
+        return 0.0
+
 
 class HomothetyOp(SelfAdjointOp):
     """x -> cst * x; a ``PosDefOp`` when cst > 0."""
@@ -94,9 +150,143 @@ class HomothetyOp(SelfAdjointOp):
     def apply(self, arr):
         return self._cst * arr
 
+    def svdvals(self, k: int = 1, dtype=None, device=None, **kw):
+        return torch.full((k,), abs(self._cst),
+                          dtype=dtype or default_fdtype(),
+                          device=resolve_device(device))
+
+    def trace(self, **kw):
+        return self._cst * self.dim_size
+
+    def pinv(self, arr, damp: float = 0.0, **kw):
+        return self._cst / (self._cst ** 2 + damp) * arr
+
+    def estimate_lipschitz(self, **kw):
+        return abs(self._cst)
+
+    def asarray(self, dtype=None, device=None):
+        return _eye(self, self._cst, dtype, device)
+
+    def _expr(self):
+        return (f"Homothety[{self._cst}]",)
+
 
 class _PosDefHomothetyOp(HomothetyOp, PosDefOp):
     pass
+
+
+class DiagonalOp(SelfAdjointOp):
+    """x -> v * x; a ``PosDefOp`` when every v > 0 (one host read of the
+    check at construction, as the JAX package probes it)."""
+
+    def __new__(cls, vec, dim_shape=None, enable_warnings: bool = True,
+                device=None):
+        if cls is DiagonalOp:
+            v = _tensor(vec, device)
+            if v.numel() and bool((v > 0).all()):
+                return object.__new__(_PosDefDiagonalOp)
+        return object.__new__(cls)
+
+    def __init__(self, vec, dim_shape=None, enable_warnings: bool = True,
+                 device=None):
+        vec = _tensor(vec, device)
+        dim_shape = tuple(vec.shape) if dim_shape is None else \
+            as_canonical_shape(dim_shape)
+        super().__init__(dim_shape)
+        self._vec = vec.broadcast_to(dim_shape)
+        self._name = "DiagonalOp"
+
+    def apply(self, arr):
+        return self._vec * arr
+
+    def svdvals(self, k: int = 1, **kw):
+        """The top-k magnitudes, ascending."""
+        return torch.sort(torch.abs(self._vec).reshape(-1)).values[-k:]
+
+    def trace(self, **kw):
+        return float(torch.sum(self._vec))
+
+    def estimate_lipschitz(self, **kw):
+        self._lipschitz = float(torch.max(torch.abs(self._vec)))
+        return self._lipschitz
+
+    def pinv(self, arr, damp: float = 0.0, **kw):
+        scale = self._vec / (self._vec ** 2 + damp)
+        scale = torch.where(torch.isfinite(scale), scale, 0.0)
+        return scale * arr
+
+    def asarray(self, dtype=None, device=None):
+        v = self._vec.reshape(-1)
+        v = v.to(dtype=dtype or default_fdtype(), device=device or v.device)
+        return torch.diag(v).reshape(self.codim_shape + self.dim_shape)
+
+
+class _PosDefDiagonalOp(DiagonalOp, PosDefOp):
+    pass
+
+
+def _is_sparse(obj) -> bool:
+    """True for scipy.sparse matrices and sparse torch tensors."""
+    if isinstance(obj, torch.Tensor):
+        return obj.layout != torch.strided
+    try:
+        import scipy.sparse as sp
+    except ImportError:  # pragma: no cover
+        return False
+    return sp.issparse(obj)
+
+
+class ExplicitLinOp(LinOp):
+    """Dense-matrix operator: ``mat`` has shape ``(*codim_shape,
+    *dim_shape)`` with ``dim_rank`` trailing domain axes; apply and adjoint
+    are one matmul on the flattened matrix, in the input's dtype."""
+
+    def __init__(self, mat, dim_rank: int = 1, device=None):
+        if _is_sparse(mat):
+            raise TypeError("ExplicitLinOp is dense-only; sparse matrices "
+                            "wait for SparseExplicitLinOp (ROADMAP.md, "
+                            "Queue 1 item 4)")
+        mat = _tensor(mat, device)
+        super().__init__(tuple(mat.shape[mat.ndim - dim_rank:]),
+                         tuple(mat.shape[: mat.ndim - dim_rank]))
+        self._mat = mat
+        self._name = "ExplicitLinOp"
+
+    def _M(self, like):
+        return self._mat.reshape(self.codim_size, self.dim_size).to(
+            like.dtype)
+
+    def apply(self, arr):
+        batch = arr.shape[: arr.ndim - self.dim_rank]
+        x = arr.reshape(batch + (self.dim_size,))
+        return (x @ self._M(arr).T).reshape(batch + self.codim_shape)
+
+    def adjoint(self, arr):
+        batch = arr.shape[: arr.ndim - self.codim_rank]
+        y = arr.reshape(batch + (self.codim_size,))
+        return (y @ self._M(arr)).reshape(batch + self.dim_shape)
+
+    def asarray(self, dtype=None, device=None):
+        return self._mat.to(dtype=dtype or self._mat.dtype,
+                            device=device or self._mat.device)
+
+    def trace(self, **kw):
+        assert self.dim_size == self.codim_size
+        return float(torch.trace(self._mat.reshape(self.dim_size,
+                                                   self.dim_size)))
+
+    def estimate_lipschitz(self, method: str = "svd", **kw):
+        M = self._mat.reshape(self.codim_size, self.dim_size)
+        if method in ("svd", "power"):
+            self._lipschitz = float(torch.linalg.matrix_norm(M, ord=2))
+        else:
+            self._lipschitz = float(torch.linalg.matrix_norm(M))
+        return self._lipschitz
+
+    def svdvals(self, k: int = 1, **kw):
+        """The top-k singular values, ascending."""
+        M = self._mat.reshape(self.codim_size, self.dim_size)
+        return torch.flip(torch.linalg.svdvals(M)[:k], (0,))
 
 
 class ExplicitLinFunc(LinFunc):

@@ -124,6 +124,9 @@ class _StackedDiff(LinOp):
             out = t if out is None else out + t
         return out
 
+    def _expr(self):
+        return (self._name, *self._ops)
+
 
 def Gradient(dim_shape, directions=None, mode="constant", sampling=1.0,
              scheme="forward", accuracy=1):

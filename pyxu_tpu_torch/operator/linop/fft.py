@@ -87,6 +87,9 @@ class FFT(LinOp):
             return super().cogram()
         return HomothetyOp(self.codim_shape, float(self._N))
 
+    def _expr(self):
+        return (f"FFT[axes={self._axes}, real={self._real}]",)
+
     def pinv(self, arr, damp: float = 0.0, **kwargs):
         """``A^* arr / (N + damp)``."""
         return self.adjoint(arr) / (self._N + damp)

@@ -209,6 +209,10 @@ class Stencil(SquareOp):
             return tap * self.dim_size
         return super().trace(method=method, **kwargs)
 
+    def _expr(self):
+        ks = "x".join(str(tuple(k.shape)) for k in self._kernels)
+        return (f"Stencil[{self._mode}, kernels={ks}]",)
+
 
 Correlate = Stencil
 

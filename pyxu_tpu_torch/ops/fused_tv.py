@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from pyxu_tpu_torch.ops._build import compile_and_load
+from pyxu_tpu_torch.ops._guard import refuse_autodiff
 from pyxu_tpu_torch.ops.stencil import adj_axis, fwd_axis
 
 __all__ = [
@@ -286,6 +287,7 @@ def build() -> str:
 
 
 def _check(x, z, b, p: TVParams, n_steps: int):
+    refuse_autodiff("tv_step", x, z, b)
     ok_dt = (torch.float32, torch.bfloat16)
     if not (x.is_cuda and z.device == x.device and b.device == x.device):
         raise ValueError("x, z and b must lie on one CUDA device")

@@ -60,6 +60,7 @@ import math
 import torch
 
 from pyxu_tpu_torch.ops._build import compile_and_load
+from pyxu_tpu_torch.ops._guard import refuse_autodiff
 
 __all__ = [
     "Plan",
@@ -631,6 +632,7 @@ def build() -> str:
 
 
 def _check(a: torch.Tensor, plan: Plan, d: int, core: tuple):
+    refuse_autodiff(f"nufft ({d}-D)", a)
     _plain_check(a, plan, d)
     if not a.is_cuda:
         raise ValueError(f"input must lie on a CUDA device, not {a.device}")

@@ -34,6 +34,7 @@ import torch
 
 from pyxu_tpu_torch.operator.linop.pad import pad_axis, pad_axis_adjoint
 from pyxu_tpu_torch.ops._build import compile_and_load
+from pyxu_tpu_torch.ops._guard import refuse_autodiff
 
 __all__ = [
     "SepTaps",
@@ -223,6 +224,7 @@ def build() -> str:
 
 
 def _check(x, p: SepTaps):
+    refuse_autodiff("separable_correlate2d", x)
     if not x.is_cuda:
         raise ValueError(f"x must lie on a CUDA device, not {x.device}")
     if x.dtype not in _DTYPES:

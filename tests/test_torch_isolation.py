@@ -32,6 +32,8 @@ class _Block:
         if name.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, _Block())
+import torch
+torch.set_num_threads(1)     # the suite's workers share the machine's cores
 from pyxu_tpu_torch.models import tv_deconvolution
 from pyxu_tpu_torch.opt.stop import MaxIter
 slv, fit, _ = tv_deconvolution((32, 32), device="cpu", stop_rate=5)
@@ -101,6 +103,20 @@ for kw in ({}, {"chunked": True, "fft_mem_mb": 0.05}):
 A = NUFFT.type1(rng.uniform(-3, 3, 20), 8, device="cpu")
 assert A.kernel_path == "plain" and A.apply(torch.ones(20, 2)).shape == (8, 2)
 assert FFT((4, 6), real=True).apply(torch.ones(4, 6)).shape == (4, 6, 2)
+from pyxu_tpu_torch.sampler import MYULA, OnlineMoment, OnlineStd
+_, _, ex = lasso_deconvolution((32, 32), device="cpu")
+K, y = ex["K"], ex["y"]
+f = (0.5 / 0.01 ** 2) * SquaredL2Norm((32, 32)).asloss(y) * K
+chain = MYULA(f, (0.05 / 0.01 ** 2) * L1Norm((32, 32))).samples(
+    torch.zeros(32, 32), seed=0)
+mean, std = OnlineMoment(1), OnlineStd()
+for _ in range(20):
+    x = next(chain)
+    mean.update(x)
+    std.update(x)
+assert bool(mean.stat().isfinite().all()) and bool((std.stat() > 0).all())
+xs = K.pinv(y, damp=1e-2)
+assert torch.equal(K.dagger(1e-2).apply(y), xs)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu")]
 assert not bad, bad
 print("ok")
@@ -196,6 +212,17 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
     for slv in (NLCG(f), ProxAdam(f)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             slv.fit(x0=np.zeros(4, np.float32), max_iter=1)
+    from pyxu_tpu_torch.abc import LinOp
+    from pyxu_tpu_torch.sampler import MYULA, ULA
+    for smp in (ULA(f), MYULA(f)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            next(smp.samples(np.zeros(4, np.float32)))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            smp.run(np.zeros(4, np.float32), n=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LinOp.from_array(np.eye(4, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        f.argscale(2.0).jacobian(np.zeros(4, np.float32)).asarray()
 
 
 def test_tf32_off():

@@ -1448,3 +1448,68 @@ def test_sessions_on_the_card(cuda):
     assert not slv.busy() and not worker.is_alive()
     k = slv.stats()[1]["iteration"][-1]
     assert k > 0 and k % 10 == 0 and bool(slv.solution().isfinite().all())
+
+
+def _uq_posterior(shape, device):
+    """MYULA's deblurring posterior (``chip_smoke.py`` phase 14): workload
+    1's sparse image and blur, y = K x + 0.01 n, f = 0.5 ||K x - y||^2 /
+    0.01^2 and g = 0.05 ||x||_1 / 0.01^2."""
+    from pyxu_tpu_torch.models import lasso_deconvolution
+    from pyxu_tpu_torch.operator.func import L1Norm, SquaredL2Norm
+    rng = np.random.default_rng(0)
+    rng.random(shape)                       # the factory's x_true draw
+    n = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    _, _, ex = lasso_deconvolution(shape, device=device)
+    K = ex["K"]
+    y = ex["y"] + 0.01 * n.to(device)
+    f = (0.5 / 0.01 ** 2) * SquaredL2Norm(shape).asloss(y) * K
+    return f, (0.05 / 0.01 ** 2) * L1Norm(shape), K, y
+
+
+@pytest.mark.cuda
+def test_myula_64x48_card_matches_cpu(cuda):
+    """100 MYULA steps with the noise drawn on the CPU and fed to both
+    devices: within 2e-4 of max|x|; two stencil launches a step on the
+    card."""
+    from pyxu_tpu_torch.sampler import MYULA
+    shape = (64, 48)
+    chains = {}
+    for dev in ("cpu", cuda):
+        f, g, K, _ = _uq_posterior(shape, dev)
+        assert K.kernel_path == "kernel"
+        chains[str(dev)] = MYULA(f, g)
+    cpu, card = chains["cpu"], chains[str(cuda)]
+    assert (card.gamma, card.lamb) == (cpu.gamma, cpu.lamb)
+    gen = torch.Generator().manual_seed(0)
+    x = {"cpu": torch.zeros(shape), "card": torch.zeros(shape, device=cuda)}
+    card._update(x["card"], torch.zeros(shape, device=cuda))  # fills caches
+    n0 = st.separable_correlate2d.launches
+    for _ in range(100):
+        w = torch.randn(shape, generator=gen)
+        x["cpu"] = cpu._update(x["cpu"], w)
+        x["card"] = card._update(x["card"], w.to(cuda))
+    assert st.separable_correlate2d.launches - n0 == 2 * 100
+    diff = float((x["card"].cpu() - x["cpu"]).abs().max())
+    assert diff <= 2e-4 * float(x["cpu"].abs().max())
+
+
+@pytest.mark.cuda
+def test_pinv_64x48_card_matches_cpu(cuda):
+    """Tikhonov deblurring by ``K.pinv(y, damp=1e-2)``: the card against
+    the CPU within 2e-4 of max|x|, the dagger's same bits, and the
+    stencil's launches: 2 a CG iteration, 1 for K^T y, 2 for the initial
+    residual."""
+    from pyxu_tpu_torch.math.cg import CHECK_RATE
+    shape = (64, 48)
+    sols = {}
+    for dev in ("cpu", cuda):
+        _, _, K, y = _uq_posterior(shape, dev)
+        n0 = st.separable_correlate2d.launches
+        sols[str(dev)] = K.pinv(y, damp=1e-2)
+        n = st.separable_correlate2d.launches - n0
+        assert torch.equal(K.dagger(1e-2).apply(y), sols[str(dev)])
+    iters = (n - 3) // 2
+    assert n == 3 + 2 * iters and iters % CHECK_RATE == 0 and iters > 0
+    want = sols["cpu"]
+    diff = float((sols[str(cuda)].cpu() - want).abs().max())
+    assert diff <= 2e-4 * float(want.abs().max())

@@ -107,6 +107,7 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 import torch
+torch.set_num_threads(1)   # a first multi-threaded index_add_ can sum wrong
 import pyxu_tpu.operator.linop.nufft as jnu
 import pyxu_tpu_torch.operator.linop.nufft as tnu
 rng = np.random.default_rng(3)
