@@ -163,6 +163,37 @@ Phases:
    CPU.  The stencil's entry on the ``kernels`` line gains
    ``uq_launches`` and ``pinv_launches``; the JSON line
    ``myula_4k_it_per_s`` and ``pinv_4k_it_per_s``.
+15. Hessian-Frobenius deconvolution (``hf_phase``; Lefkimmiatis,
+   Bourquard & Unser, IEEE TIP 21(3), 2012, section III): at 2160x3840,
+   f32, the ``peaks`` surface clipped at 0 and normalised, workload 1's
+   9-tap sigma = 2 blur K (symmetric padding) with 1% noise from
+   ``numpy.random.default_rng(0)``, f = 0.5 ||Kx - y||^2, g the positive
+   orthant, L = vstack([Hessian (0, 0), sqrt(2) Hessian (0, 1), Hessian
+   (1, 1)]) (symmetric mode), h = 2e-3 ||.||_{2,1} over L's 3 channels, so
+   that h(Lx) is lam sum ||Hess x||_F; ``CondatVu(f=f, g=g, h=h, K=L)`` on
+   the generic path (``fused_path`` None), a warm fit and a timed fit of
+   300 iterations, ``stop_rate`` 100, with 8 stencil launches an iteration
+   asserted (3 partials forward, 3 adjoint, the blur's gram 2); it/s, an
+   iteration's device time, the stencil's part of it and the idle share;
+   x >= 0 and finite; the objective below its value at y and at max(y, 0);
+   the 64x48 form (30 iterations) card vs CPU within 2e-4 of max|x|.
+   Phase 2 holds the stencil kernel at the Hessian's three tap sets too
+   ([1, -2, 1] x [1], sqrt(2) [-1/2, 0, 1/2] x [-1/2, 0, 1/2], [1] x [1,
+   -2, 1]; apply and adjoint, both modes, f32 and f64, at 2160x3840,
+   ``[kernel] stencil hessian`` lines, each set's ``conv2d`` time).
+16. the rest of the operator library on the card (``library_phase``,
+   small and untimed): SubSample, Trim, Sum, kron, khatri_rao, stack,
+   hstack, block_diag (operators, and a separable sum's prox), coo_block,
+   Jacobian, Divergence, Laplacian, the four directional forms with a
+   per-pixel field, a Gaussian-derivative Gradient, the element-wise maps
+   and their Jacobians, Sobel(axis=None) and StructureTensor (apply and
+   Jacobian), each against the same operator on the CPU within 2e-4 of
+   max|y|; then SparseExplicitLinOp, the 5-point Laplacian of a 512^2
+   image as a scipy CSR matrix (1 308 672 nonzeros), apply and adjoint
+   against ``Laplacian(mode="constant")`` within 1e-5 of max|y|, its ms an
+   apply beside the dense operator's (cuSPARSE, no kernel row).  The
+   stencil's entry on the ``kernels`` line gains ``hf_launches`` and
+   ``hessian_taps``; the JSON line ``hf_4k_it_per_s``.
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -280,6 +311,16 @@ UQ_WARM, UQ_BURN, UQ_SAMPLES = 200, 500, 2000
 UQ_RUN_N, UQ_RUN_THIN, UQ_SAME_BITS = 16, 8, 20
 UQ_SMALL, UQ_SMALL_STEPS = (64, 48), 100
 UQ_DAMP = 1e-2
+# Hessian-Frobenius deconvolution (phase 15): the weight, the noise level,
+# the card-vs-CPU form; the Hessian's tap sets (name, k0, c0, k1, c1);
+# phase 16's operators' shape and the sparse Laplacian's side
+HF_LAM, HF_SIGMA = 2e-3, 0.01
+HF_SMALL, HF_SMALL_ITERS = (64, 48), 30
+HESS_TAPS = (("d00", (1.0, -2.0, 1.0), 1, (1.0,), 0),
+             ("d01", tuple(math.sqrt(2) * v for v in (-0.5, 0.0, 0.5)), 1,
+              (-0.5, 0.0, 0.5), 1),
+             ("d11", (1.0,), 0, (1.0, -2.0, 1.0), 1))
+LIB_SHAPE, SPARSE_N = (96, 80), 512
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
                                # takes to enqueue one timed run
 
@@ -526,6 +567,24 @@ def _st_variants(st, p, x, label, lib=None, plain_timed=True, verbose=True):
     return out
 
 
+def _conv2d_ms(st, x, p):
+    """One ``conv2d`` call (cuDNN, TF32 off) of the constant-mode apply of
+    taps ``p``: its ms and its max difference to the kernel."""
+    assert not torch.backends.cudnn.allow_tf32
+    w = torch.outer(torch.tensor(p.k0), torch.tensor(p.k1)).to(x)[None, None]
+    x4 = x[None, None]
+    pad = (max(p.c0, len(p.k0) - 1 - p.c0), max(p.c1, len(p.k1) - 1 - p.c1))
+
+    def lib_call():
+        return torch.nn.functional.conv2d(x4, w, padding=pad)
+    H, W = x.shape
+    r0, r1 = pad[0] - p.c0, pad[1] - p.c1
+    got = lib_call()[0, 0, r0:r0 + H, r1:r1 + W]
+    err = float((got - st.separable_correlate2d(
+        x, st.SepTaps(p.k0, p.c0, p.k1, p.c1, "constant"))).abs().max())
+    return _time_ms(lib_call), err
+
+
 def stencil_phase(st, p, x):
     """The stencil kernel against its plain version, apply and adjoint in
     both modes: at the workload's shape and taps in f32 (timed) and f64,
@@ -570,18 +629,29 @@ def stencil_phase(st, p, x):
               f" stream_blocks={plan['stream_blocks']} ms " + " ".join(
                   f"{k}={v:.4f}" for k, v in ms.items())
               + f" path_mix={mix:.4f}", flush=True)
-    assert not torch.backends.cudnn.allow_tf32
-    w = torch.outer(torch.tensor(p.k0), torch.tensor(p.k1)).to(x)[None, None]
-    x4 = x[None, None]
-
-    def lib_call():
-        return torch.nn.functional.conv2d(x4, w, padding=(p.c0, p.c1))
-    err = float((lib_call()[0, 0] - st.separable_correlate2d(
-        x, st.SepTaps(p.k0, p.c0, p.k1, p.c1, "constant"))).abs().max())
-    library_ms = _time_ms(lib_call)
+    library_ms, err = _conv2d_ms(st, x, p)
     print(f"[kernel] stencil conv2d library_ms={library_ms:.4f} "
           f"(max_abs_diff to the kernel {err:.3e})", flush=True)
     return out, out64, sweep, library_ms
+
+
+def hessian_taps_phase(st, x):
+    """The stencil kernel at the Hessian's three tap sets (``HESS_TAPS``)
+    against its plain version, apply and adjoint in both modes, f32 and
+    f64 at the frame's shape, and one ``conv2d`` at each set."""
+    out = {}
+    for name, k0, c0, k1, c1 in HESS_TAPS:
+        p = st.SepTaps(k0, c0, k1, c1)
+        rec = {"f32": _st_variants(st, p, x, f" hessian {name}"),
+               "f64": _st_variants(st, p, x.double(), f" hessian {name} f64")}
+        rec["bound_ms"], rec["bound_by"] = _st_bound(x.shape, p,
+                                                     x.element_size())
+        rec["library_ms"], err = _conv2d_ms(st, x, p)
+        print(f"[kernel] stencil hessian {name} conv2d library_ms="
+              f"{rec['library_ms']:.4f} (max_abs_diff to the kernel "
+              f"{err:.3e})", flush=True)
+        out[name] = rec
+    return out
 
 
 def _breakdown(st, slv, p, wall_ms, tag):
@@ -2272,6 +2342,239 @@ def uq_phase(st):
                 pinv_host_ms=p_host)
 
 
+def _hessian_problem(shape, device):
+    """The Hessian-Frobenius deconvolution of phase 15 from the public API:
+    the ``peaks`` surface on [-2.5, 2.5]^2 clipped at 0 and normalised (as
+    ``sparse_view_ct`` builds it), workload 1's 9-tap sigma = 2 blur K
+    (symmetric padding), y = K x + ``HF_SIGMA`` n with n drawn from
+    ``numpy.random.default_rng(0)``, f = 0.5 ||K x - y||^2, g the positive
+    orthant, L the Hessian's three partials with the cross one scaled by
+    sqrt(2), h = ``HF_LAM`` ||.||_{2,1} over L's channels.  Returns
+    ``(solver, f, g, h, L, K, y)``, the solver ``CondatVu(f, g, h, L)``."""
+    import numpy as np
+    from pyxu_tpu_torch.operator import (Hessian, L21Norm, PositiveOrthant,
+                                         SquaredL2Norm, Stencil, vstack)
+    from pyxu_tpu_torch.opt.solver import CondatVu
+    from pyxu_tpu_torch.utils.misc import peaks
+    H, W = shape
+    yy, xx = np.meshgrid(np.linspace(-2.5, 2.5, H),
+                         np.linspace(-2.5, 2.5, W), indexing="ij")
+    xt = torch.clamp(peaks(torch.from_numpy(xx), torch.from_numpy(yy)),
+                     min=0)
+    xt = (xt / xt.max()).to(device=device, dtype=torch.float32)
+    n = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    k = np.exp(-0.5 * ((np.arange(9) - 4) / 2.0) ** 2)
+    k = (k / k.sum()).astype(np.float32)
+    K = Stencil(shape, [k, k], [4, 4], mode="symmetric")
+    y = K.apply(xt) + HF_SIGMA * torch.from_numpy(n).to(device)
+    f = 0.5 * SquaredL2Norm(shape).asloss(y) * K
+    g = PositiveOrthant(shape)
+    L = vstack([Hessian(shape, directions=(0, 0), mode="symmetric"),
+                math.sqrt(2) * Hessian(shape, directions=(0, 1),
+                                       mode="symmetric"),
+                Hessian(shape, directions=(1, 1), mode="symmetric")])
+    h = HF_LAM * L21Norm((3,) + shape, l2_axis=0)
+    return CondatVu(f=f, g=g, h=h, K=L, stop_rate=STOP_RATE), f, g, h, L, K, y
+
+
+def hf_phase(st, MaxIter):
+    """Phase 15: 4K Hessian-Frobenius deconvolution by Condat-Vu on the
+    stencil kernel (see the module docstring)."""
+    from pyxu_tpu_torch.operator.linop import PartialDerivative
+    slv, f, g, h, L, K, y = _hessian_problem(SHAPE, "cuda")
+    parts = [PartialDerivative.finite_difference(
+        SHAPE, o, scheme="central", accuracy=2, mode="symmetric")
+        for o in ((2, 0), (1, 1), (0, 2))]
+    assert K.kernel_path == "kernel" and all(
+        q.kernel_path == "kernel" for q in parts)
+    slv.fit(x0=y, stop_crit=MaxIter(STOP_RATE), max_iter=STOP_RATE)  # warm
+    assert slv.fused_path is None, slv.fused_path
+    _reset([st.separable_correlate2d])
+    dt = _timed_fit(slv, PATH_ITERS, x0=y, stop_crit=MaxIter(PATH_ITERS),
+                    max_iter=PATH_ITERS)
+    launches = st.separable_correlate2d.launches
+    # L (3) and L^T (3), and K^T K (2) in f's gradient, an iteration
+    assert launches == 8 * PATH_ITERS, launches
+    xs = slv.solution()
+    assert xs.shape == SHAPE and bool(torch.isfinite(xs).all())
+    assert bool((xs >= 0).all())
+    obj_y = float(slv.objective_func({"x": y}))
+    obj_p = float(slv.objective_func({"x": torch.clamp(y, min=0)}))
+    obj = float(slv.objective_func(slv._mstate))
+    assert obj < obj_p and obj < obj_y, (obj, obj_p, obj_y)
+    rate = PATH_ITERS / dt
+    state = slv._mstate
+    with torch.no_grad():
+        dev_ms = _time_ms(lambda: slv.m_step(state), reps=10)
+        sten_ms = sum(_time_ms(lambda q=q, adj=adj: st.separable_correlate2d(
+            xs, q, adj)) for q in [K._taps] + [p._taps for p in parts]
+            for adj in (False, True))
+    host_ms = 1e3 * dt / PATH_ITERS
+    idle = 1 - dev_ms / host_ms
+    print(f"[hf] {SHAPE[0]}x{SHAPE[1]}: {PATH_ITERS} iterations in {dt:.4f} "
+          f"s: {rate:.2f} it/s; stencil launches {launches} (8 an "
+          f"iteration); objective {obj:.6e} (at y {obj_y:.6e}, at max(y, 0)"
+          f" {obj_p:.6e}); tau {slv._tau:.6e} sigma {slv._sigma:.6e}",
+          flush=True)
+    print(f"[breakdown] hf {SHAPE[0]}x{SHAPE[1]}: per iteration device "
+          f"{dev_ms:.4f} ms, stencil kernel {sten_ms:.4f} ms "
+          f"({sten_ms / dev_ms:.1%}), other kernels {dev_ms - sten_ms:.4f}"
+          f" ms; host {host_ms:.4f} ms, device idle {idle:.1%}", flush=True)
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        s, *_, ys = _hessian_problem(HF_SMALL, dev)
+        s.fit(x0=ys, stop_crit=MaxIter(HF_SMALL_ITERS),
+              max_iter=HF_SMALL_ITERS)
+        sols[dev] = s.solution().cpu()
+    diff = float((sols["cuda"] - sols["cpu"]).abs().max())
+    peak = float(sols["cpu"].abs().max())
+    print(f"[hf] {HF_SMALL[0]}x{HF_SMALL[1]}, {HF_SMALL_ITERS} iterations "
+          f"card vs CPU: max_abs_diff={diff:.3e}, {diff / peak:.3e} of "
+          f"max|x| (tol 2e-4)", flush=True)
+    assert diff <= 2e-4 * peak, (diff, peak)
+    return dict(rate=rate, launches=launches, device_ms=dev_ms,
+                stencil_ms=sten_ms, host_ms=host_ms, idle=idle,
+                objective=obj)
+
+
+def _library_ops(dev):
+    """Phase 16's operators on ``dev``: (name, operator, what to check),
+    the checks among apply, adjoint, prox and a Jacobian's apply and
+    adjoint."""
+    import numpy as np
+    import pyxu_tpu_torch.operator as O
+    from pyxu_tpu_torch.operator.map import ufunc
+    shape = LIB_SHAPE
+    rng = np.random.default_rng(9)
+    field = rng.standard_normal((2,) + shape).astype(np.float32)
+    field[0] += 2.0
+    A, B, C = (rng.standard_normal(s).astype(np.float32)
+               for s in ((12, 16), (10, 8), (10, 16)))
+    lin = ("apply", "adjoint")
+    ops = [
+        ("SubSample", O.SubSample(shape, slice(1, None, 3),
+                                  [0, 5, 5, 7, 79]), lin),
+        ("Trim", O.Trim(shape, ((2, 3), (1, 4))), lin),
+        ("Sum", O.Sum(shape, axis=0), lin),
+        ("kron", O.kron(O.ExplicitLinOp(A, device=dev),
+                        O.ExplicitLinOp(B, device=dev)), lin),
+        ("khatri_rao", O.khatri_rao(O.ExplicitLinOp(A, device=dev),
+                                    O.ExplicitLinOp(C, device=dev)), lin),
+        ("stack", O.stack([O.Laplacian(shape),
+                           O.Gaussian(shape, sigma=1.5, mode="symmetric")]),
+         lin),
+        ("hstack", O.hstack([O.Divergence((2,) + shape, mode="symmetric"),
+                             O.Gradient(shape).T]), lin),
+        ("block_diag", O.block_diag([O.Laplacian(shape),
+                                     O.Sobel(shape, axis=0)]), lin),
+        ("block_diag[funcs]", O.block_diag([O.L1Norm(shape),
+                                            O.SquaredL2Norm(shape)]),
+         ("apply", "prox")),
+        ("coo_block", O.coo_block(
+            {(0, 0): O.Laplacian(shape, mode="symmetric"),
+             (1, 1): O.ExplicitLinOp(A[:7], device=dev),
+             (1, 0): O.SubSample(shape, list(range(7)), 0)}, (2, 2)), lin),
+        ("Jacobian", O.Jacobian((2,) + shape, mode="symmetric"), lin),
+        ("Divergence", O.Divergence((2,) + shape, mode="symmetric"), lin),
+        ("Laplacian", O.Laplacian(shape, mode="constant"), lin),
+        ("DirectionalDerivative[1]", O.DirectionalDerivative(
+            shape, 1, field, mode="symmetric", device=dev), lin),
+        ("DirectionalDerivative[2]", O.DirectionalDerivative(
+            shape, 2, (field, field[::-1].copy()), device=dev), lin),
+        ("DirectionalGradient", O.DirectionalGradient(
+            shape, [field, (1.0, 0.0)], mode="symmetric", device=dev), lin),
+        ("DirectionalLaplacian", O.DirectionalLaplacian(
+            shape, [field, (1.0, 1.0)], weights=[0.5, 2.0], device=dev), lin),
+        ("DirectionalHessian", O.DirectionalHessian(
+            shape, [field, (0.0, 1.0)], mode="symmetric", device=dev), lin),
+        ("Gradient[gd]", O.Gradient(shape, diff_method="gd", sigma=1.0,
+                                    mode="symmetric"), lin),
+        ("Sobel[axis=None]", O.Sobel(shape, mode="symmetric"),
+         ("apply", "jacobian")),
+        ("StructureTensor", O.StructureTensor(shape, mode="symmetric"),
+         ("apply", "jacobian")),
+    ]
+    extra = {"LeakyReLU": (0.1,), "Clip": (-0.5, 0.7)}
+    for name in ("Sin", "Cos", "Tan", "ArcSin", "ArcCos", "ArcTan", "Sinh",
+                 "Cosh", "Tanh", "ArcSinh", "ArcCosh", "ArcTanh", "Exp",
+                 "Log", "Sqrt", "Cbrt", "Square", "Gaussian", "Sigmoid",
+                 "SoftPlus", "SiLU", "SoftMax", "Abs", "Sign", "ReLU",
+                 "LeakyReLU", "Clip"):
+        op = getattr(ufunc, name)(shape, *extra.get(name, ()))
+        diff = name not in ("Abs", "Sign", "ReLU", "LeakyReLU", "Clip")
+        ops.append((name, op, ("apply", "jacobian") if diff else ("apply",)))
+    return ops
+
+
+def _ufunc_domain(name, x):
+    """``x`` moved into the domain of the map ``name``."""
+    if name in ("Log", "Sqrt", "Cbrt"):
+        return x.abs() + 0.2
+    if name == "ArcCosh":
+        return x.abs() + 1.2
+    if name in ("ArcSin", "ArcCos", "ArcTanh", "Tan"):
+        return 0.3 * x.clamp(-1.5, 1.5)
+    return x
+
+
+def library_phase(st):
+    """Phase 16: each new operator on the card against the CPU, then
+    SparseExplicitLinOp against the dense Laplacian (see the module
+    docstring)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from pyxu_tpu_torch.operator import Laplacian, SparseExplicitLinOp
+    gen = torch.Generator().manual_seed(10)
+    worst = 0.0
+    pairs = list(zip(_library_ops("cuda"), _library_ops("cpu")))
+    for (name, op_c, checks), (_, op_h, _) in pairs:
+        x = _ufunc_domain(name, torch.randn((2,) + op_h.dim_shape,
+                                            generator=gen))
+        w = torch.randn((2,) + op_h.codim_shape, generator=gen)
+        v = torch.randn(op_h.dim_shape, generator=gen)
+        u = torch.randn(op_h.codim_shape, generator=gen)
+        runs = {"apply": lambda op, d: op.apply(x.to(d)),
+                "adjoint": lambda op, d: op.adjoint(w.to(d)),
+                "prox": lambda op, d: op.prox(x.to(d), 0.3),
+                "jacobian": lambda op, d: torch.cat([
+                    op.jacobian(x[0].to(d)).apply(v.to(d)).reshape(-1),
+                    op.jacobian(x[0].to(d)).adjoint(u.to(d)).reshape(-1)])}
+        for c in checks:
+            got, want = runs[c](op_c, "cuda").cpu(), runs[c](op_h, "cpu")
+            err = float((got - want).abs().max()) / max(
+                1.0, float(want.abs().max()))
+            worst = max(worst, err)
+            if err > 2e-4:
+                raise SystemExit(f"[lib] {name}.{c} card vs CPU: {err:.3e} "
+                                 "of max|y| (tol 2e-4)")
+    print(f"[lib] {len(pairs)} operators card vs CPU: worst "
+          f"{worst:.3e} of max(1, max|y|) (tol 2e-4)", flush=True)
+    # the 5-point Laplacian of a 512^2 image as a CSR matrix
+    N = SPARSE_N
+    d1 = sp.diags([1.0, -2.0, 1.0], [-1, 0, 1], shape=(N, N))
+    lap = (sp.kron(d1, sp.eye(N)) + sp.kron(sp.eye(N), d1)).tocsr()
+    S = SparseExplicitLinOp(lap, dim_shape=(N, N), codim_shape=(N, N),
+                            device="cuda")
+    D = Laplacian((N, N), mode="constant")
+    xg = torch.randn((N, N), generator=gen).cuda()
+    errs = []
+    for fs, fd in ((S.apply, D.apply), (S.adjoint, D.adjoint)):
+        want = fd(xg)
+        errs.append(float((fs(xg) - want).abs().max())
+                    / float(want.abs().max()))
+    sparse_ms = _time_ms(lambda: S.apply(xg))
+    dense_ms = _time_ms(lambda: D.apply(xg))
+    print(f"[lib] SparseExplicitLinOp {N}x{N} 5-point Laplacian "
+          f"({lap.nnz} nonzeros) vs Laplacian(constant): apply "
+          f"{errs[0]:.3e}, adjoint {errs[1]:.3e} of max|y| (tol 1e-5); "
+          f"apply {sparse_ms:.4f} ms (cuSPARSE) against {dense_ms:.4f} ms "
+          f"(the dense operator: 2 stencil launches and an add)",
+          flush=True)
+    assert max(errs) <= 1e-5, errs
+    return dict(worst=worst, sparse_ms=sparse_ms, dense_ms=dense_ms,
+                nnz=int(lap.nnz), sparse_err=max(errs))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2357,6 +2660,7 @@ def main() -> int:
           f"K={kstep or 1} (tiles {ft._TILES})", flush=True)
     st_recs, st_recs64, st_sweep, st_library_ms = stencil_phase(
         st, ex["K"]._taps, x)
+    hess_recs = hessian_taps_phase(st, x)
     _mark("kernel phase")
 
     # ---- phase 3: the TV path ------------------------------------------
@@ -2457,6 +2761,14 @@ def main() -> int:
     uq = uq_phase(st)
     _mark("MYULA and pinv phase")
 
+    # ---- phase 15: 4K Hessian-Frobenius deconvolution --------------------
+    hf = hf_phase(st, MaxIter)
+    _mark("Hessian-Frobenius phase")
+
+    # ---- phase 16: the rest of the operator library on the card ----------
+    lib = library_phase(st)
+    _mark("operator library phase")
+
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -2497,6 +2809,18 @@ def main() -> int:
         "uq": {k: uq[k] for k in ("stencil_ms", "step_ms", "device_ms",
                                   "idle", "pinv_device_ms", "pinv_host_ms",
                                   "pinv_iters")},
+        # phase 15: the timed Hessian-Frobenius fit's launches, and the
+        # kernel at the Hessian's tap sets (phase 2)
+        "hf_launches": hf["launches"],
+        "hf": {k: hf[k] for k in ("stencil_ms", "device_ms", "host_ms",
+                                  "idle")},
+        "hessian_taps": {
+            n: {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                **{w: {k: {f: v[f] for f in ("ms", "plain_ms",
+                                             "max_abs_err", "bound_ms")}
+                       for k, v in r[w].items()} for w in ("f32", "f64")}}
+            for n, r in hess_recs.items()},
     })
     # the RI 1024^2 path spreads twice on the Toeplitz grid and once (A^H y)
     # on A's; it interpolates once (y) on A's grid.  The MRI 128^3 path
@@ -2566,6 +2890,8 @@ def main() -> int:
                       "t3_sky_setup_s": t3["setup_s"],
                       "myula_4k_it_per_s": uq["rate"],
                       "pinv_4k_it_per_s": uq["pinv_rate"],
+                      "hf_4k_it_per_s": hf["rate"],
+                      "sparse_laplacian_512": lib,
                       "engine": engine}),
           flush=True)
     print(smi, flush=True)

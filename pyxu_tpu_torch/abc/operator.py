@@ -525,16 +525,16 @@ class LinOp(DiffMap):
 
     @classmethod
     def from_array(cls, A, dim_rank: int = 1, device=None) -> "LinOp":
-        """Wrap a dense matrix ``(*codim_shape, *dim_shape)`` as an
-        :class:`~pyxu_tpu_torch.operator.linop.base.ExplicitLinOp` (a
-        tensor keeps its device; a host array goes to ``device``).  Sparse
-        matrices raise: their operator is not ported yet."""
+        """Wrap a matrix ``(*codim_shape, *dim_shape)``: dense as an
+        :class:`~pyxu_tpu_torch.operator.linop.base.ExplicitLinOp`, a
+        ``scipy.sparse`` matrix or torch sparse tensor as a
+        :class:`~pyxu_tpu_torch.operator.linop.base.SparseExplicitLinOp`
+        (a tensor keeps its device; a host array goes to ``device``)."""
         from pyxu_tpu_torch.operator.linop.base import (ExplicitLinOp,
+                                                        SparseExplicitLinOp,
                                                         _is_sparse)
         if _is_sparse(A):
-            raise NotImplementedError(
-                "sparse matrices: SparseExplicitLinOp is not ported yet "
-                "(ROADMAP.md, Queue 1 item 4)")
+            return SparseExplicitLinOp(A, dim_rank=dim_rank, device=device)
         return ExplicitLinOp(A, dim_rank=dim_rank, device=device)
 
     def to_sciop(self, dtype=None, device=None):

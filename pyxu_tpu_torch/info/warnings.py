@@ -9,6 +9,7 @@ __all__ = [
     "NonTransparentWarning",
     "PerformanceWarning",
     "PrecisionWarning",
+    "ShardingWarning",
 ]
 
 
@@ -41,3 +42,8 @@ class PerformanceWarning(PyxuTpuWarning):
 
 class PrecisionWarning(PyxuTpuWarning):
     """Dtype/precision mismatch silently coerced."""
+
+
+class ShardingWarning(PyxuTpuWarning):
+    """A sharding annotation was dropped or a resharding forced a
+    collective."""

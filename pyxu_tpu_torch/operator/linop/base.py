@@ -1,9 +1,8 @@
 """Elementary linear operators (counterpart of ``pyxu_tpu/operator/linop/base.py``).
 
-IdentityOp, NullOp, NullFunc, HomothetyOp, DiagonalOp, ExplicitLinOp and
-ExplicitLinFunc, with their closed-form ``svdvals``/``trace``/``pinv``/
-``asarray``.  SparseExplicitLinOp is not ported yet (ROADMAP.md, Queue 1
-item 4): ``LinOp.from_array`` raises on a sparse matrix.
+IdentityOp, NullOp, NullFunc, HomothetyOp, DiagonalOp, ExplicitLinOp,
+SparseExplicitLinOp and ExplicitLinFunc, with their closed-form
+``svdvals``/``trace``/``pinv``/``asarray``.
 
 Where an operator is built from a host array it goes to ``device``,
 resolved as every entry point resolves it (``cuda`` unless asked); a
@@ -12,6 +11,8 @@ tensor keeps its own device.  Methods that build a result from nothing
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ __all__ = [
     "HomothetyOp",
     "DiagonalOp",
     "ExplicitLinOp",
+    "SparseExplicitLinOp",
     "ExplicitLinFunc",
 ]
 
@@ -243,9 +245,9 @@ class ExplicitLinOp(LinOp):
 
     def __init__(self, mat, dim_rank: int = 1, device=None):
         if _is_sparse(mat):
-            raise TypeError("ExplicitLinOp is dense-only; sparse matrices "
-                            "wait for SparseExplicitLinOp (ROADMAP.md, "
-                            "Queue 1 item 4)")
+            raise TypeError("ExplicitLinOp is dense-only: use "
+                            "SparseExplicitLinOp (or LinOp.from_array, "
+                            "which dispatches on the layout)")
         mat = _tensor(mat, device)
         super().__init__(tuple(mat.shape[mat.ndim - dim_rank:]),
                          tuple(mat.shape[: mat.ndim - dim_rank]))
@@ -289,6 +291,115 @@ class ExplicitLinOp(LinOp):
         return torch.flip(torch.linalg.svdvals(M)[:k], (0,))
 
 
+class SparseExplicitLinOp(LinOp):
+    """Sparse-matrix operator on torch's CSR layout.
+
+    ``mat`` is a ``scipy.sparse`` matrix or a 2-D torch sparse tensor (any
+    sparse layout) of shape ``(codim_size, dim_size)``; ``dim_shape`` and
+    ``codim_shape`` default to its columns and rows.  The matrix and its
+    transpose are both kept in CSR, so ``apply`` and ``adjoint`` are each
+    one sparse-times-dense product over the flattened batch (cuSPARSE on
+    the card).  Floating scipy data takes the current default width; a
+    torch tensor keeps its dtype and device, scipy data goes to ``device``.
+    Complex data, a hybrid or non-2-D layout raise ``TypeError``: complex
+    operators are pairs of real ones over the ``(..., 2)`` views.
+    """
+
+    def __init__(self, mat, dim_rank: int = 1, dim_shape=None,
+                 codim_shape=None, device=None):
+        if isinstance(mat, torch.Tensor):
+            if mat.layout == torch.strided:
+                raise TypeError("a dense tensor: use ExplicitLinOp")
+            if mat.ndim != 2 or mat.dense_dim() != 0:
+                raise TypeError(
+                    f"a sparse matrix must be 2-D with scalar entries, got "
+                    f"shape {tuple(mat.shape)} with {mat.dense_dim()} dense "
+                    "dimensions")
+            if mat.is_complex():
+                raise TypeError(_COMPLEX_SPARSE)
+            csr = mat.to_sparse_csr()
+            if device is not None:
+                csr = csr.to(device)
+        else:
+            try:
+                import scipy.sparse as sp
+            except ImportError:  # pragma: no cover
+                sp = None
+            if sp is None or not sp.issparse(mat):
+                raise TypeError(
+                    f"expected a scipy.sparse matrix or a torch sparse "
+                    f"tensor, got {type(mat).__name__} (dense arrays: "
+                    "ExplicitLinOp)")
+            m = sp.csr_matrix(mat)
+            if np.iscomplexobj(m.data):
+                raise TypeError(_COMPLEX_SPARSE)
+            m.sum_duplicates()
+            if m.data.dtype.kind == "f":
+                m = m.astype(torch.empty(0, dtype=default_fdtype())
+                             .numpy().dtype)
+            with warnings.catch_warnings():     # "CSR support is in beta"
+                warnings.simplefilter("ignore", UserWarning)
+                csr = torch.sparse_csr_tensor(
+                    torch.from_numpy(m.indptr.astype(np.int64)),
+                    torch.from_numpy(m.indices.astype(np.int64)),
+                    torch.from_numpy(m.data), size=m.shape,
+                    check_invariants=True).to(resolve_device(device))
+        full = tuple(csr.shape)
+        if dim_shape is None:
+            dim_shape = full[2 - dim_rank:]
+        if codim_shape is None:
+            codim_shape = full[:2 - dim_rank]
+        super().__init__(as_canonical_shape(dim_shape),
+                         as_canonical_shape(codim_shape))
+        if full != (self.codim_size, self.dim_size):
+            raise TypeError(f"matrix {full} for an operator of "
+                            f"{self.codim_shape} x {self.dim_shape}")
+        self._mat = csr
+        self._matT = csr.t().to_sparse_csr()
+        self._cast = {}         # (dtype, transposed) -> matrix in dtype
+        self._name = "SparseExplicitLinOp"
+
+    def _M(self, like, transposed: bool):
+        key = (like.dtype, transposed)
+        if key not in self._cast:
+            m = self._matT if transposed else self._mat
+            self._cast[key] = m if m.dtype == like.dtype else m.to(like.dtype)
+        return self._cast[key]
+
+    def _smv(self, arr, rank, n, out_shape, transposed):
+        batch = arr.shape[: arr.ndim - rank]
+        x = arr.reshape((-1, n)).T                      # (n, B)
+        y = self._M(arr, transposed) @ x.contiguous()   # (m, B)
+        return y.T.reshape(batch + out_shape)
+
+    def apply(self, arr):
+        return self._smv(arr, self.dim_rank, self.dim_size,
+                         self.codim_shape, False)
+
+    def adjoint(self, arr):
+        return self._smv(arr, self.codim_rank, self.codim_size,
+                         self.dim_shape, True)
+
+    def asarray(self, dtype=None, device=None):
+        dense = self._mat.to_dense().reshape(self.codim_shape
+                                             + self.dim_shape)
+        return dense.to(dtype=dtype or dense.dtype,
+                        device=device or dense.device)
+
+    def trace(self, **kw):
+        assert self.dim_size == self.codim_size
+        crow = self._mat.crow_indices().cpu().numpy()
+        col = self._mat.col_indices().cpu().numpy()
+        val = self._mat.values().cpu().numpy()
+        row = np.repeat(np.arange(len(crow) - 1), np.diff(crow))
+        return float(val[row == col].sum())
+
+
+_COMPLEX_SPARSE = ("complex sparse matrices are not supported: use the "
+                   "real (..., 2) view convention (utils.complex) and two "
+                   "real operators")
+
+
 class ExplicitLinFunc(LinFunc):
     """f(x) = <w, x> from an explicit vector (kept on its own device)."""
 
@@ -306,3 +417,7 @@ class ExplicitLinFunc(LinFunc):
 
     def adjoint(self, arr):
         return arr.reshape(arr.shape + (1,) * self.dim_rank) * self._w(arr)
+
+
+#: The dense-matrix operator under the name downstream code uses.
+_ExplicitLinOp = ExplicitLinOp

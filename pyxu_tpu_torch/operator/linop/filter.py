@@ -1,21 +1,27 @@
-"""Classic correlation filters (counterpart of
+"""Classic correlation filters and the structure tensor (counterpart of
 ``pyxu_tpu/operator/linop/filter.py``).
 
 Thin kernel factories over :class:`Stencil`, with float64 host taps (a
 Stencil applies them in its input's dtype); the separable ones reach the
 hand-written stencil kernel on the card when the Stencil's rule takes them
-(2-D, constant or symmetric mode).  Ported: MovingAverage, Gaussian,
-DifferenceOfGaussians (DoG), Laplace, and Sobel / Prewitt / Scharr with
-``axis`` given.  The ``axis=None`` gradient-magnitude form of the edge
-filters and StructureTensor wait for ``map/ufunc.py`` and the derivative
-stack.
+(2-D, constant or symmetric mode).  MovingAverage, Gaussian,
+DifferenceOfGaussians (DoG), Laplace; Sobel / Prewitt / Scharr along one
+``axis``, or with ``axis=None`` the gradient magnitude
+``sqrt(sum_i S_i(x)^2 / D)`` as a composed DiffMap; and StructureTensor,
+the Gaussian-smoothed outer product of the gradient, whose Jacobian is
+written out (the smoothed symmetrised product of the gradients at the
+point and of the tangent), so that it never differentiates a kernel.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import math as _math
 
-from pyxu_tpu_torch.operator.linop.diff import _gauss_deriv_kernel
+import numpy as np
+import torch
+
+from pyxu_tpu_torch.abc.operator import DiffMap, LinOp
+from pyxu_tpu_torch.operator.linop.diff import Gradient, _gauss_deriv_kernel
 from pyxu_tpu_torch.operator.linop.stencil import Stencil
 from pyxu_tpu_torch.utils.misc import as_canonical_shape
 
@@ -28,6 +34,7 @@ __all__ = [
     "Sobel",
     "Prewitt",
     "Scharr",
+    "StructureTensor",
 ]
 
 
@@ -116,23 +123,37 @@ def Laplace(dim_shape, mode="constant", sampling=1.0):
     return op
 
 
+def _edge_filter(dim_shape, axis, smooth, mode, sampling, name):
+    """The separable edge Stencil: the correlation derivative [-1, 0, 1]
+    along ``axis``, the smoothing taps along the others."""
+    D = len(dim_shape)
+    samps = _per_axis(sampling, D)
+    ks = [np.asarray([-1.0, 0.0, 1.0] if ax == axis else smooth)
+          / float(samps[ax]) for ax in range(D)]
+    return _stencil(dim_shape, ks, [1] * D, mode, name)
+
+
 def _edge_family(name, smooth):
     def factory(dim_shape, axis=None, mode="constant", sampling=1.0):
-        """Separable edge filter: the correlation derivative [-1, 0, 1]
-        along ``axis``, the smoothing taps along the others."""
+        """``axis`` given (or 1-D): the separable edge Stencil along it;
+        ``axis=None``: the gradient magnitude, the DiffMap
+        ``(1/sqrt(D)) sqrt(sum_i square(S_i))``."""
+        from pyxu_tpu_torch.operator.map.ufunc import sqrt, square
         dim_shape = as_canonical_shape(dim_shape)
         D = len(dim_shape)
-        if axis is None and D > 1:
-            raise NotImplementedError(
-                f"{name}(axis=None), the gradient magnitude, needs "
-                "map/ufunc.py, which is not ported yet: pass axis")
-        axis = 0 if axis is None else int(axis)
-        samps = _per_axis(sampling, D)
-        ks = [np.asarray([-1.0, 0.0, 1.0] if ax == axis else smooth)
-              / float(samps[ax]) for ax in range(D)]
-        return _stencil(dim_shape, ks, [1] * D, mode, name)
+        if axis is not None or D == 1:
+            return _edge_filter(dim_shape, 0 if axis is None else int(axis),
+                                smooth, mode, sampling, name)
+        op = None
+        for ax in range(D):
+            t = square(_edge_filter(dim_shape, ax, smooth, mode, sampling,
+                                    name))
+            op = t if op is None else op + t
+        op = (1.0 / _math.sqrt(D)) * sqrt(op)
+        op._name = name
+        return op
     factory.__name__ = name
-    factory.__doc__ = f"{name} edge filter along ``axis``."
+    factory.__doc__ = f"{name} edge filter."
     return factory
 
 
@@ -140,5 +161,75 @@ def _edge_family(name, smooth):
 Sobel = _edge_family("Sobel", [0.25, 0.5, 0.25])
 Prewitt = _edge_family("Prewitt", [1 / 3, 1 / 3, 1 / 3])
 Scharr = _edge_family("Scharr", [3 / 16, 10 / 16, 3 / 16])
+
+
+
+class StructureTensor(DiffMap):
+    """The smoothed outer product of the gradient: ``g_i g_j`` for the
+    D(D+1)/2 pairs i <= j, each smoothed by a Gaussian of
+    ``smooth_sigma`` (none when it is 0); codim ``(D(D+1)/2,
+    *dim_shape)``."""
+
+    def __init__(self, dim_shape, diff_method="fd", smooth_sigma=1.0,
+                 smooth_truncate=3.0, mode="constant", sampling=1.0,
+                 **diff_kwargs):
+        dim_shape = as_canonical_shape(dim_shape)
+        D = len(dim_shape)
+        self._pairs = [(i, j) for i in range(D) for j in range(i, D)]
+        super().__init__(dim_shape, (len(self._pairs),) + tuple(dim_shape))
+        self._grad = Gradient(dim_shape, diff_method=diff_method, mode=mode,
+                              sampling=sampling, **diff_kwargs)
+        self._smooth = (Gaussian(dim_shape, sigma=smooth_sigma,
+                                 truncate=smooth_truncate, mode=mode)
+                        if smooth_sigma else None)
+        self._name = "StructureTensor"
+
+    def _smoothed(self, t):
+        return self._smooth.apply(t) if self._smooth is not None else t
+
+    def apply(self, arr):
+        g = self._grad.apply(arr)              # (*batch, D, *sp)
+        ax = arr.ndim - self.dim_rank
+        return torch.stack([self._smoothed(g.select(ax, i) * g.select(ax, j))
+                            for i, j in self._pairs], dim=ax)
+
+    def jacobian(self, arr):
+        return _StructureTensorJac(self, torch.as_tensor(arr))
+
+    def _expr(self):
+        return ("StructureTensor", self._grad)
+
+
+class _StructureTensorJac(LinOp):
+    """The structure tensor's Jacobian at a point x: v -> smooth(g_i(x)
+    g_j(v) + g_j(x) g_i(v)) for each pair."""
+
+    def __init__(self, op: StructureTensor, at):
+        super().__init__(op.dim_shape, op.codim_shape)
+        self._op = op
+        self._g = op._grad.apply(at)            # (D, *sp)
+        self._name = "Jacobian[StructureTensor]"
+
+    def apply(self, arr):
+        op, g = self._op, self._g.to(arr.dtype)
+        gv = op._grad.apply(arr)
+        ax = arr.ndim - self.dim_rank
+        return torch.stack([op._smoothed(g[i] * gv.select(ax, j)
+                                         + g[j] * gv.select(ax, i))
+                            for i, j in op._pairs], dim=ax)
+
+    def adjoint(self, arr):
+        op, g = self._op, self._g.to(arr.dtype)
+        ax = arr.ndim - self.codim_rank
+        parts = [None] * len(g)
+        for p, (i, j) in enumerate(op._pairs):
+            s = arr.select(ax, p)
+            if op._smooth is not None:
+                s = op._smooth.adjoint(s)
+            for a, b in ((i, j), (j, i)):
+                t = g[b] * s
+                parts[a] = t if parts[a] is None else parts[a] + t
+        return op._grad.adjoint(torch.stack(parts, dim=ax))
+
 
 DoG = DifferenceOfGaussians

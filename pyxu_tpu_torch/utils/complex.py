@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["view_as_real", "view_as_complex", "real_dtype", "complex_dtype"]
+__all__ = ["view_as_real", "view_as_complex", "view_as_real_mat",
+           "view_as_complex_mat", "real_dtype", "complex_dtype"]
 
 _TO_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 _TO_COMPLEX = {
@@ -57,3 +58,47 @@ def view_as_complex(x: torch.Tensor) -> torch.Tensor:
             or any(s % 2 for s in x.stride()[:-1])):
         x = x.contiguous()
     return torch.view_as_complex(x)
+
+
+def view_as_real_mat(cmat: torch.Tensor, real_input: bool = False,
+                     real_output: bool = False) -> torch.Tensor:
+    r"""Real block form of a complex matrix: A in C^{M x N} becomes Ahat in
+    R^{2M x 2N} with 2 x 2 blocks [[Re, -Im], [Im, Re]], so that::
+
+        view_as_real(A @ x).ravel()
+            == view_as_real_mat(A) @ view_as_real(x).ravel()
+
+    ``real_input`` / ``real_output`` drop the imaginary columns / rows.  A
+    real matrix passes through unchanged."""
+    if cmat.ndim != 2:
+        raise ValueError(f"expected a 2-D matrix, got {cmat.ndim}-D")
+    if not torch.is_complex(cmat):
+        return cmat
+    M, N = cmat.shape
+    re, im = cmat.real, cmat.imag
+    blk = torch.stack([torch.stack([re, -im], dim=-1),
+                       torch.stack([im, re], dim=-1)], dim=1)  # (M, 2, N, 2)
+    rmat = blk.reshape(2 * M, 2 * N)
+    if real_input:
+        rmat = rmat[:, ::2]
+    if real_output:
+        rmat = rmat[::2, :]
+    return rmat
+
+
+def view_as_complex_mat(rmat: torch.Tensor, real_input: bool = False,
+                        real_output: bool = False) -> torch.Tensor:
+    """Inverse of :func:`view_as_real_mat`.  A complex matrix passes
+    through unchanged."""
+    if rmat.ndim != 2:
+        raise ValueError(f"expected a 2-D matrix, got {rmat.ndim}-D")
+    if torch.is_complex(rmat):
+        return rmat
+    cdt = complex_dtype(rmat.dtype)
+    if real_input and real_output:
+        return rmat.to(cdt)
+    if real_input:          # no imaginary columns: Re and Im on the rows
+        return torch.complex(rmat[::2, :], rmat[1::2, :]).to(cdt)
+    if real_output:         # no imaginary rows: -Im on the odd columns
+        return torch.complex(rmat[:, ::2], -rmat[:, 1::2]).to(cdt)
+    return torch.complex(rmat[::2, ::2], rmat[1::2, ::2]).to(cdt)

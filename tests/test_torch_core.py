@@ -486,10 +486,14 @@ def test_from_array_and_to_sciop_match_jax(fdtype, rng):
     u = rng.standard_normal(K.dim_size)
     _close(St.matvec(u), M @ u, fdtype)
     _close(St.rmatvec(u), M.T @ u, fdtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tabc.LinOp.from_array(sp.eye(4, format="csr"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tabc.LinOp.from_array(torch.eye(4).to_sparse())
+    # sparse input dispatches to SparseExplicitLinOp, as in the JAX package
+    for A in (sp.eye(4, format="csr"), torch.eye(4).to_sparse()):
+        S = tabc.LinOp.from_array(A, device="cpu")
+        assert isinstance(S, tlin.SparseExplicitLinOp)
+        assert type(S).__name__ == type(
+            jabc.LinOp.from_array(sp.eye(4, format="csr"))).__name__
+        u = _t(rng.standard_normal(4).astype(np.float32))
+        _close(S.apply(u), u.numpy(), np.float32)
 
 
 def test_explicit_and_diagonal_closed_forms(fdtype, rng):

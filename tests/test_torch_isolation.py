@@ -117,6 +117,44 @@ for _ in range(20):
 assert bool(mean.stat().isfinite().all()) and bool((std.stat() > 0).all())
 xs = K.pinv(y, damp=1e-2)
 assert torch.equal(K.dagger(1e-2).apply(y), xs)
+import math
+import scipy.sparse as sp
+import pyxu_tpu_torch.info, pyxu_tpu_torch.utils
+import pyxu_tpu_torch.operator as O
+import pyxu_tpu_torch.operator.blocks, pyxu_tpu_torch.operator.linop.diff
+import pyxu_tpu_torch.operator.linop.kron, pyxu_tpu_torch.operator.linop.reduce
+import pyxu_tpu_torch.operator.linop.select, pyxu_tpu_torch.operator.map.ufunc
+import pyxu_tpu_torch.operator.interop.sciop, pyxu_tpu_torch.operator.interop.torch
+from pyxu_tpu_torch.operator.interop import from_sciop, from_torch
+from pyxu_tpu_torch.opt.solver import CondatVu
+L = O.vstack([O.Hessian((32, 32), directions=(0, 0), mode="symmetric"),
+              math.sqrt(2) * O.Hessian((32, 32), directions=(0, 1),
+                                       mode="symmetric"),
+              O.Hessian((32, 32), directions=(1, 1), mode="symmetric")])
+y32 = K.apply(torch.rand(32, 32))
+slv = CondatVu(f=0.5 * SquaredL2Norm((32, 32)).asloss(y32) * K,
+               g=O.PositiveOrthant((32, 32)),
+               h=2e-3 * O.L21Norm((3, 32, 32), l2_axis=0), K=L, stop_rate=5)
+slv.fit(x0=y32, stop_crit=MaxIter(10), max_iter=10)
+assert slv.fused_path is None and bool(slv.solution().isfinite().all())
+ops = [O.block_diag([K, K]), O.SubSample((32, 32), slice(None, None, 2)),
+       O.Trim((32, 32), 2), O.Sum((32, 32), 0), O.Jacobian((2, 32, 32)),
+       O.Divergence((2, 32, 32)), O.Laplacian((32, 32)),
+       O.DirectionalHessian((32, 32), [(1, 0), (1, 1)], device="cpu"),
+       O.Sobel((32, 32)), O.StructureTensor((32, 32)),
+       O.Gradient((32, 32), diff_method="gd"),
+       O.SparseExplicitLinOp(sp.eye(1024, format="csr"), dim_shape=(32, 32),
+                             codim_shape=(32, 32), device="cpu"),
+       O.sigmoid(K)]
+for op in ops:
+    assert bool(op.apply(torch.rand((2,) + op.dim_shape)).isfinite().all())
+import scipy.sparse.linalg as spl
+A = O.kron(O.ExplicitLinOp(torch.eye(3)),
+           from_sciop(spl.aslinearoperator(sp.eye(4).tocsr())))
+assert A.apply(torch.ones(12)).shape == (12,)
+from pyxu_tpu_torch.abc import DiffFunc
+F = from_torch(DiffFunc, (4,), apply=lambda t: (t ** 2).sum(-1))
+assert torch.equal(F.grad(torch.ones(4)), 2 * torch.ones(4))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu")]
 assert not bad, bad
 print("ok")
@@ -223,6 +261,19 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
         LinOp.from_array(np.eye(4, dtype=np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         f.argscale(2.0).jacobian(np.zeros(4, np.float32)).asarray()
+    # the slice's constructors that take a host array
+    import scipy.sparse as sp
+    from pyxu_tpu_torch.operator.linop import (DirectionalGradient,
+                                               SparseExplicitLinOp)
+    from pyxu_tpu_torch.utils import star_like_sample
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DirectionalGradient((8, 8), [(1.0, 0.0)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SparseExplicitLinOp(sp.eye(4, format="csr"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LinOp.from_array(sp.eye(4, format="csr"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        star_like_sample(8, 5, 20.0, 2, 0.7)
 
 
 def test_tf32_off():

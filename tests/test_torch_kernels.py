@@ -459,6 +459,63 @@ def test_stencil_kernel_batch_and_errors(cuda):
         st.separable_correlate2d(x[..., ::2], p)         # not contiguous
 
 
+# the Hessian's three partials (central accuracy 2): d2/dx0^2, the cross
+# partial scaled by sqrt(2) (the Frobenius stack's weight), d2/dx1^2
+HESS_TAPS = {"d00": ((1.0, -2.0, 1.0), 1, (1.0,), 0),
+             "d01": (tuple(math.sqrt(2) * v for v in (-0.5, 0.0, 0.5)), 1,
+                     (-0.5, 0.0, 0.5), 1),
+             "d11": ((1.0,), 0, (1.0, -2.0, 1.0), 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("mode", ["constant", "symmetric"])
+@pytest.mark.parametrize("taps", sorted(HESS_TAPS))
+@pytest.mark.parametrize("shape", [(300, 520), (257, 389), (3, 67, 129)],
+                         ids=str)
+def test_stencil_kernel_at_the_hessian_taps(cuda, shape, taps, mode,
+                                            adjoint, dtype):
+    k0, c0, k1, c1 = HESS_TAPS[taps]
+    p = st.SepTaps(k0=k0, c0=c0, k1=k1, c1=c1, mode=mode)
+    assert st.kernel_takes(p)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(shape)).to(
+        getattr(torch, dtype)).to(cuda)
+    n0 = st.separable_correlate2d.launches
+    got = st.separable_correlate2d(x, p, adjoint)
+    want = st.separable_correlate2d_plain(x, p, adjoint)
+    torch.cuda.synchronize()
+    assert st.separable_correlate2d.launches == n0 + 1
+    tol = (1e-5 if dtype == "float32" else 1e-12) * float(x.abs().max()) \
+        * max(1.0, float(np.sum(np.abs(k0)) * np.sum(np.abs(k1))))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_hessian_frobenius_stack_card_vs_cpu(cuda):
+    """The Hessian-Frobenius stack and its adjoint on the card against the
+    CPU: three stencil launches each way."""
+    from pyxu_tpu_torch.operator import Hessian, vstack
+    shape = (200, 180)
+    ops = {}
+    for dev in ("cuda", "cpu"):
+        ops[dev] = vstack([
+            Hessian(shape, directions=(0, 0), mode="symmetric"),
+            math.sqrt(2) * Hessian(shape, directions=(0, 1),
+                                   mode="symmetric"),
+            Hessian(shape, directions=(1, 1), mode="symmetric")])
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(shape))
+    z = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (3,) + shape))
+    n0 = st.separable_correlate2d.launches
+    y = ops["cuda"].apply(x.to(cuda))
+    w = ops["cuda"].adjoint(z.to(cuda))
+    torch.cuda.synchronize()
+    assert st.separable_correlate2d.launches == n0 + 6
+    assert float((y.cpu() - ops["cpu"].apply(x)).abs().max()) <= 1e-12 * 8
+    assert float((w.cpu() - ops["cpu"].adjoint(z)).abs().max()) <= 1e-12 * 8
+
+
 # ------------------------------------------------------------- 2-D NUFFT --
 
 from pyxu_tpu_torch.ops import nufft as nu  # noqa: E402

@@ -151,8 +151,13 @@ def test_filters_match_jax(name, rng, fdtype):
            fdtype)
     if name in ("moving_average", "gaussian", "sobel"):
         assert top.kernel_path == "kernel"
-    with pytest.raises(NotImplementedError):
-        tfil.Sobel(shape)                      # the magnitude form waits
+    if name == "sobel":
+        # axis=None: the gradient magnitude, a DiffMap in both packages
+        jmag, tmag = jfil.Sobel(shape), tfil.Sobel(shape)
+        assert type(tmag).__mro__[1].__name__ == \
+            type(jmag).__mro__[1].__name__
+        _close(jax.jit(jmag.apply)(x), tmag.apply(torch.from_numpy(x)),
+               fdtype)
 
 
 @pytest.mark.parametrize("mode", ["constant", "symmetric"])
