@@ -194,6 +194,37 @@ Phases:
    apply beside the dense operator's (cuSPARSE, no kernel row).  The
    stencil's entry on the ``kernels`` line gains ``hf_launches`` and
    ``hessian_taps``; the JSON line ``hf_4k_it_per_s``.
+17. the parallel layer on the card (``parallel_phase``) over a NCCL group
+   of world size 1 on a ``file://`` store (the backend asserted): workload
+   5, ``consensus_tiles`` (consensus ADMM, the tiles' mean all-reduced over
+   the mesh) at the JAX bench's leg, 8 tiles of 512x512, 1000 iterations in
+   one segment (a warm fit, the best of two timed fits; printed as
+   ``consensus_admm_8x512_1dev``) and at 1.07 G pixels, 64 tiles of
+   4096x4096, 50 iterations (a warm fit of 2, one timed fit): it/s,
+   device ms an iteration (``torch.profiler``: each tile's prox is a CG
+   that reads its flag on the host), host reads an iteration, idle share,
+   peak memory, no kernel launched, z against the closed form
+   soft(mean y, lam/2) (asserted within 1e-4 after 1000 iterations); the
+   2-tile 64x48 form card vs CPU (2e-4 of max|z|).  Out-of-core TV
+   (``StreamedCondatVu``) at 16384x16384 f32 with workload 1's 9-tap blur,
+   lam 0.01, 8 bands of 2048 rows, 3 iterations: seconds an iteration,
+   bytes moved host<->device an iteration against the pinned copy rates and
+   a host memcpy's (measured), each iteration's host-clock split into
+   staging, device part and write-back, the band step's device time, 6
+   stencil launches a band step (asserted), the result against the
+   in-memory iteration on the card (5e-6 of max(1, max|x|)), and the
+   stencil kernel against its plain version at the band's shape
+   (2068x16384) with the blur's and the Gradient's taps.  ShardedStencil
+   (both modes, 2160x3840, the 9-tap blur), ShardedNUFFT (types 1 and 2 on
+   the RI 1024^2 / 10^6-point geometry and at d = 3) and ShardedNUFFT3
+   (d = 3, one z-block) against their unsharded operators (1e-5 of
+   max|y|), ShardedNUFFT at d = 3 against float64 direct sums at 1024
+   modes and 1024 points (1e-5), and ShardedNUFFT3 with 8 z-blocks against
+   a float64 direct sum (1e-4), each call's launches asserted.  The stencil's and the NUFFT kernels' entries
+   on the ``kernels`` line gain ``sharded_launches`` (the stencil also
+   ``ooc_launches``); the JSON line ``consensus_admm_8x512_1dev``,
+   ``consensus_admm_64x4096_1dev``, ``ooc_tv_16k_s_per_iter`` and
+   ``parallel``.
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -321,6 +352,15 @@ HESS_TAPS = (("d00", (1.0, -2.0, 1.0), 1, (1.0,), 0),
               (-0.5, 0.0, 0.5), 1),
              ("d11", (1.0,), 0, (1.0, -2.0, 1.0), 1))
 LIB_SHAPE, SPARSE_N = (96, 80), 512
+# the parallel layer (phase 17): workload 5 at the JAX bench's leg
+# (consensus_tiles' lam) and at 1.07 G pixels, its 64x48 form; the
+# out-of-core TV frame; the sharded 3-D NUFFT and type-3 sizes
+CONS_TILE, CONS_TILES, CONS_ITERS, CONS_LAM = (512, 512), 8, 1000, 0.02
+GIGA_TILE, GIGA_TILES, GIGA_ITERS = (4096, 4096), 64, 50
+CONS_SMALL, CONS_SMALL_ITERS = (64, 48), 100
+OOC_SHAPE, OOC_BLOCK, OOC_ITERS, OOC_LAM = (16384, 16384), 2048, 3, 0.01
+SH3_N, SH3_M = (64, 64, 64), 2 ** 18
+T3S_M, T3S_K, T3S_MB = 100_000, 100_000, 1.0
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
                                # takes to enqueue one timed run
 
@@ -2575,6 +2615,394 @@ def library_phase(st):
                 nnz=int(lap.nnz), sparse_err=max(errs))
 
 
+def _soft(v, t):
+    return torch.sign(v) * torch.clamp(v.abs() - t, min=0)
+
+
+def _consensus_fits(slv, fit, iters, warm, timed, MaxIter):
+    """A warm fit of ``warm`` iterations, then the best of ``timed`` timed
+    fits, each ``iters`` iterations in one segment with one stop check;
+    returns it/s."""
+    def kw(n):
+        slv._stop_rate = n
+        return dict(stop_crit=MaxIter(n), max_iter=n, segment_size=n, **fit)
+    slv.fit(**kw(warm))
+    return iters / min(_timed_fit(slv, iters, **kw(iters))
+                       for _ in range(timed))
+
+
+def consensus_phase(st, nu, MaxIter):
+    """Phase 17, workload 5: consensus ADMM over the NCCL mesh of one rank,
+    the JAX bench's leg, the giga-pixel form and the 64x48 form card vs
+    CPU (see the module docstring)."""
+    from pyxu_tpu_torch.models import consensus_tiles
+    from pyxu_tpu_torch.operator.func import L1Norm, SquaredL2Norm
+    from pyxu_tpu_torch.parallel import ConsensusADMM
+    from pyxu_tpu_torch.runtime import host_read
+    counters = [st.separable_correlate2d, nu.nufft_spread2,
+                nu.nufft_interp2, nu.nufft_spread3, nu.nufft_interp3]
+    out = {}
+    # the bench's leg: a warm fit and the best of two; the giga-pixel
+    # form: a short warm fit and one timed fit
+    for tile, n_tiles, iters, warm, timed, name in (
+            (CONS_TILE, CONS_TILES, CONS_ITERS, CONS_ITERS, 2,
+             "consensus_admm_8x512_1dev"),
+            (GIGA_TILE, GIGA_TILES, GIGA_ITERS, 2, 1,
+             "consensus_admm_64x4096_1dev")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slv, fit, ex = consensus_tiles(tile=tile, n_tiles=n_tiles,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        assert slv._mesh is not None and slv._mesh.size() == 1
+        _reset(counters)
+        torch.cuda.reset_peak_memory_stats()
+        reads0 = host_read.count
+        rate = _consensus_fits(slv, fit, iters, warm, timed, MaxIter)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        reads = (host_read.count - reads0) / (warm + timed * iters)
+        assert all(c.launches == 0 for c in counters), \
+            [c.launches for c in counters]      # plain PyTorch passes only
+        z = slv.solution()
+        assert z.shape == tile and bool(torch.isfinite(z).all())
+        ybar = torch.stack(ex["ys"]).mean(0)
+        z_star = _soft(ybar, CONS_LAM / 2)      # the consensus LASSO's min
+        gap = float((z - z_star).abs().max())
+        obj0 = float(slv.objective_func({"z": fit["z0"]}))
+        obj = float(slv.objective_func(slv._mstate))
+        assert obj < obj0, (obj, obj0)
+        state = slv._mstate
+        # the per-tile prox is a CG that reads its flag on the host: the
+        # profiler's kernel time, not events around calls that wait
+        with torch.no_grad():
+            dev_ms = _profiled_device_ms(lambda: slv.m_step(state),
+                                         10 if n_tiles == CONS_TILES else 2)
+        host_ms = 1e3 / rate
+        idle = 1 - dev_ms / host_ms
+        print(f"[consensus] {name}: {n_tiles} tiles of {tile[0]}x{tile[1]} "
+              f"({n_tiles * tile[0] * tile[1] / 1e9:.3f} G pixels), "
+              f"{iters} iterations in one segment: {rate:.2f} it/s; device "
+              f"{dev_ms:.4f} ms an iteration (torch.profiler), host "
+              f"{host_ms:.4f} ms, idle {idle:.1%}; host reads "
+              f"{reads:.1f} an iteration; peak {peak_gb:.2f} GiB; set-up "
+              f"{setup:.2f} s; "
+              f"max|z - soft(mean y, lam/2)| {gap:.3e}; objective "
+              f"{obj0:.6e} -> {obj:.6e}; no kernel launched", flush=True)
+        if iters == CONS_ITERS:     # converged: the closed form
+            assert gap <= 1e-4, gap
+        out[name] = dict(rate=rate, device_ms=dev_ms, host_ms=host_ms,
+                         idle=idle, peak_gib=peak_gb, setup_s=setup, gap=gap,
+                         host_reads_per_iter=reads)
+        del slv, fit, ex, state, z, ybar, z_star
+        torch.cuda.empty_cache()
+    # the 2-tile 64x48 form, card (the mesh of one rank) vs CPU (no mesh)
+    slv, fit, ex = consensus_tiles(tile=CONS_SMALL, n_tiles=2, device="cuda")
+    g = (2 * CONS_LAM) * L1Norm(CONS_SMALL)
+    cpu = ConsensusADMM([SquaredL2Norm(CONS_SMALL).asloss(y.cpu())
+                         for y in ex["ys"]], g=g)
+    for s, dev in ((slv, "cuda"), (cpu, "cpu")):
+        s.fit(z0=torch.zeros(CONS_SMALL, device=dev),
+              stop_crit=MaxIter(CONS_SMALL_ITERS), max_iter=CONS_SMALL_ITERS)
+    got, want = slv.solution().cpu(), cpu.solution()
+    diff = float((got - want).abs().max()) / float(want.abs().max())
+    print(f"[consensus] {CONS_SMALL[0]}x{CONS_SMALL[1]} x 2 tiles, "
+          f"{CONS_SMALL_ITERS} iterations card (NCCL mesh of 1) vs CPU (no "
+          f"mesh): {diff:.3e} of max|z| (tol 2e-4)", flush=True)
+    assert diff <= 2e-4, diff
+    out["small_diff"] = diff
+    return out
+
+
+def _copy_rates():
+    """Pinned host-to-device and device-to-host copy rates (bytes/s) of a
+    1 GiB buffer, and a host memcpy's (numpy, 1 GiB), the best of 3."""
+    import numpy as np
+    n = 2 ** 28
+    host = torch.empty(n, pin_memory=True)
+    dev = torch.empty(n, device="cuda")
+    rates = {}
+    for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        best = math.inf
+        for _ in range(3):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            dst.copy_(src, non_blocking=True)
+            t1.record()
+            t1.synchronize()
+            best = min(best, t0.elapsed_time(t1) / 1e3)
+        rates[name] = 4 * n / best
+    a, b = np.ones(n, np.float32), np.empty(n, np.float32)
+    best = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        np.copyto(b, a)
+        best = min(best, time.perf_counter() - t0)
+    rates["host"] = 4 * n / best
+    return rates
+
+
+def outofcore_phase(st):
+    """Phase 17, out-of-core TV at 16384^2 (see the module docstring)."""
+    import numpy as np
+    from pyxu_tpu_torch.operator.func import L21Norm
+    from pyxu_tpu_torch.operator.linop import Gradient, Stencil
+    from pyxu_tpu_torch.parallel import StreamedCondatVu
+    H, W = OOC_SHAPE
+    k1 = np.exp(-0.5 * ((np.arange(9) - 4) / 2.0) ** 2)
+    k1 = (k1 / k1.sum()).astype(np.float32)     # workload 1's blur
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    K = Stencil((H, W), [k1, k1], [4, 4], mode="constant")
+    with torch.no_grad():
+        y = K.apply(torch.rand((H, W), generator=gen, device="cuda"))
+    y_host = y.cpu().numpy()
+    slv = StreamedCondatVu(y_host, k1, lam=OOC_LAM, block_rows=OOC_BLOCK,
+                           device="cuda")
+    bands = -(-H // OOC_BLOCK)
+    _reset([st.separable_correlate2d])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slv.fit(n_iters=OOC_ITERS)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / OOC_ITERS
+    launches = st.separable_correlate2d.launches
+    assert launches == 6 * bands * OOC_ITERS, launches
+    moved = slv.bytes_moved / OOC_ITERS
+    xs = slv.solution()
+    assert np.isfinite(xs).all()
+    # the in-memory iteration on the card over the same frame
+    D = Gradient((H, W), mode="constant")
+    h = OOC_LAM * L21Norm((2, H, W), l2_axis=0)
+    with torch.no_grad():
+        x, z = y.clone(), torch.zeros((2, H, W), device="cuda")
+        for _ in range(OOC_ITERS):
+            xp = x - slv._tau * (K.adjoint(K.apply(x) - y) + D.adjoint(z))
+            z = h.fenchel_prox(z + slv._sigma * D.apply(2.0 * xp - x),
+                               slv._sigma)
+            x = xp
+        del z
+        x_ref = x.cpu().numpy()
+    err = float(np.abs(xs - x_ref).max())
+    tol = 5e-6 * max(1.0, float(np.abs(x_ref).max()))
+    # a band step's device time, on the last band's shape
+    Rh = slv._block + 2 * slv._halo
+    xb = torch.rand((Rh, W), generator=gen, device="cuda")
+    zb = torch.zeros((2, Rh, W), device="cuda")
+    mask = torch.ones((Rh, 1), device="cuda")
+    with torch.no_grad():
+        band_ms = _time_ms(lambda: slv._step(xb, zb, xb, mask), reps=3,
+                           runs=3, warmup=1)
+    # the stencil at the band's shape and the path's tap sets (the streamed
+    # and the in-memory runs above both go through the kernel)
+    band_taps = {"blur": Stencil((Rh, W), [k1, k1], [4, 4],
+                                 mode="constant")._taps}
+    for i, op in enumerate(Gradient((Rh, W), mode="constant")._ops):
+        band_taps[f"D{i}"] = op._taps
+    band_check = {}
+    for name, p in band_taps.items():
+        rec = _st_variants(st, p, xb, f" ooc-band {name} {Rh}x{W}",
+                           plain_timed=False, verbose=False)
+        band_check[name] = {tag: {f: r[f] for f in ("max_abs_err", "ms",
+                                                      "bound_ms")}
+                            for tag, r in rec.items()}
+        print(f"[kernel] stencil at the streamed band's shape {Rh}x{W}, "
+              f"{name} taps, apply and adjoint, constant and symmetric: "
+              f"largest max_abs_err "
+              f"{max(r['max_abs_err'] for r in rec.values()):.3e}, ms "
+              + ", ".join(f"{t} {r['ms']:.4f}" for t, r in rec.items())
+              + ": ok", flush=True)
+    rates = _copy_rates()
+    n_up = bands * (4 * Rh * W * 4 + 4 * Rh)        # x, z (2), y, mask
+    n_down = moved - n_up
+    pcie_s = n_up / rates["h2d"] + n_down / rates["d2h"]
+    host_s = moved / rates["host"]      # the band copies and write-backs
+    dev_s = bands * band_ms / 1e3
+    gb = {k: v / 1e9 for k, v in rates.items()}
+    # the host clock's split of each iteration (StreamedCondatVu.fit):
+    # staging (halo fills into the page-locked buffers), the device part
+    # (copies up, the band step, copies down, the wait) and write-backs
+    split = slv.time_split
+    for i, sp in enumerate(split):
+        tot = sum(sp.values())
+        print(f"[ooc] iteration {i}: stage {sp['stage']:.4f} s "
+              f"({n_up / sp['stage'] / 1e9:.2f} GB/s of staged bytes), "
+              f"device {sp['device']:.4f} s (PCIe at the measured rates "
+              f"{pcie_s:.4f} + band steps {dev_s:.4f}), write-back "
+              f"{sp['write_back']:.4f} s ({n_down / sp['write_back'] / 1e9:.2f}"
+              f" GB/s of rows written back); {tot:.4f} s in all", flush=True)
+    outside = sec * OOC_ITERS - sum(sum(sp.values()) for sp in split)
+    print(f"[ooc] outside the bands' three parts (the staging buffers' "
+          f"allocation in the first fit, set-up): {outside:.4f} s of "
+          f"{sec * OOC_ITERS:.4f} s", flush=True)
+    print(f"[ooc] streamed TV {H}x{W} f32, {bands} bands of {OOC_BLOCK} "
+          f"rows (+{slv._halo} halo rows a side), {OOC_ITERS} iterations: "
+          f"{sec:.4f} s an iteration; host state "
+          f"{slv.state_bytes / 2 ** 30:.2f} GiB; moved {moved / 1e9:.3f} GB "
+          f"an iteration ({n_up / 1e9:.3f} up, {n_down / 1e9:.3f} down); "
+          f"pinned copies {gb['h2d']:.2f} GB/s up, {gb['d2h']:.2f} GB/s "
+          f"down: {pcie_s:.4f} s an iteration at those rates; host memcpy "
+          f"{gb['host']:.2f} GB/s: {host_s:.4f} s; device {dev_s:.4f} s "
+          f"({band_ms:.4f} ms a band step), {dev_s / sec:.1%} of the "
+          f"iteration; stencil launches {launches} (6 a band step)",
+          flush=True)
+    print(f"[ooc] streamed vs in-memory on the card: max_abs_diff "
+          f"{err:.3e} (tol {tol:.3e})", flush=True)
+    assert err <= tol, (err, tol)
+    return dict(sec_per_iter=sec, bytes_per_iter=moved, up=n_up,
+                down=n_down, rates=rates, pcie_s=pcie_s, host_copy_s=host_s,
+                device_s=dev_s, band_ms=band_ms, launches=launches, err=err,
+                time_split=split, outside_s=outside, band_check=band_check)
+
+
+def _sharded_nufft3_direct(outs, a, f, pts, N, n_check=1024):
+    """ShardedNUFFT's d = 3 apply (type 1) at ``n_check`` modes and its
+    adjoint (type 2) at ``n_check`` points against float64 direct sums:
+    relative l-inf within 1e-5 (eps 1e-6)."""
+    k = [torch.arange(-(n // 2), (n + 1) // 2, device="cuda",
+                      dtype=torch.float64) for n in N]
+    K = torch.stack(torch.meshgrid(*k, indexing="ij"), -1).reshape(-1, 3)
+    xt = torch.from_numpy(pts).cuda()
+    sel_k = torch.arange(0, K.shape[0], K.shape[0] // n_check, device="cuda")
+    sel_x = torch.arange(0, xt.shape[0], xt.shape[0] // n_check,
+                         device="cuda")
+    errs = {}
+    for name, got, want in (
+            ("apply", outs["apply"].reshape(-1, 2)[sel_k],
+             _direct3(a, xt, K, sel_z=sel_k, isign=1)),
+            ("adjoint", outs["adjoint"][sel_x],
+             _direct3(f.reshape(-1, 2), xt, K, sel_x=sel_x, isign=1))):
+        g = torch.view_as_complex(got.double().contiguous())
+        err = float((g - want).abs().max() / want.abs().max())
+        tag = f"ShardedNUFFT d=3 {name} vs direct"
+        errs[tag] = err
+        print(f"[sharded] {tag} at {len(want)} "
+              f"{'modes' if name == 'apply' else 'points'} (M={xt.shape[0]}, "
+              f"N={N}, float64 sum): {err:.3e} of max|y| (tol 1e-5)",
+              flush=True)
+        assert err <= 1e-5, (tag, err)
+    return errs
+
+
+def sharded_ops_phase(st, nu, mesh):
+    """Phase 17: ShardedStencil, ShardedNUFFT and ShardedNUFFT3 at world
+    size 1 against their unsharded operators on the card, each call's
+    kernel launches asserted."""
+    import numpy as np
+    from pyxu_tpu_torch.operator.linop import Stencil
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    from pyxu_tpu_torch.parallel import (ShardedNUFFT, ShardedNUFFT3,
+                                         ShardedStencil)
+    kerns = {"stencil": st.separable_correlate2d,
+             "nufft_spread2": nu.nufft_spread2,
+             "nufft_interp2": nu.nufft_interp2,
+             "nufft_spread3": nu.nufft_spread3,
+             "nufft_interp3": nu.nufft_interp3}
+    launches = dict.fromkeys(kerns, 0)
+    worst = {}
+
+    def run(fn, want_launches):
+        """``fn()``, its launches by kernel checked and counted."""
+        n0 = {k: c.launches for k, c in kerns.items()}
+        out = fn()
+        n = {k: c.launches - n0[k] for k, c in kerns.items()}
+        assert {k: v for k, v in n.items() if v} == want_launches, n
+        for k, v in n.items():
+            launches[k] += v
+        return out.to_local()
+
+    def check(tag, got, want, n):
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        worst[tag] = err
+        print(f"[sharded] {tag}: {err:.3e} of max|y| (tol 1e-5); "
+              f"launches {n}", flush=True)
+        assert err <= 1e-5, (tag, err)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k1 = np.exp(-0.5 * ((np.arange(9) - 4) / 2.0) ** 2)
+    k1 = (k1 / k1.sum()).astype(np.float32)
+    x = torch.rand(SHAPE, generator=gen, device="cuda")
+    for mode in ("constant", "wrap"):
+        op = ShardedStencil(SHAPE, [k1, k1], [4, 4], mesh, mode=mode)
+        ref = Stencil(SHAPE, [k1, k1], [4, 4], mode=mode)
+        assert op.kernel_path == "kernel"
+        for name in ("apply", "adjoint"):
+            n = {"stencil": 1}
+            got = run(lambda: getattr(op, name)(x), n)
+            check(f"ShardedStencil {mode} {name} {SHAPE[0]}x{SHAPE[1]}", got,
+                  getattr(ref, name)(x), n)
+    rng = np.random.default_rng(0)
+    uv = rng.normal(0, np.pi / 3, (RI_VIS, 2)).clip(-np.pi, np.pi)
+    pts3 = rng.uniform(-np.pi, np.pi, (SH3_M, 3))
+    for pts, N in ((uv, RI_SHAPE), (pts3, SH3_N)):
+        d = pts.shape[1]
+        op = ShardedNUFFT(pts, N, mesh, dtype=torch.float32)
+        ref = NUFFT.type1(pts, N, dtype=torch.float32, device="cuda")
+        a = torch.randn((pts.shape[0], 2), generator=gen, device="cuda")
+        f = torch.randn(N + (2,), generator=gen, device="cuda")
+        outs = {}
+        for name, arg, kern in (("apply", a, f"nufft_spread{d}"),
+                                ("adjoint", f, f"nufft_interp{d}")):
+            n = {kern: 1}
+            got = outs[name] = run(lambda: getattr(op, name)(arg), n)
+            check(f"ShardedNUFFT d={d} {name} M={pts.shape[0]} N={N}", got,
+                  getattr(ref, name)(arg), n)
+        if d == 3:
+            worst.update(_sharded_nufft3_direct(outs, a, f, pts, N))
+    xs = rng.uniform(-1, 1, (T3S_M, 3))
+    zs = rng.uniform(-30, 30, (T3S_K, 3))
+    a = torch.randn((T3S_M, 2), generator=gen, device="cuda")
+    f = torch.randn((T3S_K, 2), generator=gen, device="cuda")
+    op1 = ShardedNUFFT3(xs, zs, mesh, fft_mem_mb=1e6, dtype=torch.float32)
+    ref = NUFFT.type3(xs, zs, dtype=torch.float32, device="cuda")
+    assert op1.stats()["n_z_blocks"] == 1
+    for name, arg in (("apply", a), ("adjoint", f)):
+        n = {"nufft_spread3": 1, "nufft_interp3": 1}
+        got = run(lambda: getattr(op1, name)(arg), n)
+        check(f"ShardedNUFFT3 Q=1 {name} M={T3S_M} K={T3S_K}", got,
+              getattr(ref, name)(arg), n)
+    opq = ShardedNUFFT3(xs, zs, mesh, fft_mem_mb=T3S_MB, dtype=torch.float32)
+    Q = opq.stats()["n_z_blocks"]
+    assert Q > 1, opq.stats()
+    got = run(lambda: opq.apply(a), {"nufft_spread3": Q, "nufft_interp3": Q})
+    sel = torch.arange(0, T3S_K, T3S_K // T3_CHECK_VIS, device="cuda")
+    xt, zt = (torch.from_numpy(v).cuda() for v in (xs, zs))
+    want = _direct3(a, xt, zt, sel_z=sel, isign=1)
+    err = float((torch.view_as_complex(got[sel].double().contiguous())
+                 - want).abs().max() / want.abs().max())
+    print(f"[sharded] ShardedNUFFT3 Q={Q} (fft_mem_mb {T3S_MB}, stats "
+          f"{opq.stats()}) apply vs a float64 direct sum at "
+          f"{len(sel)} frequencies: {err:.3e} of max|y| (tol 1e-4); "
+          f"launches {Q} spreads and {Q} interps", flush=True)
+    assert err <= 1e-4, err
+    worst["ShardedNUFFT3 Q>1 vs direct"] = err
+    print(f"[sharded] launches by kernel: {launches}", flush=True)
+    return dict(worst=worst, launches=launches, Q=Q)
+
+
+def parallel_phase(st, nu, MaxIter):
+    """Phase 17: the parallel layer on the card over a NCCL group of world
+    size 1 (see the module docstring)."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    import pyxu_tpu_torch.parallel as par
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    assert par.init_distributed(f"file://{tmp}/store", 1, 0,
+                                device="cuda") == 1
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    try:
+        mesh = par.auto_mesh(device="cuda")
+        out = {"consensus": consensus_phase(st, nu, MaxIter)}
+        _mark("consensus (workload 5)")
+        out["ooc"] = outofcore_phase(st)
+        _mark("out-of-core TV")
+        out["sharded"] = sharded_ops_phase(st, nu, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2769,6 +3197,10 @@ def main() -> int:
     lib = library_phase(st)
     _mark("operator library phase")
 
+    # ---- phase 17: the parallel layer over a NCCL group of one rank -----
+    par = parallel_phase(st, nu, MaxIter)
+    _mark("parallel phase")
+
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -2812,6 +3244,12 @@ def main() -> int:
         # phase 15: the timed Hessian-Frobenius fit's launches, and the
         # kernel at the Hessian's tap sets (phase 2)
         "hf_launches": hf["launches"],
+        # phase 17: the streamed TV's launches (6 a band step), the kernel
+        # at its band's shape and taps, and ShardedStencil's launches (one
+        # an apply or adjoint)
+        "ooc_launches": par["ooc"]["launches"],
+        "ooc_band": par["ooc"]["band_check"],
+        "sharded_launches": par["sharded"]["launches"]["stencil"],
         "hf": {k: hf[k] for k in ("stencil_ms", "device_ms", "host_ms",
                                   "idle")},
         "hessian_taps": {
@@ -2867,6 +3305,8 @@ def main() -> int:
                             else t3["launches_2d"][kname]),
             "t3": {cloud: r for (k, cloud), r in t3["recs"].items()
                    if k == kname},
+            # phase 17: ShardedNUFFT's and ShardedNUFFT3's launches
+            "sharded_launches": par["sharded"]["launches"][kname],
             "variants": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                                 "max_abs_err", "phases")
                              if f in v}
@@ -2892,6 +3332,12 @@ def main() -> int:
                       "pinv_4k_it_per_s": uq["pinv_rate"],
                       "hf_4k_it_per_s": hf["rate"],
                       "sparse_laplacian_512": lib,
+                      "consensus_admm_8x512_1dev": par["consensus"][
+                          "consensus_admm_8x512_1dev"]["rate"],
+                      "consensus_admm_64x4096_1dev": par["consensus"][
+                          "consensus_admm_64x4096_1dev"]["rate"],
+                      "ooc_tv_16k_s_per_iter": par["ooc"]["sec_per_iter"],
+                      "parallel": par,
                       "engine": engine}),
           flush=True)
     print(smi, flush=True)

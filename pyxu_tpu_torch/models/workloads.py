@@ -1,10 +1,9 @@
 """Benchmark workloads as one-call factories (counterpart of
 ``pyxu_tpu/models/workloads.py``).
 
-Ported: ``lasso_deconvolution`` (workload 1), ``tv_deconvolution`` (the
-north-star workload), ``sparse_view_ct`` (workload 3) and
-``radio_interferometry`` (workload 4).  ``consensus_tiles`` (workload 5)
-is not ported yet.
+All five: ``lasso_deconvolution`` (workload 1), ``tv_deconvolution`` (the
+north-star workload), ``sparse_view_ct`` (workload 3),
+``radio_interferometry`` (workload 4) and ``consensus_tiles`` (workload 5).
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ import torch
 from pyxu_tpu_torch.runtime import resolve_device
 
 __all__ = ["lasso_deconvolution", "tv_deconvolution", "sparse_view_ct",
-           "radio_interferometry"]
+           "radio_interferometry", "consensus_tiles"]
 
 
 def _gauss1d(sigma, n):
@@ -201,3 +200,35 @@ def radio_interferometry(shape=(256, 256), n_vis=5000, lam=0.02, seed=0,
     return (slv, dict(x0=torch.zeros(dom, dtype=torch.float32, device=dev),
                       tau=0.05),
             dict(x_true=x_true, y=y, A=A, uv=uv))
+
+
+def consensus_tiles(tile=(512, 512), n_tiles=8, lam=0.02, seed=0, mesh=None,
+                    device=None):
+    """Workload 5: a giga-pixel image as B tiles, consensus ADMM over a
+    mesh.
+
+    Tile b's data ``y_b`` is ``numpy.random.default_rng(seed).random(tile,
+    float32)``, drawn in tile order (the JAX package's bits);
+    ``f_b = SquaredL2Norm.asloss(y_b)``, ``g = B lam L1Norm``.  ``mesh``:
+    a ``DeviceMesh`` whose first axis cuts the tiles; None takes
+    ``auto_mesh()`` over every rank when a process group is up, else the
+    single-process solver.  Runs on ``device`` (default ``cuda``; raises
+    when there is none) in float32.  Returns ``(solver, fit kwargs,
+    extras)``; z0 = 0.
+    """
+    import torch.distributed as dist
+
+    from pyxu_tpu_torch.operator.func import L1Norm, SquaredL2Norm
+    from pyxu_tpu_torch.parallel import ConsensusADMM, auto_mesh
+
+    dev = resolve_device(device)
+    tile = tuple(tile)
+    if mesh is None and dist.is_available() and dist.is_initialized():
+        mesh = auto_mesh(device=dev)
+    rng = np.random.default_rng(seed)
+    ys = [torch.from_numpy(rng.random(tile, dtype=np.float32)).to(dev)
+          for _ in range(n_tiles)]
+    fs = [SquaredL2Norm(tile).asloss(y) for y in ys]
+    g = (n_tiles * lam) * L1Norm(tile)
+    slv = ConsensusADMM(fs, g=g, mesh=mesh)
+    return slv, dict(z0=torch.zeros(tile, device=dev)), dict(ys=ys)

@@ -280,3 +280,71 @@ def test_tf32_off():
     import pyxu_tpu_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+_IMPORT_ALL = """
+import sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, _Block())
+import importlib, pathlib, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+root = pathlib.Path("pyxu_tpu_torch")
+names = sorted(".".join(p.with_suffix("").parts).replace(".__init__", "")
+               for p in root.rglob("*.py"))
+for name in names:
+    importlib.import_module(name)
+# the parallel layer at world size 1 on a file:// store
+import torch.distributed as dist
+import pyxu_tpu_torch.parallel as par
+from pyxu_tpu_torch.models import consensus_tiles
+from pyxu_tpu_torch.opt.stop import MaxIter
+store = pathlib.Path(tempfile.mkdtemp()) / "store"
+assert par.init_distributed(f"file://{store}", 1, 0, device="cpu") == 1
+mesh = par.auto_mesh(device="cpu")
+op = par.ShardedStencil((16, 12), [np.ones(3), np.ones(5)], [1, 2], mesh,
+                        mode="wrap")
+assert op.apply(torch.ones(16, 12)).full_tensor().eq(15).all()
+slv, fit, _ = consensus_tiles(tile=(8, 6), n_tiles=2, device="cpu")
+slv.fit(stop_crit=MaxIter(5), max_iter=5, **fit)
+assert bool(slv.solution().isfinite().all())
+dist.destroy_process_group()
+s = par.StreamedCondatVu(np.ones((20, 9), np.float32), np.ones(3) / 3,
+                         block_rows=8, device="cpu")
+assert np.isfinite(s.fit(2).solution()).all()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pyxu_tpu")]
+assert not bad, bad
+print(len(names), "ok")
+"""
+
+
+def test_every_module_imports_with_jax_blocked():
+    """Each module of the port, the parallel layer and the utilities
+    included, imports in a child where ``jax`` and ``pyxu_tpu`` cannot be
+    imported; the parallel layer runs there at world size 1."""
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    n = int(res.stdout.split()[-2])
+    assert n == len(sorted((ROOT / "pyxu_tpu_torch").rglob("*.py")))
+
+
+def test_parallel_entry_points_raise_without_gpu(monkeypatch):
+    import pyxu_tpu_torch.parallel as par
+    from pyxu_tpu_torch.models import consensus_tiles
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        consensus_tiles((8, 6), n_tiles=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        par.StreamedCondatVu(np.ones((8, 8), np.float32), np.ones(3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        par.streamed_map_overlap(lambda b: b, np.ones((8, 8)), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        par.streamed_block_diag([], [])
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        par.init_distributed("file:///nonexistent/store", 1, 0)

@@ -1570,3 +1570,149 @@ def test_pinv_64x48_card_matches_cpu(cuda):
     want = sols["cpu"]
     diff = float((sols[str(cuda)].cpu() - want).abs().max())
     assert diff <= 2e-4 * float(want.abs().max())
+
+
+# ------------------------------------------------------ the parallel layer --
+
+@pytest.fixture
+def nccl1(cuda, tmp_path):
+    """A NCCL group of one rank on a ``file://`` store, and its mesh."""
+    import torch.distributed as dist
+
+    import pyxu_tpu_torch.parallel as par
+    assert par.init_distributed(f"file://{tmp_path / 'store'}", 1, 0,
+                                device="cuda") == 1
+    assert dist.get_backend() == "nccl"
+    try:
+        yield par.auto_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["constant", "wrap"])
+@pytest.mark.parametrize("shard_axis", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_stencil_launches_the_kernel(nccl1, mode, shard_axis, dtype):
+    """ShardedStencil's local correlation runs the stencil kernel, one
+    launch an apply or adjoint, and matches the unsharded Stencil."""
+    from pyxu_tpu_torch.operator.linop import Stencil
+    from pyxu_tpu_torch.parallel import ShardedStencil
+    k0, k1, c0, c1 = ASYM
+    shape = (97, 130)
+    ref = Stencil(shape, [k0, k1], [c0, c1], mode=mode)
+    op = ShardedStencil(shape, [k0, k1], [c0, c1], nccl1,
+                        shard_axis=shard_axis, mode=mode)
+    assert op.kernel_path == "kernel"
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(shape, generator=gen, dtype=dtype).cuda()
+    for name in ("apply", "adjoint"):
+        n0 = st.separable_correlate2d.launches
+        got = getattr(op, name)(x).to_local()
+        assert st.separable_correlate2d.launches - n0 == 1
+        want = getattr(ref, name)(x)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_streamed_condatvu_launches_six_stencils_a_band(cuda):
+    """Each band step launches the stencil kernel six times (K, K^T, D^T
+    twice, D twice); the card's streamed solve matches the CPU's."""
+    from pyxu_tpu_torch.parallel import StreamedCondatVu
+    H, W, block = 200, 96, 64
+    y = np.random.default_rng(5).random((H, W), dtype=np.float32)
+    sols = {}
+    for dev in ("cpu", cuda):
+        slv = StreamedCondatVu(y, _gauss(), lam=0.02, block_rows=block,
+                               device=dev)
+        n0 = st.separable_correlate2d.launches
+        sols[str(dev)] = slv.fit(n_iters=2).solution()
+    bands = -(-H // block)
+    assert st.separable_correlate2d.launches - n0 == 6 * bands * 2
+    want = sols["cpu"]
+    assert np.abs(sols[str(cuda)] - want).max() <= \
+        5e-6 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_streamed_map_overlap_and_block_diag_on_the_card(cuda):
+    """Both streamed functions through the page-locked staging: a Stencil
+    band by band (one launch a band) and a block per operator, each result
+    a host array equal to the CPU's, blocks of one shape not aliased."""
+    from pyxu_tpu_torch.operator.linop import Stencil
+    from pyxu_tpu_torch.operator.linop.base import HomothetyOp
+    from pyxu_tpu_torch.parallel import (streamed_block_diag,
+                                         streamed_map_overlap)
+    H, W, block = 200, 96, 64
+    x = np.random.default_rng(7).random((H, W), dtype=np.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        K = Stencil((block + 8, W), [_gauss(), _gauss()], [4, 4],
+                    mode="constant")
+        n0 = st.separable_correlate2d.launches
+        outs[str(dev)] = streamed_map_overlap(K.apply, x, depth=4,
+                                              block_rows=block, device=dev)
+    assert st.separable_correlate2d.launches - n0 == -(-H // block)
+    want = outs["cpu"]
+    assert np.abs(outs[str(cuda)] - want).max() <= \
+        1e-5 * np.abs(want).max()
+    cs = (1.0, -2.0, 0.5)
+    ys = streamed_block_diag([HomothetyOp(dim_shape=(H, W), cst=c)
+                              for c in cs], [x] * 3, device=cuda)
+    for c, yb in zip(cs, ys):
+        assert isinstance(yb, np.ndarray)
+        np.testing.assert_allclose(yb, c * x, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+def test_sharded_nufft_launches(nccl1, d):
+    """ShardedNUFFT at world size 1: one spread an apply, one interp an
+    adjoint, the unsharded operator's numbers."""
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    from pyxu_tpu_torch.parallel import ShardedNUFFT
+    rng = np.random.default_rng(6)
+    N = (24, 20) if d == 2 else (12, 10, 8)
+    x = rng.uniform(-np.pi, np.pi, (3001, d))
+    op = ShardedNUFFT(x, N, nccl1, dtype=torch.float32)
+    ref = NUFFT.type1(x, N, dtype=torch.float32, device="cuda")
+    assert op.kernel_path == "kernel"
+    spread, interp = (nu.nufft_spread2, nu.nufft_interp2) if d == 2 else \
+        (nu.nufft_spread3, nu.nufft_interp3)
+    a = torch.from_numpy(rng.standard_normal((3001, 2)).astype(
+        np.float32)).cuda()
+    f = torch.from_numpy(rng.standard_normal(N + (2,)).astype(
+        np.float32)).cuda()
+    for name, arg, kern in (("apply", a, spread), ("adjoint", f, interp)):
+        n0 = kern.launches
+        got = getattr(op, name)(arg).to_local()
+        assert kern.launches - n0 == 1
+        want = getattr(ref, name)(arg)
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_sharded_nufft3_launches(nccl1):
+    """ShardedNUFFT3 at world size 1 with Q z-blocks: Q spreads and Q
+    interps an apply; the result matches a float64 direct sum within
+    1e-4 of its largest magnitude (eps 1e-6 at f32)."""
+    from pyxu_tpu_torch.operator.linop.nufft import nudft3
+    from pyxu_tpu_torch.parallel import ShardedNUFFT3
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-1.5, 1.5, (2000, 3))
+    z = rng.uniform(-20, 20, (1500, 3))
+    op = ShardedNUFFT3(x, z, nccl1, fft_mem_mb=0.05, dtype=torch.float32)
+    Q = op.stats()["n_z_blocks"]
+    assert Q > 1 and op.kernel_path == "kernel"
+    a = torch.from_numpy(rng.standard_normal((2000, 2)).astype(np.float32))
+    s0, i0 = nu.nufft_spread3.launches, nu.nufft_interp3.launches
+    got = op.apply(a.cuda()).to_local()
+    assert (nu.nufft_spread3.launches - s0, nu.nufft_interp3.launches - i0) \
+        == (Q, Q)
+    c = a.double().numpy()
+    want = nudft3(c[:, 0] + 1j * c[:, 1], x, z)
+    err = np.abs(got.cpu().double().numpy() @ np.array([1, 1j]) - want)
+    assert err.max() <= 1e-4 * np.abs(want).max()
