@@ -201,9 +201,11 @@ Phases:
    one segment (a warm fit, the best of two timed fits; printed as
    ``consensus_admm_8x512_1dev``) and at 1.07 G pixels, 64 tiles of
    4096x4096, 50 iterations (a warm fit of 2, one timed fit): it/s,
-   device ms an iteration (``torch.profiler``: each tile's prox is a CG
-   that reads its flag on the host), host reads an iteration, idle share,
-   peak memory, no kernel launched, z against the closed form
+   device ms an iteration (``torch.profiler``: the tiles' proxes are one
+   CG over the stacked tiles, the separable sum's ``batched_path``
+   "quadratic" (asserted), which reads its flag on the host once a
+   check), host reads an iteration (asserted at most 1), idle share, peak
+   memory, no kernel launched, z against the closed form
    soft(mean y, lam/2) (asserted within 1e-4 after 1000 iterations); the
    2-tile 64x48 form card vs CPU (2e-4 of max|z|).  Out-of-core TV
    (``StreamedCondatVu``) at 16384x16384 f32 with workload 1's 9-tap blur,
@@ -225,6 +227,22 @@ Phases:
    ``ooc_launches``); the JSON line ``consensus_admm_8x512_1dev``,
    ``consensus_admm_64x4096_1dev``, ``ooc_tv_16k_s_per_iter`` and
    ``parallel``.
+18. 3-channel chromatic deblurring at 2160x3840 (``chromatic_phase``): a
+   simple lens blurs each colour channel by its own 9-tap Gaussian (sigma
+   1.2, 1.6, 2.0; Heide et al., ACM TOG 32(5), 2013), composed through the
+   public API as ``K = block_diag`` of the channels' Stencils (its
+   ``batched_path`` "stencil" asserted), ``SquaredL2Norm.asloss(y) * K``
+   and ``lam L1Norm``, solved by FISTA (``PGD``), 300 iterations in f32
+   from seed 0: 2 launches an iteration of the stencil kernel with a tap
+   set a channel (asserted; a loop over the channels would make 6), it/s,
+   device ms an iteration, the kernel's part and the idle share; the
+   3x64x48 form card vs CPU (2e-4).  Phase 2 holds that kernel against its
+   plain version at 8x512x512 (8 sigmas) and 3x2160x3840 (the path's
+   sigmas), apply and adjoint in both modes, f32 (1e-5 max|x|, timed,
+   beside the single-tap-set launch on the same batch and one grouped
+   ``conv2d``) and f64 (1e-12 max|x|).  The stencil's entry on the
+   ``kernels`` line gains ``chromatic_launches``, ``chromatic`` and
+   ``members``; the JSON line ``chromatic_4k_it_per_s``.
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -361,6 +379,17 @@ CONS_SMALL, CONS_SMALL_ITERS = (64, 48), 100
 OOC_SHAPE, OOC_BLOCK, OOC_ITERS, OOC_LAM = (16384, 16384), 2048, 3, 0.01
 SH3_N, SH3_M = (64, 64, 64), 2 ** 18
 T3S_M, T3S_K, T3S_MB = 100_000, 100_000, 1.0
+# the stencil kernel with a tap set a member (phase 2) and the chromatic
+# deblurring path (phase 18): a simple lens whose blur differs by colour
+# channel (Heide et al., "High-quality computational imaging through simple
+# lenses", ACM TOG 32(5), 2013), a 9-tap Gaussian of each sigma a channel;
+# the point sources' density, the L1 weight, the noise, the card-vs-CPU
+# form; the per-member kernel's second shape, 8 members of 512x512
+CHROMA_SIGMAS = (1.2, 1.6, 2.0)
+CHROMA_DENSITY, CHROMA_LAM, CHROMA_NOISE = 0.01, 0.01, 0.01
+CHROMA_SMALL, CHROMA_SMALL_ITERS = (64, 48), 100
+MEMBERS_SMALL, MEMBERS_SMALL_SIGMAS = (8, 512, 512), (1.0, 1.2, 1.4, 1.6,
+                                                      1.8, 2.0, 2.2, 2.4)
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
                                # takes to enqueue one timed run
 
@@ -691,6 +720,99 @@ def hessian_taps_phase(st, x):
               f"{rec['library_ms']:.4f} (max_abs_diff to the kernel "
               f"{err:.3e})", flush=True)
         out[name] = rec
+    return out
+
+
+def _gauss9(sigma):
+    """The 9-tap Gaussian of ``sigma``, normalised, in float32."""
+    import numpy as np
+    k = np.exp(-0.5 * ((np.arange(9) - 4) / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def _member_taps(st, sigmas, mode):
+    return st.MemberTaps([st.SepTaps(tuple(map(float, _gauss9(s))), 4,
+                                     tuple(map(float, _gauss9(s))), 4, mode)
+                          for s in sigmas])
+
+
+def members_phase(st):
+    """The stencil kernel with a tap set a member against its plain
+    version (apply and adjoint, both modes; f32 within 1e-5 max|x| and f64
+    within 1e-12 max|x|, the taps' sums being 1) at 8x512x512 (8 sigmas)
+    and 3x2160x3840 (the chromatic path's 3 sigmas), 9 taps: the kernel's
+    and the plain version's ms in f32, the single-tap-set launch's ms on
+    the same batch, the byte bound, and one grouped ``conv2d`` of the
+    constant-mode apply (cuDNN, TF32 off).  Returns a record per shape."""
+    assert not torch.backends.cudnn.allow_tf32
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for shape, sigmas in ((MEMBERS_SMALL, MEMBERS_SMALL_SIGMAS),
+                          ((len(CHROMA_SIGMAS),) + SHAPE, CHROMA_SIGMAS)):
+        tag = "x".join(map(str, shape))
+        x32 = torch.rand(shape, generator=gen, device="cuda")
+        rec = {}
+        for x in (x32, x32.double()):
+            f64 = x.dtype == torch.float64
+            tol = (1e-12 if f64 else 1e-5) * float(x.abs().max())
+            for mode in ("constant", "symmetric"):
+                mt = _member_taps(st, sigmas, mode)
+                for adj in (False, True):
+                    name = f"{mode}{'-adjoint' if adj else ''}"
+
+                    def kern(mt=mt, adj=adj, x=x):
+                        return st.separable_correlate2d_members(x, mt, adj)
+
+                    def plain(mt=mt, adj=adj, x=x):
+                        return st.separable_correlate2d_members_plain(
+                            x, mt, adj)
+                    err = float((kern() - plain()).abs().max())
+                    torch.cuda.synchronize()
+                    ok = err <= tol
+                    print(f"[kernel] stencil members {tag}"
+                          f"{' f64' if f64 else ''}[{name}] max_abs_err="
+                          f"{err:.3e} tol {tol:.3e}: "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        raise SystemExit(f"stencil members {tag}[{name}] "
+                                         "disagrees with its plain version")
+                    if f64:
+                        rec[f"f64 {name}"] = dict(max_abs_err=err)
+                        continue
+                    p0 = mt.taps[0]
+                    rec[name] = r = dict(
+                        max_abs_err=err, ms=_time_ms(kern),
+                        plain_ms=_time_ms(plain, reps=5),
+                        single_ms=_time_ms(
+                            lambda p0=p0, adj=adj: st.separable_correlate2d(
+                                x, p0, adj)))
+                    print(f"[kernel] stencil members {tag}[{name}] ms="
+                          f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                          f"single-tap-set launch on the batch "
+                          f"{r['single_ms']:.4f} ms", flush=True)
+        elem = x32.element_size()
+        t_b = 2 * x32.numel() * elem / HBM_BYTES_PER_S
+        t_o = 2 * 18 * x32.numel() / F32_FLOPS_PER_S
+        rec["bound_ms"] = max(t_b, t_o) * 1e3
+        rec["bound_by"] = "bytes" if t_b >= t_o else "operations"
+        # grouped conv2d: one group a member, the constant-mode apply
+        w = torch.stack([torch.outer(torch.from_numpy(_gauss9(s)),
+                                     torch.from_numpy(_gauss9(s)))
+                         for s in sigmas]).to(x32)[:, None]
+        x4 = x32[None]
+
+        def lib_call():
+            return torch.nn.functional.conv2d(x4, w, padding=4,
+                                              groups=len(sigmas))
+        diff = float((lib_call()[0] - st.separable_correlate2d_members(
+            x32, _member_taps(st, sigmas, "constant"))).abs().max())
+        rec["library_ms"] = _time_ms(lib_call)
+        print(f"[kernel] stencil members {tag}: bound_ms="
+              f"{rec['bound_ms']:.4f} ({rec['bound_by']}); grouped conv2d "
+              f"library_ms={rec['library_ms']:.4f} (max_abs_diff to the "
+              f"kernel {diff:.3e})", flush=True)
+        out[tag] = rec
+        del x32, x4
     return out
 
 
@@ -2639,8 +2761,9 @@ def consensus_phase(st, nu, MaxIter):
     from pyxu_tpu_torch.operator.func import L1Norm, SquaredL2Norm
     from pyxu_tpu_torch.parallel import ConsensusADMM
     from pyxu_tpu_torch.runtime import host_read
-    counters = [st.separable_correlate2d, nu.nufft_spread2,
-                nu.nufft_interp2, nu.nufft_spread3, nu.nufft_interp3]
+    counters = [st.separable_correlate2d, st.separable_correlate2d_members,
+                nu.nufft_spread2, nu.nufft_interp2, nu.nufft_spread3,
+                nu.nufft_interp3]
     out = {}
     # the bench's leg: a warm fit and the best of two; the giga-pixel
     # form: a short warm fit and one timed fit
@@ -2656,6 +2779,8 @@ def consensus_phase(st, nu, MaxIter):
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
         assert slv._mesh is not None and slv._mesh.size() == 1
+        # the tiles' proxes: one CG over the stacked tiles
+        assert slv._fsum.batched_path == "quadratic", slv._fsum.batched_path
         _reset(counters)
         torch.cuda.reset_peak_memory_stats()
         reads0 = host_read.count
@@ -2673,8 +2798,8 @@ def consensus_phase(st, nu, MaxIter):
         obj = float(slv.objective_func(slv._mstate))
         assert obj < obj0, (obj, obj0)
         state = slv._mstate
-        # the per-tile prox is a CG that reads its flag on the host: the
-        # profiler's kernel time, not events around calls that wait
+        # the tiles' CG reads its flag on the host: the profiler's kernel
+        # time, not events around calls that wait
         with torch.no_grad():
             dev_ms = _profiled_device_ms(lambda: slv.m_step(state),
                                          10 if n_tiles == CONS_TILES else 2)
@@ -2688,12 +2813,15 @@ def consensus_phase(st, nu, MaxIter):
               f"{reads:.1f} an iteration; peak {peak_gb:.2f} GiB; set-up "
               f"{setup:.2f} s; "
               f"max|z - soft(mean y, lam/2)| {gap:.3e}; objective "
-              f"{obj0:.6e} -> {obj:.6e}; no kernel launched", flush=True)
+              f"{obj0:.6e} -> {obj:.6e}; batched_path "
+              f"{slv._fsum.batched_path}; no kernel launched", flush=True)
         if iters == CONS_ITERS:     # converged: the closed form
             assert gap <= 1e-4, gap
+        assert reads <= 1.0, reads
         out[name] = dict(rate=rate, device_ms=dev_ms, host_ms=host_ms,
                          idle=idle, peak_gib=peak_gb, setup_s=setup, gap=gap,
-                         host_reads_per_iter=reads)
+                         host_reads_per_iter=reads,
+                         batched_path=slv._fsum.batched_path)
         del slv, fit, ex, state, z, ybar, z_star
         torch.cuda.empty_cache()
     # the 2-tile 64x48 form, card (the mesh of one rank) vs CPU (no mesh)
@@ -2979,6 +3107,89 @@ def sharded_ops_phase(st, nu, mesh):
     return dict(worst=worst, launches=launches, Q=Q)
 
 
+def _chromatic_problem(shape, device):
+    """The chromatic deblurring of phase 18 from the public API: point
+    sources (density ``CHROMA_DENSITY``) of a random colour each, drawn from
+    ``numpy.random.default_rng(0)``, blurred channel by channel by a 9-tap
+    Gaussian of each of ``CHROMA_SIGMAS`` (symmetric padding), K =
+    ``block_diag`` of the channels' Stencils, y = K x + ``CHROMA_NOISE`` n;
+    f = ||K x - y||^2 (a QuadraticFunc over K's gram), g = ``CHROMA_LAM``
+    ||x||_1, by FISTA (``PGD``).  Returns ``(solver, K, y)``."""
+    import numpy as np
+    from pyxu_tpu_torch.operator import (L1Norm, SquaredL2Norm, Stencil,
+                                         block_diag)
+    from pyxu_tpu_torch.opt.solver import PGD
+    rng = np.random.default_rng(0)
+    full = (len(CHROMA_SIGMAS),) + tuple(shape)
+    where = rng.random(shape) < CHROMA_DENSITY
+    colour = rng.uniform(0.2, 1.0, full)
+    xt = torch.from_numpy((where * colour).astype(np.float32)).to(device)
+    n = rng.standard_normal(full).astype(np.float32)
+    K = block_diag([Stencil(shape, [_gauss9(s), _gauss9(s)], [4, 4],
+                            mode="symmetric") for s in CHROMA_SIGMAS])
+    y = K.apply(xt) + CHROMA_NOISE * torch.from_numpy(n).to(device)
+    f = SquaredL2Norm(full).asloss(y) * K
+    g = CHROMA_LAM * L1Norm(full)
+    return PGD(f=f, g=g, stop_rate=STOP_RATE), K, y
+
+
+def chromatic_phase(st, MaxIter):
+    """Phase 18: 3-channel chromatic deblurring at 2160x3840 by FISTA on
+    the stencil kernel with a tap set a channel (see the module
+    docstring)."""
+    slv, K, y = _chromatic_problem(SHAPE, "cuda")
+    assert K.batched_path == "stencil" and not K._members.equal
+    x0 = torch.zeros_like(y)
+    slv.fit(x0=x0, stop_crit=MaxIter(STOP_RATE), max_iter=STOP_RATE)  # warm
+    counters = [st.separable_correlate2d, st.separable_correlate2d_members]
+    _reset(counters)
+    dt = _timed_fit(slv, PATH_ITERS, x0=x0, stop_crit=MaxIter(PATH_ITERS),
+                    max_iter=PATH_ITERS)
+    launches = st.separable_correlate2d_members.launches
+    # K^T K x in f's gradient: K and K^T, one launch each, an iteration
+    # (a member at a time: 6)
+    assert launches == 2 * PATH_ITERS, launches
+    assert st.separable_correlate2d.launches == 0
+    xs = slv.solution()
+    assert xs.shape == y.shape and bool(torch.isfinite(xs).all())
+    obj0 = float(slv.objective_func({"x": x0}))
+    obj = float(slv.objective_func(slv._mstate))
+    assert obj < obj0, (obj, obj0)
+    rate = PATH_ITERS / dt
+    state = slv._mstate
+    with torch.no_grad():
+        dev_ms = _time_ms(lambda: slv.m_step(state), reps=10)
+        sten_ms = sum(_time_ms(
+            lambda adj=adj: st.separable_correlate2d_members(
+                xs, K._members.taps, adj)) for adj in (False, True))
+    host_ms = 1e3 * dt / PATH_ITERS
+    idle = 1 - dev_ms / host_ms
+    print(f"[chromatic] 3x{SHAPE[0]}x{SHAPE[1]}: {PATH_ITERS} iterations in "
+          f"{dt:.4f} s: {rate:.2f} it/s; batched_path {K.batched_path}; "
+          f"stencil launches {launches} (2 an iteration, per-member taps); "
+          f"objective {obj0:.6e} -> {obj:.6e}; nnz {int((xs != 0).sum())}",
+          flush=True)
+    print(f"[breakdown] chromatic 3x{SHAPE[0]}x{SHAPE[1]}: per iteration "
+          f"device {dev_ms:.4f} ms, stencil kernel {sten_ms:.4f} ms "
+          f"({sten_ms / dev_ms:.1%}), other kernels {dev_ms - sten_ms:.4f} "
+          f"ms; host {host_ms:.4f} ms, device idle {idle:.1%}", flush=True)
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        s, _, ys = _chromatic_problem(CHROMA_SMALL, dev)
+        s.fit(x0=torch.zeros_like(ys), stop_crit=MaxIter(CHROMA_SMALL_ITERS),
+              max_iter=CHROMA_SMALL_ITERS)
+        sols[dev] = s.solution().cpu()
+    diff = float((sols["cuda"] - sols["cpu"]).abs().max())
+    peak = max(1.0, float(sols["cpu"].abs().max()))
+    print(f"[chromatic] 3x{CHROMA_SMALL[0]}x{CHROMA_SMALL[1]}, "
+          f"{CHROMA_SMALL_ITERS} iterations card vs CPU: max_abs_diff="
+          f"{diff:.3e} (tol {2e-4 * peak:.1e})", flush=True)
+    assert diff <= 2e-4 * peak, (diff, peak)
+    return dict(rate=rate, launches=launches, device_ms=dev_ms,
+                stencil_ms=sten_ms, host_ms=host_ms, idle=idle,
+                objective=obj, small_diff=diff)
+
+
 def parallel_phase(st, nu, MaxIter):
     """Phase 17: the parallel layer on the card over a NCCL group of world
     size 1 (see the module docstring)."""
@@ -3089,6 +3300,7 @@ def main() -> int:
     st_recs, st_recs64, st_sweep, st_library_ms = stencil_phase(
         st, ex["K"]._taps, x)
     hess_recs = hessian_taps_phase(st, x)
+    members_recs = members_phase(st)
     _mark("kernel phase")
 
     # ---- phase 3: the TV path ------------------------------------------
@@ -3201,6 +3413,10 @@ def main() -> int:
     par = parallel_phase(st, nu, MaxIter)
     _mark("parallel phase")
 
+    # ---- phase 18: 3-channel chromatic deblurring, per-member taps ------
+    chroma = chromatic_phase(st, MaxIter)
+    _mark("chromatic phase")
+
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -3250,6 +3466,12 @@ def main() -> int:
         "ooc_launches": par["ooc"]["launches"],
         "ooc_band": par["ooc"]["band_check"],
         "sharded_launches": par["sharded"]["launches"]["stencil"],
+        # phase 18: the timed chromatic fit's launches (a tap set a
+        # channel), and the per-member kernel at 8x512^2 and 3x4K (phase 2)
+        "chromatic_launches": chroma["launches"],
+        "chromatic": {k: chroma[k] for k in ("stencil_ms", "device_ms",
+                                             "host_ms", "idle")},
+        "members": members_recs,
         "hf": {k: hf[k] for k in ("stencil_ms", "device_ms", "host_ms",
                                   "idle")},
         "hessian_taps": {
@@ -3337,6 +3559,7 @@ def main() -> int:
                       "consensus_admm_64x4096_1dev": par["consensus"][
                           "consensus_admm_64x4096_1dev"]["rate"],
                       "ooc_tv_16k_s_per_iter": par["ooc"]["sec_per_iter"],
+                      "chromatic_4k_it_per_s": chroma["rate"],
                       "parallel": par,
                       "engine": engine}),
           flush=True)

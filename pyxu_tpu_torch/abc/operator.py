@@ -372,6 +372,9 @@ class QuadraticFunc(ProxDiffFunc):
     _prox_rtol = None
     _prox_maxiter = None
     _prox_precond = None
+    # t is an array leaf of the JAX package's pytree even where it is a
+    # Python float here (``operator/blocks.py`` homogeneity)
+    _batch_scalars = ("_t",)
 
     @classmethod
     def properties(cls) -> frozenset:
@@ -402,16 +405,21 @@ class QuadraticFunc(ProxDiffFunc):
         b = arr - tau * self._c.grad(arr)
         pre = self._prox_precond
         precond = None if pre is None else (lambda r: pre(r, tau))
+        rtol, maxiter = self._prox_budget(arr.dtype)
+        return cg_solve(lambda p: p + tau * self._Q.apply(p), b, x0=arr,
+                        rtol=rtol, maxiter=maxiter, precond=precond)
+
+    def _prox_budget(self, dtype) -> tuple:
+        """The prox CG's (rtol, maxiter) at ``dtype``."""
         # an rtol below working precision never fires and burns maxiter;
         # floored at 1e-6 so that float64 does not tighten it 8 orders
         rtol = self._prox_rtol
         if rtol is None:
-            rtol = max(100.0 * torch.finfo(arr.dtype).eps, 1e-6)
+            rtol = max(100.0 * torch.finfo(dtype).eps, 1e-6)
         maxiter = self._prox_maxiter
         if maxiter is None:
             maxiter = min(max(2 * self.dim_size, 20), 500)
-        return cg_solve(lambda p: p + tau * self._Q.apply(p), b, x0=arr,
-                        rtol=rtol, maxiter=maxiter, precond=precond)
+        return rtol, maxiter
 
     def estimate_diff_lipschitz(self, **kwargs) -> float:
         self._diff_lipschitz = self._Q.estimate_lipschitz(**kwargs)

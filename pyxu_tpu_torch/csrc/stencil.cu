@@ -73,6 +73,20 @@
 // (256x256: 4-row strips, 64 blocks of 2 warps).  ops/stencil.py
 // (launch_plan) mirrors the geometry.
 //
+// Per-member taps (stencil_launch_members): N tap sets with one centre,
+// tap counts and mode, in device memory (N x L0 and N x L1, in the
+// storage type).  Image b of the launch takes member b % N's taps, and
+// reads input image b / x_rep (x_rep = N: every member correlates the same
+// input, a stack's apply; x_rep = 1: image b's own, a block-diagonal
+// operator).  A block loads its member's taps into shared memory, and the
+// unrolled path copies them into registers, so the arithmetic and its
+// order are those of the single-tap-set launch: the same taps give the
+// same bits.  It is the counterpart of the JAX package's jax.vmap over a
+// family of Stencils' taps (pyxu_tpu/operator/blocks.py), whose
+// correlations run as one batched XLA op; it replaces no Pallas call of
+// its own (separable_correlate2d, above, takes one tap set).  Bound: the
+// same bytes as B single launches, the taps' N (L0 + L1) values besides.
+//
 // Reads never leave the image plane: rows and columns map through the
 // boundary into [0, n), and halo columns beyond h of the image are never
 // read.  Test builds define ST_COUNT_STRAY_READS: a read whose address
@@ -130,6 +144,10 @@ struct StArgs {
   int H, W;
   int reflect;         // load outside the image through the symmetric map
   int fold;            // add the symmetric fold-back's ghost terms
+  const void* mk0;     // per-member taps (N x L0, N x L1), or unused
+  const void* mk1;
+  int members;         // N: image b takes member b % N's taps
+  int x_rep;           // image b reads input image b / x_rep
 };
 
 // launch geometry, computed on the host (st_plan)
@@ -334,17 +352,28 @@ __device__ __forceinline__ void st_prefetch(T* ring, const T* __restrict__ x,
   st_commit();
 }
 
-// The unrolled path: LK taps on both axes; SUB = (H1 - c1) mod RV.
-template <typename T, int LK, int SUB>
+// The unrolled path: LK taps on both axes; SUB = (H1 - c1) mod RV.  PM:
+// the taps of the block's member, from the shared k0s / k1s into
+// registers; otherwise from the kernel's parameters.
+template <typename T, int LK, int SUB, bool PM>
 __device__ __forceinline__ void st_stream_fixed(
     const T* __restrict__ x, T* __restrict__ y, const StArgs& a,
-    const StGeom& g, T* ring, int band, const StStrip& sp, int lane) {
+    const StGeom& g, const T* k0s, const T* k1s, T* ring, int band,
+    const StStrip& sp, int lane) {
   constexpr int V = 16 / sizeof(T);
   constexpr int RV = ST_CPT < V ? ST_CPT : V;   // vector of a lane's reads
   constexpr int NW = (SUB + ST_CPT - 1 + LK + RV - 1) / RV * RV;
   const int q0 = band * ST_BW;
   const int base = ST_CPT * lane + g.H1 - a.c1 - SUB;
   const int qo = q0 + ST_CPT * lane;
+  T tk0[LK], tk1[LK];
+  if constexpr (PM) {
+#pragma unroll
+    for (int t = 0; t < LK; ++t) {
+      tk0[t] = k0s[t];
+      tk1[t] = k1s[t];
+    }
+  }
   T ring_r[LK][ST_CPT];
 #pragma unroll 1
   for (int j = 0; j < ST_NBUF - 1; ++j)
@@ -365,7 +394,8 @@ __device__ __forceinline__ void st_stream_fixed(
       for (int k = 0; k < ST_CPT; ++k) {
         T h = T(0);
 #pragma unroll
-        for (int b = 0; b < LK; ++b) h += st_tap<T>(a, 1, b) * w[SUB + k + b];
+        for (int b = 0; b < LK; ++b)
+          h += (PM ? tk1[b] : st_tap<T>(a, 1, b)) * w[SUB + k + b];
         ring_r[u][k] = h;
       }
       if (i >= LK - 1) {
@@ -378,7 +408,8 @@ __device__ __forceinline__ void st_stream_fixed(
             // tap t reads image row s - c0 + t: loop row i - LK + 1 + t
 #pragma unroll
             for (int t = 0; t < LK; ++t)
-              acc += st_tap<T>(a, 0, t) * ring_r[(u + 1 + t) % LK][k];
+              acc += (PM ? tk0[t] : st_tap<T>(a, 0, t)) *
+                     ring_r[(u + 1 + t) % LK][k];
             out[k] = acc;
           }
           T* yrow = y + (long)s * a.W;
@@ -525,19 +556,27 @@ __device__ __forceinline__ void st_edge_tile(const T* __restrict__ x,
 
 // Blocks [0, n_stream) stream (one band and strip a warp); the others, in
 // fold mode only, compute the frame's edge tiles.  blockIdx.y: the image.
-// LK: ST_FAST_L for the unrolled path, 0 for runtime tap counts.
-template <typename T, int LK, int SUB>
+// LK: ST_FAST_L for the unrolled path, 0 for runtime tap counts.  PM: the
+// image's member's taps from device memory (a.mk0, a.mk1).
+template <typename T, int LK, int SUB, bool PM>
 __global__ void __launch_bounds__(32 * ST_WARPS)
 st_kernel(const T* __restrict__ x, T* __restrict__ y, StArgs a, StGeom g) {
   extern __shared__ __align__(16) unsigned char st_smem[];
   __shared__ T k0[ST_MAXL], k1[ST_MAXL];
-  if (threadIdx.x < ST_MAXL) {
-    k0[threadIdx.x] = (T)a.k0[threadIdx.x];
-    k1[threadIdx.x] = (T)a.k1[threadIdx.x];
+  const int t = threadIdx.x;
+  if constexpr (PM) {
+    const long m = blockIdx.y % a.members;
+    if (t < ST_MAXL) {
+      k0[t] = t < a.L0 ? static_cast<const T*>(a.mk0)[m * a.L0 + t] : T(0);
+      k1[t] = t < a.L1 ? static_cast<const T*>(a.mk1)[m * a.L1 + t] : T(0);
+    }
+  } else if (t < ST_MAXL) {
+    k0[t] = (T)a.k0[t];
+    k1[t] = (T)a.k1[t];
   }
   __syncthreads();
   const long plane = (long)a.H * a.W;
-  x += blockIdx.y * plane;
+  x += (PM ? blockIdx.y / a.x_rep : blockIdx.y) * plane;
   y += blockIdx.y * plane;
   T* S = reinterpret_cast<T*>(st_smem);
   const int blk = blockIdx.x;
@@ -548,7 +587,8 @@ st_kernel(const T* __restrict__ x, T* __restrict__ y, StArgs a, StGeom g) {
     T* ring = S + warp * g.warp_elems;
     const StStrip sp = st_strip(a, g, w / g.bands, LK ? LK : a.L0);
     if constexpr (LK > 0) {
-      st_stream_fixed<T, LK, SUB>(x, y, a, g, ring, w % g.bands, sp, lane);
+      st_stream_fixed<T, LK, SUB, PM>(x, y, a, g, k0, k1, ring, w % g.bands,
+                                      sp, lane);
     } else {
       st_stream_any<T>(x, y, a, g, k0, k1, ring, w % g.bands, sp, lane);
     }
@@ -624,35 +664,38 @@ static size_t st_plan(const StArgs& a, int B, size_t elem, int aligned,
   return smem;
 }
 
-template <typename T, int LK, int SUB>
+template <typename T, int LK, int SUB, bool PM>
 static int st_launch(const void* x, void* y, int B, const StArgs& a,
                      const StGeom& g, size_t smem, cudaStream_t stream) {
   static size_t opted = 48 * 1024;   // dynamic shared memory opted in to
   if (smem > opted) {
     cudaError_t err = cudaFuncSetAttribute(
-        st_kernel<T, LK, SUB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        st_kernel<T, LK, SUB, PM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted = smem;
   }
   const dim3 grid(g.n_stream + g.n_edge, B);
-  st_kernel<T, LK, SUB><<<grid, 32 * g.warps, smem, stream>>>(
+  st_kernel<T, LK, SUB, PM><<<grid, 32 * g.warps, smem, stream>>>(
       (const T*)x, (T*)y, a, g);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PM>
 static int st_launch_taps(const void* x, void* y, int B, const StArgs& a,
                           const StGeom& g, size_t smem, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   constexpr int RV = ST_CPT < V ? ST_CPT : V;
   if (!(a.L0 == ST_FAST_L && a.L1 == ST_FAST_L))
-    return st_launch<T, 0, 0>(x, y, B, a, g, smem, s);
+    return st_launch<T, 0, 0, PM>(x, y, B, a, g, smem, s);
   switch ((g.H1 - a.c1) % RV) {
-    case 0: return st_launch<T, ST_FAST_L, 0>(x, y, B, a, g, smem, s);
-    case 1: return st_launch<T, ST_FAST_L, 1 % RV>(x, y, B, a, g, smem, s);
-    case 2: return st_launch<T, ST_FAST_L, 2 % RV>(x, y, B, a, g, smem, s);
-    default: return st_launch<T, ST_FAST_L, 3 % RV>(x, y, B, a, g, smem, s);
+    case 0: return st_launch<T, ST_FAST_L, 0, PM>(x, y, B, a, g, smem, s);
+    case 1:
+      return st_launch<T, ST_FAST_L, 1 % RV, PM>(x, y, B, a, g, smem, s);
+    case 2:
+      return st_launch<T, ST_FAST_L, 2 % RV, PM>(x, y, B, a, g, smem, s);
+    default:
+      return st_launch<T, ST_FAST_L, 3 % RV, PM>(x, y, B, a, g, smem, s);
   }
 }
 
@@ -673,6 +716,8 @@ static int st_args(StArgs* a, int H, int W, const double* k0, int L0,
   a->h1 = c1 > L1 - 1 - c1 ? c1 : L1 - 1 - c1;
   a->H = H; a->W = W;
   a->reflect = reflect; a->fold = fold;
+  a->mk0 = a->mk1 = nullptr;
+  a->members = a->x_rep = 1;
   // one reflection must reach back into the image
   if ((reflect || fold) && (a->h0 > H || a->h1 > W))
     return (int)cudaErrorInvalidValue;
@@ -696,8 +741,35 @@ int stencil_launch(const void* x, void* y, int B, int H, int W, int f64,
   const size_t smem = st_plan(a, B, f64 ? 8 : 4, aligned, &g);
   if (smem > ST_SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (f64) return st_launch_taps<double>(x, y, B, a, g, smem, s);
-  return st_launch_taps<float>(x, y, B, a, g, smem, s);
+  if (f64) return st_launch_taps<double, false>(x, y, B, a, g, smem, s);
+  return st_launch_taps<float, false>(x, y, B, a, g, smem, s);
+}
+
+// y = B correlations of (H, W) images: image b with member b % n_members's
+// taps (k0: n_members x L0, k1: n_members x L1, device arrays in the
+// storage type) of input image b / x_rep of x (x_rep: 1, or n_members
+// when every member reads the same input).  B must be a multiple of
+// n_members.  Returns cudaGetLastError() after the launch.
+int stencil_launch_members(const void* x, void* y, int B, int H, int W,
+                           int f64, const void* k0, int L0, int c0,
+                           const void* k1, int L1, int c1, int n_members,
+                           int x_rep, int reflect, int fold, void* stream) {
+  if (B < 1 || B > 65535 || n_members < 1 || B % n_members != 0 ||
+      (x_rep != 1 && x_rep != n_members) || !k0 || !k1)
+    return (int)cudaErrorInvalidValue;
+  StArgs a;
+  const int err = st_args(&a, H, W, nullptr, L0, c0, nullptr, L1, c1,
+                          reflect, fold);
+  if (err) return err;
+  a.mk0 = k0; a.mk1 = k1;
+  a.members = n_members; a.x_rep = x_rep;
+  const int aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
+  StGeom g;
+  const size_t smem = st_plan(a, B, f64 ? 8 : 4, aligned, &g);
+  if (smem > ST_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (f64) return st_launch_taps<double, true>(x, y, B, a, g, smem, s);
+  return st_launch_taps<float, true>(x, y, B, a, g, smem, s);
 }
 
 // The geometry stencil_launch would use, into out[10]: bands, strips,

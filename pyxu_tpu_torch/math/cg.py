@@ -10,6 +10,12 @@ keeps the solver engine's contract of one host read per segment
 the convergence flag once every :data:`CHECK_RATE` iterations and stops
 there, so it runs at most ``CHECK_RATE - 1`` frozen iterations past the
 JAX loop's exit.
+
+``members=True`` solves a family of independent systems stacked on a
+leading member axis, with the JAX loop's semantics under ``jax.vmap``: a
+member's step is 0 once its own residual is small, so its result does not
+depend on the other members; the host read (every :data:`CHECK_RATE`
+iterations) is one for the whole family.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ CHECK_RATE = 8      # iterations between host reads of the convergence flag
 
 def cg_solve(matvec, b, x0=None, *, rtol: float = 1e-6, atol: float = 0.0,
              maxiter: int = None, core_ndim: int = None,
-             restart_rate: int = None, precond=None):
+             restart_rate: int = None, precond=None,
+             members: bool = False):
     """Solve ``matvec(x) = b`` for symmetric positive-definite ``matvec``.
 
     ``b``: right-hand side ``(*batch, *core_shape)``; ``core_ndim``: rank
@@ -36,7 +43,12 @@ def cg_solve(matvec, b, x0=None, *, rtol: float = 1e-6, atol: float = 0.0,
     residual norm.  The iterate moves while any batch element's residual
     exceeds ``max(rtol ||b||, atol)``, as the JAX loop's does; budgets
     above :data:`CHECK_RATE` stop at the first check that finds none.
+    ``members``: axis 0 indexes independent systems, each over all the
+    other axes (``core_ndim`` is then ``b.ndim - 1``), and each one's step
+    is 0 once its own residual is small.
     """
+    if members:
+        core_ndim = b.ndim - 1
     core_ndim = b.ndim if core_ndim is None else core_ndim
     axes = tuple(range(b.ndim - core_ndim, b.ndim))
     if maxiter is None:
@@ -63,16 +75,18 @@ def cg_solve(matvec, b, x0=None, *, rtol: float = 1e-6, atol: float = 0.0,
     tol2 = torch.clamp(rtol * rtol * dot(b, b), min=atol * atol)
     eps = torch.finfo(b.dtype).tiny
     for k in range(int(maxiter)):
-        # once every residual is small the step is 0: x and r stay as they
-        # are, and so do rz and rs (p still moves, but is never used again)
-        active = torch.any(rs > tol2)
+        # once every residual (a member's own, with ``members``) is small
+        # the step is 0: x and r stay as they are, and so do rz and rs (p
+        # still moves, but is never used again)
+        active = rs > tol2 if members else torch.any(rs > tol2)
         Ap = matvec(p)
         denom = dot(p, Ap)
         alpha = torch.where(active & (denom > eps),
                             rz / torch.clamp(denom, min=eps), 0.0)
         x = x + bcast(alpha) * p
         if restart_rate < maxiter and (k + 1) % restart_rate == 0:
-            r = torch.where(active, b - matvec(x), r)
+            r = torch.where(bcast(active) if members else active,
+                            b - matvec(x), r)
         else:
             r = r - bcast(alpha) * Ap
         z = M(r)

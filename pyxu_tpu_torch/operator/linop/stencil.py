@@ -110,6 +110,10 @@ def _sep_taps(kernels, centers, mode: str):
 class Stencil(SquareOp):
     """Correlation with boundary handling."""
 
+    # derived from the taps (``operator/blocks.py`` homogeneity compares
+    # the taps themselves, as the JAX package's array leaves)
+    _batch_derived = ("_taps", "_axes")
+
     def __init__(self, dim_shape, kernel, center, mode: str = "constant"):
         dim_shape = as_canonical_shape(dim_shape)
         super().__init__(dim_shape)

@@ -15,7 +15,15 @@ with ``m`` the boundary map of ``mode``: zero outside the image
 * :func:`separable_correlate2d` — the wrapper.  On a CUDA tensor it launches
   the hand-written kernel of ``csrc/stencil.cu`` (or raises); on a CPU
   tensor it runs the plain version.  ``separable_correlate2d.launches``
-  counts kernel launches.
+  counts kernel launches;
+* :func:`separable_correlate2d_members` and its plain version
+  :func:`separable_correlate2d_members_plain` — N correlations with one
+  centre, tap counts and mode but a tap set each (:class:`MemberTaps`),
+  image ``b`` of the batch taking member ``b % N``'s taps: the counterpart
+  of the JAX package's ``jax.vmap`` over a family of Stencils' taps
+  (``pyxu_tpu/operator/blocks.py``), one launch of the same kernel with
+  the taps in device memory.  ``separable_correlate2d_members.launches``
+  counts its launches.
 
 The kernel takes float32 and float64, constant and symmetric modes, and at
 most ``_MAX_TAPS`` taps per axis; :func:`kernel_takes` is the rule a
@@ -38,11 +46,14 @@ from pyxu_tpu_torch.ops._guard import refuse_autodiff
 
 __all__ = [
     "SepTaps",
+    "MemberTaps",
     "kernel_takes",
     "fwd_axis",
     "adj_axis",
     "separable_correlate2d_plain",
     "separable_correlate2d",
+    "separable_correlate2d_members_plain",
+    "separable_correlate2d_members",
     "launch_plan",
     "kernel_plan",
     "edge_rects",
@@ -78,6 +89,42 @@ class SepTaps:
                 max(self.c1, len(self.k1) - 1 - self.c1))
 
 
+class MemberTaps:
+    """N tap sets of 2-D separable correlations that share their centres,
+    tap counts and boundary mode: ``k0`` ``(N, L0)``, ``k1`` ``(N, L1)``
+    (host float64).  The kernel reads them from device memory, cached per
+    device, dtype and direction."""
+
+    def __init__(self, taps):
+        taps = list(taps)
+        p = taps[0]
+        if any((q.c0, q.c1, len(q.k0), len(q.k1), q.mode)
+               != (p.c0, p.c1, len(p.k0), len(p.k1), p.mode) for q in taps):
+            raise ValueError("member taps differ in centre, count or mode")
+        self.k0 = np.array([q.k0 for q in taps], dtype=np.float64)
+        self.k1 = np.array([q.k1 for q in taps], dtype=np.float64)
+        self.c0, self.c1, self.mode = p.c0, p.c1, p.mode
+        self.taps = tuple(taps)
+        self._dev = {}
+
+    @property
+    def n(self) -> int:
+        return len(self.taps)
+
+    def device_taps(self, device, dtype, adjoint: bool) -> tuple:
+        """``(k0, k1)`` of the kernel's correlation on ``device`` in
+        ``dtype``: the adjoint's taps flipped."""
+        key = (torch.device(device), dtype, adjoint)
+        hit = self._dev.get(key)
+        if hit is None:
+            k0, k1 = ((self.k0[:, ::-1], self.k1[:, ::-1]) if adjoint
+                      else (self.k0, self.k1))
+            hit = self._dev[key] = tuple(
+                torch.tensor(np.ascontiguousarray(k), dtype=dtype,
+                             device=device) for k in (k0, k1))
+        return hit
+
+
 def kernel_takes(p: SepTaps) -> bool:
     """Whether the kernel computes this correlation: a mode it takes and at
     most ``_MAX_TAPS`` taps per axis (so the halo fits its tile)."""
@@ -87,6 +134,15 @@ def kernel_takes(p: SepTaps) -> bool:
 
 # ------------------------------------------------------------ plain version --
 
+def _tap(k, t):
+    """Tap ``t`` of ``k``: a Python float, or for member taps (a tensor
+    ``(L, N)``) a tensor that broadcasts over the member axis, the third
+    from last."""
+    if isinstance(k, torch.Tensor):
+        return k[t].reshape(-1, 1, 1)
+    return float(k[t])
+
+
 def fwd_axis(x, k, c, ax, mode):
     """Correlation along axis ``ax``: pad(mode) then a weighted sum of
     shifted slices."""
@@ -94,7 +150,7 @@ def fwd_axis(x, k, c, ax, mode):
     xp = pad_axis(x, ax, c, L - 1 - c, mode)
     out = None
     for t in range(L):
-        term = float(k[t]) * xp.narrow(ax, t, n)
+        term = _tap(k, t) * xp.narrow(ax, t, n)
         out = term if out is None else out + term
     return out
 
@@ -106,7 +162,7 @@ def adj_axis(r, k, c, ax, mode):
     rp = pad_axis(r, ax, L - 1, L - 1, "constant")
     out = None
     for t in range(L):
-        term = float(k[L - 1 - t]) * rp.narrow(ax, t, n + L - 1)
+        term = _tap(k, L - 1 - t) * rp.narrow(ax, t, n + L - 1)
         out = term if out is None else out + term
     return pad_axis_adjoint(out, ax, c, L - 1 - c, n, mode)
 
@@ -120,6 +176,31 @@ def separable_correlate2d_plain(x, p: SepTaps, adjoint: bool = False):
                         p.mode)
     return fwd_axis(fwd_axis(x, p.k0, p.c0, a0, p.mode), p.k1, p.c1, a1,
                     p.mode)
+
+
+def _member_input(x, mt: MemberTaps, shared_input: bool):
+    """``x`` with the member axis (third from last): a shared input
+    ``(..., H, W)`` broadcast to ``(..., N, H, W)``."""
+    if shared_input:
+        return x.unsqueeze(-3).expand(x.shape[:-2] + (mt.n,) + x.shape[-2:])
+    return x
+
+
+def separable_correlate2d_members_plain(x, mt: MemberTaps,
+                                        adjoint: bool = False,
+                                        shared_input: bool = False):
+    """Member ``i``'s correlation of image ``(..., i, :, :)`` of ``x``
+    ``(..., N, H, W)``, in its dtype; ``shared_input``: ``x`` is ``(...,
+    H, W)``, each member's input, and the result ``(..., N, H, W)``."""
+    x = _member_input(x, mt, shared_input)
+    k0, k1 = (torch.as_tensor(k.T, dtype=x.dtype, device=x.device)
+              for k in (mt.k0, mt.k1))
+    a0, a1 = x.ndim - 2, x.ndim - 1
+    if adjoint:
+        return adj_axis(adj_axis(x, k0, mt.c0, a0, mt.mode), k1, mt.c1, a1,
+                        mt.mode)
+    return fwd_axis(fwd_axis(x, k0, mt.c0, a0, mt.mode), k1, mt.c1, a1,
+                    mt.mode)
 
 
 # ---------------------------------------------------------- launch geometry --
@@ -207,6 +288,11 @@ def _library(defines: tuple = ()):
         taps, ctypes.c_int, ctypes.c_int, taps, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.stencil_launch.restype = ctypes.c_int
+    lib.stencil_launch_members.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.stencil_launch_members.restype = ctypes.c_int
     lib.stencil_plan.argtypes = [ctypes.c_int] * 10 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.stencil_plan.restype = ctypes.c_int
@@ -252,6 +338,50 @@ def separable_correlate2d(x, p: SepTaps, adjoint: bool = False):
     _check(x, p)
     separable_correlate2d.launches += 1
     return _launch(_library()[0], x, p, adjoint)
+
+
+def separable_correlate2d_members(x, mt: MemberTaps, adjoint: bool = False,
+                                  shared_input: bool = False):
+    """:func:`separable_correlate2d_members_plain`'s function: one launch of
+    the kernel with per-member taps for CUDA tensors, the plain version for
+    CPU tensors."""
+    if x.device.type == "cpu":
+        return separable_correlate2d_members_plain(x, mt, adjoint,
+                                                   shared_input)
+    p = mt.taps[0]
+    _check(x, p)
+    if not shared_input and (x.ndim < 3 or x.shape[-3] != mt.n):
+        raise ValueError(f"shape {tuple(x.shape)}: want (..., {mt.n}, H, W)")
+    n_out = x.numel() // (x.shape[-2] * x.shape[-1]) * (
+        mt.n if shared_input else 1)
+    if n_out > 65535:
+        raise ValueError("at most 65535 images per launch")
+    separable_correlate2d_members.launches += 1
+    return _launch_members(_library()[0], x, mt, adjoint, shared_input)
+
+
+def _launch_members(lib, x, mt: MemberTaps, adjoint: bool,
+                    shared_input: bool):
+    """One launch of ``lib``'s kernel with per-member taps on the checked
+    CUDA tensor ``x``."""
+    _, c0, _, c1 = _kernel_taps(mt.taps[0], adjoint)
+    k0, k1 = mt.device_taps(x.device, x.dtype, adjoint)
+    sym = int(mt.mode == "symmetric")
+    H, W = x.shape[-2:]
+    y = torch.empty(_member_input(x, mt, shared_input).shape,
+                    dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.stencil_launch_members(
+            x.data_ptr(), y.data_ptr(), y.numel() // (H * W), H, W,
+            int(x.dtype == torch.float64), k0.data_ptr(), k0.shape[1], c0,
+            k1.data_ptr(), k1.shape[1], c1, mt.n,
+            mt.n if shared_input else 1, sym * int(not adjoint),
+            sym * int(adjoint), stream)
+    if err != 0:
+        raise RuntimeError(f"stencil_launch_members: CUDA error {err} "
+                           f"({lib.stencil_error_string(err).decode()})")
+    return y
 
 
 def _kernel_taps(p: SepTaps, adjoint: bool):
@@ -305,3 +435,4 @@ def _launch(lib, x, p: SepTaps, adjoint: bool):
 
 
 separable_correlate2d.launches = 0
+separable_correlate2d_members.launches = 0

@@ -13,10 +13,11 @@ Each of the n ranks holds its ``B/n`` blocks of ``x, u`` as plain local
 tensors; ``z`` is replicated.  The mean is a ``dist.all_reduce`` of the
 local sum, divided by B.  With ``mesh=None`` it is the single-process
 solver over all B blocks.  Workload 5's per-block functional
-``SquaredL2Norm.asloss(y)`` is a ``QuadraticFunc``: its prox is a CG
-(``math/cg.py``) that reads its stop flag on the host, and the separable
-sum of ``operator/blocks.py`` runs the blocks' proxes one after another,
-so an iteration makes one host read a local block (the JAX package vmaps
+``SquaredL2Norm.asloss(y)`` is a ``QuadraticFunc`` whose prox is a CG
+(``math/cg.py``); the blocks share their ``Q``, so the separable sum of
+``operator/blocks.py`` takes its ``"quadratic"`` rule: one CG over the
+rank's stacked blocks, each block stopping on its own residual, with one
+host read of the stop flag a check for all of them (the JAX package vmaps
 the blocks' CGs into one program).  ``g = L1Norm``'s prox is elementwise.
 This path launches no hand-written kernel.
 """

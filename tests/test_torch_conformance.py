@@ -8,9 +8,11 @@ self-adjoint, positive-definite and idempotent identities, ``gram`` and
 ``cogram``, ``pinv``'s damped normal equations, ``svdvals``, the quadratic
 spec, ``grad`` against autograd, ``jacobian`` against finite differences,
 prox optimality and Moreau's decomposition, batch broadcasting and dtype
-preservation).  Only the checks an operator's properties call for are
-collected, so none skips.  The dagger's apply is CG, whose code is not
-linear (its steps depend on the data), so autograd cannot transpose it, as
+preservation), on single operators and on a homogeneous ``block_diag`` or
+``stack`` of each batched rule of ``operator/blocks.py``.  Only the checks
+an operator's properties call for are collected, so none skips.  The
+dagger's apply is CG, whose code is not linear (its steps depend on the
+data), so autograd cannot transpose it, as
 ``jax.linear_transpose`` cannot in the JAX suite; its spectrum, and the
 Jacobian's, are held through ``asarray`` rather than by hundreds of
 nested solves or transforms.  No JAX here: ``test_torch_core.py`` and
@@ -77,6 +79,37 @@ def _jacobian(dt):
     return D.jacobian(_mat((3, 4), dt, 5))
 
 
+def _stencils(n, equal=False):
+    """n 2-D separable Stencils on the kernel path (symmetric mode, 3 + 4
+    off-centre taps), with a tap set each or one for all."""
+    ks = [np.random.default_rng(0 if equal else 20 + i).uniform(0.1, 1.0, 7)
+          for i in range(n)]
+    return [tlin.Stencil((6, 7), [k[:3], k[3:]], [1, 2], mode="symmetric")
+            for k in ks]
+
+
+def _blocks(kind, dt):
+    """A homogeneous block_diag or stack of each batched rule of
+    ``operator/blocks.py`` (the rule is asserted)."""
+    import pyxu_tpu_torch.operator as top
+    fam, path = {
+        "diagonal": ([tlin.DiagonalOp(_mat((3, 4), dt, 20 + i).abs() + 0.5)
+                      for i in range(3)], "vmap"),
+        "explicit": ([tlin.ExplicitLinOp(_mat((2, 4), dt, 23 + i))
+                      for i in range(3)], "vmap"),
+        "stencil": (_stencils(3), "stencil"),
+        "stencil_equal": (_stencils(3, equal=True), "stencil"),
+        "quadratic": ([tfunc.SquaredL2Norm((3, 4)).asloss(_mat((3, 4), dt,
+                                                               26 + i))
+                       for i in range(3)], "quadratic"),
+        "l1_shift": ([tfunc.L1Norm((3, 4)).asloss(_mat((3, 4), dt, 29 + i))
+                      for i in range(3)], "vmap"),
+    }[kind[1]]
+    op = (top.stack if kind[0] == "stack" else top.block_diag)(fam)
+    assert op.batched_path == path
+    return op
+
+
 OPS = {
     "identity": lambda dt: tlin.IdentityOp((3, 4)),
     "homothety": lambda dt: tlin.HomothetyOp((3, 4), -1.5),
@@ -100,6 +133,14 @@ OPS = {
     "shift_loss": lambda dt: tfunc.shift_loss(tfunc.SquaredL2Norm((3, 4)),
                                               _mat((3, 4), dt, 11)),
 }
+OPS.update({f"{how}_{kind}": (lambda dt, key=(how, kind): _blocks(key, dt))
+            for how, kind in (("block_diag", "diagonal"),
+                              ("stack", "explicit"),
+                              ("block_diag", "stencil"),
+                              ("stack", "stencil"),
+                              ("block_diag", "stencil_equal"),
+                              ("block_diag", "quadratic"),
+                              ("block_diag", "l1_shift"))})
 
 
 def _small(op, n=512):

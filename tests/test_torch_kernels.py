@@ -459,6 +459,151 @@ def test_stencil_kernel_batch_and_errors(cuda):
         st.separable_correlate2d(x[..., ::2], p)         # not contiguous
 
 
+def _members(taps, mode, n=3):
+    """n tap sets of one layout, each drawn from its own seed."""
+    return st.MemberTaps([_sep(taps, mode, seed=1 + i) for i in range(n)])
+
+
+def _each_member(x, mt, adjoint, shared_input=False):
+    """The members' correlations one by one with the single-tap-set plain
+    version."""
+    outs = [st.separable_correlate2d_plain(
+        x if shared_input else x[..., i, :, :], p, adjoint)
+        for i, p in enumerate(mt.taps)]
+    return torch.stack(outs, dim=-3)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("mode", ["constant", "symmetric"])
+@pytest.mark.parametrize("taps", ["9x9", "4x3off"])
+def test_stencil_members_plain_is_each_members_plain(taps, mode, adjoint):
+    """Per-member taps: member i's correlation of image i (or of the shared
+    input), bit for bit the single-tap-set plain version's."""
+    mt = _members(taps, mode)
+    rng = np.random.default_rng(2)
+    for dt in (np.float32, np.float64):
+        x = torch.from_numpy(rng.standard_normal((2, 3, 20, 23)).astype(dt))
+        assert torch.equal(st.separable_correlate2d_members_plain(
+            x, mt, adjoint), _each_member(x, mt, adjoint))
+        assert torch.equal(st.separable_correlate2d_members_plain(
+            x[:, 0], mt, adjoint, shared_input=True),
+            _each_member(x[:, 0], mt, adjoint, shared_input=True))
+
+
+def test_stencil_members_cpu_wrapper_and_checks():
+    mt = _members("3x4", "symmetric")
+    x = torch.from_numpy(np.random.default_rng(0).random((3, 40, 30),
+                                                         np.float32))
+    n0 = st.separable_correlate2d_members.launches
+    for adj in (False, True):
+        assert torch.equal(st.separable_correlate2d_members(x, mt, adj),
+                           st.separable_correlate2d_members_plain(x, mt, adj))
+    with pytest.raises(ValueError):
+        st.separable_correlate2d_members(torch.zeros((3, 16, 16),
+                                                     device="meta"), mt)
+    assert st.separable_correlate2d_members.launches == n0
+    with pytest.raises(ValueError):         # one layout for every member
+        st.MemberTaps([_sep("3x4", "symmetric"), _sep("4x3off", "symmetric")])
+    assert mt.n == 3 and mt.k0.shape == (3, 3) and mt.k1.shape == (3, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("mode", ["constant", "symmetric"])
+@pytest.mark.parametrize("taps", ["9x9", "3x4", "4x3off"])
+@pytest.mark.parametrize("shape", [(50, 70), (300, 520), (257, 389)],
+                         ids=str)
+def test_stencil_members_kernel_matches_plain(cuda, shape, taps, mode,
+                                              adjoint, dtype):
+    """One launch with a tap set a member, a block-diagonal batch (two
+    groups of three members) and a shared input, against the plain
+    version."""
+    mt = _members(taps, mode)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 3) + shape)).to(
+        getattr(torch, dtype)).to(cuda)
+    tol = (1e-5 if dtype == "float32" else 1e-12) * float(x.abs().max()) \
+        * max(1.0, float(np.max(np.abs(mt.k0).sum(1) * np.abs(mt.k1).sum(1))))
+    for xin, shared in ((x, False), (x[:, 0].contiguous(), True)):
+        n0 = st.separable_correlate2d_members.launches
+        got = st.separable_correlate2d_members(xin, mt, adjoint, shared)
+        want = st.separable_correlate2d_members_plain(xin, mt, adjoint,
+                                                      shared)
+        torch.cuda.synchronize()
+        assert st.separable_correlate2d_members.launches == n0 + 1
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", ["9x9", "4x3off"])
+def test_stencil_members_equal_taps_give_the_single_launchs_bits(cuda, taps):
+    """N equal tap sets through the per-member path: the bits of one
+    single-tap-set launch over the batch."""
+    for mode in ("constant", "symmetric"):
+        p = _sep(taps, mode)
+        mt = st.MemberTaps([p] * 3)
+        for dtype in (torch.float32, torch.float64):
+            x = torch.randn((2, 3, 300, 520), device=cuda, dtype=dtype)
+            for adjoint in (False, True):
+                got = st.separable_correlate2d_members(x, mt, adjoint)
+                want = st.separable_correlate2d(x, p, adjoint)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (mode, dtype, adjoint)
+
+
+@pytest.mark.cuda
+def test_stencil_members_reads_stay_in_the_image(cuda):
+    lib = st._library(("ST_COUNT_STRAY_READS",))[0]
+    assert lib.stencil_stray_reads() == 0
+    x = torch.randn((2, 3, 67, 129), device=cuda, dtype=torch.float64)
+    for taps in ("9x9", "4x3off"):
+        for mode in ("constant", "symmetric"):
+            mt = _members(taps, mode)
+            for adjoint in (False, True):
+                for xin, shared in ((x, False), (x[:, 0].contiguous(), True)):
+                    got = st._launch_members(lib, xin, mt, adjoint, shared)
+                    want = st.separable_correlate2d_members_plain(
+                        xin, mt, adjoint, shared)
+                    torch.cuda.synchronize()
+                    assert lib.stencil_stray_reads() == 0
+                    assert float((got - want).abs().max()) <= 1e-10 * float(
+                        x.abs().max())
+
+
+@pytest.mark.cuda
+def test_stencil_block_diag_and_stack_card_vs_cpu(cuda):
+    """A homogeneous block_diag and stack of 2-D Stencils: one launch a
+    block_diag apply or adjoint and a stack apply on the card (per-member
+    taps, or the single-tap-set kernel when the taps are equal; a stack's
+    adjoint loops, one a member, as in the JAX package), the CPU's
+    numbers."""
+    import pyxu_tpu_torch.operator as O
+    shape = (70, 90)
+    ks = [_gauss(9, s) for s in (1.2, 1.6, 2.0)]
+    for taps in (ks, [ks[0]] * 3):
+        ops = [O.Stencil(shape, [k, k], [4, 4], mode="symmetric")
+               for k in taps]
+        for blk, xs, want_n in ((O.block_diag(ops), (2, 3) + shape, 2),
+                                (O.stack(ops), (2,) + shape, 4)):
+            assert blk.batched_path == "stencil"
+            x = torch.randn(xs, device=cuda)
+            y = torch.randn((2, 3) + shape, device=cuda)
+            n0 = (st.separable_correlate2d.launches
+                  + st.separable_correlate2d_members.launches)
+            got = blk.apply(x)
+            back = blk.adjoint(y)
+            torch.cuda.synchronize()
+            n = (st.separable_correlate2d.launches
+                 + st.separable_correlate2d_members.launches - n0)
+            assert n == want_n
+            for g, w in ((got, blk.apply(x.cpu())),
+                         (back, blk.adjoint(y.cpu()))):
+                assert float((g.cpu() - w).abs().max()) <= 2e-6 * max(
+                    1.0, float(w.abs().max()))
+
+
 # the Hessian's three partials (central accuracy 2): d2/dx0^2, the cross
 # partial scaled by sqrt(2) (the Frobenius stack's weight), d2/dx1^2
 HESS_TAPS = {"d00": ((1.0, -2.0, 1.0), 1, (1.0,), 0),
