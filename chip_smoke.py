@@ -226,7 +226,18 @@ Phases:
    on the ``kernels`` line gain ``sharded_launches`` (the stencil also
    ``ooc_launches``); the JSON line ``consensus_admm_8x512_1dev``,
    ``consensus_admm_64x4096_1dev``, ``ooc_tv_16k_s_per_iter`` and
-   ``parallel``.
+   ``parallel``.  Then the streamed blur (``overlap_phase``): workload
+   1's 9-tap blur over a 16384x16384 f32 host array through
+   ``streamed_map_overlap`` (8 bands of 2048 rows, depth 5, one band in
+   flight): first a serial loop that times each part of each band alone
+   (the host fill into a page-locked buffer and the write-back into the
+   output on the host clock; the copy up, the blur and the copy down by
+   CUDA events), then the overlapped call, warm, timed 3 times (its
+   result the serial loop's bits, one stencil launch a band, asserted):
+   ``[overlap]`` lines with one band's parts, their sums over the bands,
+   the serial sum against the call's wall time, and the largest part's
+   share of it; the JSON key ``ooc_blur_16k_overlap``, the stencil
+   entry's ``ooc_overlap_launches``.
 18. 3-channel chromatic deblurring at 2160x3840 (``chromatic_phase``): a
    simple lens blurs each colour channel by its own 9-tap Gaussian (sigma
    1.2, 1.6, 2.0; Heide et al., ACM TOG 32(5), 2013), composed through the
@@ -243,6 +254,23 @@ Phases:
    ``conv2d``) and f64 (1e-12 max|x|).  The stencil's entry on the
    ``kernels`` line gains ``chromatic_launches``, ``chromatic`` and
    ``members``; the JSON line ``chromatic_4k_it_per_s``.
+19. the six example programs (``examples_phase``,
+   ``pyxu_tpu_torch/examples/``) at their default sizes on the card, each
+   timed on the host clock with its printout (``[example]`` lines) and
+   its launches: deconvolution 256x256 (CondatVu on the fused TV kernel,
+   ``tv_step`` launched, the reconstruction's error below the blurred
+   one's), tomography 96x96 / 24 views by RadonTransform (the stencil
+   kernel) and by FourierRadon (also the 2-D spread and interp), radio
+   interferometry 128x128 / 3000 visibilities (spread and interp),
+   out-of-core 1024x768 (4 bands of the overlapped blur, then 20
+   StreamedCondatVu iterations of 4 band steps: 484 stencil launches,
+   asserted), the distributed program at one NCCL rank (ShardedStencil,
+   consensus ADMM, the 2-D type-3 ShardedNUFFT3: stencil, spread and
+   interp launched), and the notebook's code cells (``fused_path``
+   "kernel", its error below 0.5); then each at the CPU tests' sizes on
+   the card against the CPU, within 2e-4 of max(1, max|x|).  The kernels
+   line's entries gain ``examples_launches``, the JSON line
+   ``examples``.
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -259,6 +287,7 @@ import concurrent.futures  # noqa: E402
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -377,6 +406,7 @@ CONS_TILE, CONS_TILES, CONS_ITERS, CONS_LAM = (512, 512), 8, 1000, 0.02
 GIGA_TILE, GIGA_TILES, GIGA_ITERS = (4096, 4096), 64, 50
 CONS_SMALL, CONS_SMALL_ITERS = (64, 48), 100
 OOC_SHAPE, OOC_BLOCK, OOC_ITERS, OOC_LAM = (16384, 16384), 2048, 3, 0.01
+OVL_DEPTH, OVL_RUNS = 5, 3      # the streamed blur's halo rows, timed calls
 SH3_N, SH3_M = (64, 64, 64), 2 ** 18
 T3S_M, T3S_K, T3S_MB = 100_000, 100_000, 1.0
 # the stencil kernel with a tap set a member (phase 2) and the chromatic
@@ -390,6 +420,9 @@ CHROMA_DENSITY, CHROMA_LAM, CHROMA_NOISE = 0.01, 0.01, 0.01
 CHROMA_SMALL, CHROMA_SMALL_ITERS = (64, 48), 100
 MEMBERS_SMALL, MEMBERS_SMALL_SIGMAS = (8, 512, 512), (1.0, 1.2, 1.4, 1.6,
                                                       1.8, 2.0, 2.2, 2.4)
+# the example programs (phase 19): card vs CPU at the CPU tests' sizes,
+# within the f32 conformance tolerance of max(1, max|x|)
+EX_TOL = 2e-4
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
                                # takes to enqueue one timed run
 
@@ -2983,6 +3016,101 @@ def outofcore_phase(st):
                 time_split=split, outside_s=outside, band_check=band_check)
 
 
+def _event_ms(fn):
+    """Device ms of one ``fn()`` alone: CUDA events around it, then a
+    synchronize."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def overlap_phase(st):
+    """Phase 17, the streamed 16384^2 blur through ``streamed_map_overlap``
+    with one band in flight (see the module docstring)."""
+    import numpy as np
+    from pyxu_tpu_torch.operator.linop import Stencil
+    from pyxu_tpu_torch.parallel import streamed_map_overlap
+    from pyxu_tpu_torch.parallel.outofcore import _band_slices, _fill_halo
+    H, W = OOC_SHAPE
+    block, depth = OOC_BLOCK, OVL_DEPTH
+    k1 = np.exp(-0.5 * ((np.arange(9) - 4) / 2.0) ** 2)
+    k1 = (k1 / k1.sum()).astype(np.float32)     # workload 1's blur
+    Kb = Stencil((block + 2 * depth, W), [k1, k1], [4, 4], mode="constant")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.rand((H, W), generator=gen, device="cuda").cpu().numpy()
+    bands = _band_slices(H, block)
+    # the parts alone, band by band in series: host fill into a page-locked
+    # buffer, copy up, the blur, copy down, write-back into a fresh output
+    # (host clock for the host parts, CUDA events for the device ones)
+    xb = torch.empty((block + 2 * depth, W), pin_memory=True)
+    rows = torch.empty((block, W), pin_memory=True)
+    serial = np.zeros((H, W), np.float32)
+    parts = {k: [] for k in ("fill", "up", "compute", "down", "write_back")}
+    with torch.no_grad():
+        for s, e in bands:
+            t0 = time.perf_counter()
+            _fill_halo(xb.numpy(), x, s, e, depth)
+            parts["fill"].append((time.perf_counter() - t0) * 1e3)
+            xd, ms = _event_ms(lambda: xb.to("cuda", non_blocking=True))
+            parts["up"].append(ms)
+            yd, ms = _event_ms(lambda: Kb.apply(xd))
+            parts["compute"].append(ms)
+            n = e - s
+            _, ms = _event_ms(lambda: rows[:n].copy_(
+                yd[depth:depth + n], non_blocking=True))
+            parts["down"].append(ms)
+            t0 = time.perf_counter()
+            serial[s:e] = rows[:n].numpy()
+            parts["write_back"].append((time.perf_counter() - t0) * 1e3)
+        del xd, yd
+        # the library's overlapped call: a warm call, then the timed one
+        streamed_map_overlap(Kb.apply, x, depth=depth, block_rows=block,
+                             device="cuda")
+        walls = []
+        for _ in range(OVL_RUNS):
+            _reset([st.separable_correlate2d])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = streamed_map_overlap(Kb.apply, x, depth=depth,
+                                       block_rows=block, device="cuda")
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches = st.separable_correlate2d.launches
+            assert launches == len(bands), launches
+            same = bool(np.array_equal(got, serial))
+            assert same, "overlapped bands differ from the serial loop"
+            del got
+    tot = {k: sum(v) for k, v in parts.items()}
+    one = {k: statistics.median(v) for k, v in parts.items()}
+    serial_ms = sum(tot.values())
+    wall = min(walls)
+    ideal = max(tot.values())                   # the largest part
+    host_ideal = max(tot["fill"] + tot["write_back"], tot["up"],
+                     tot["compute"], tot["down"])   # one host thread
+    print(f"[overlap] streamed blur {H}x{W} f32, {len(bands)} bands of "
+          f"{block} rows (+{depth} halo rows a side): one band (median): "
+          f"host fill {one['fill']:.3f} ms, up {one['up']:.3f} ms, blur "
+          f"{one['compute']:.4f} ms, down {one['down']:.3f} ms, host "
+          f"write-back {one['write_back']:.3f} ms", flush=True)
+    print(f"[overlap] over the bands: fill {tot['fill']:.2f} + up "
+          f"{tot['up']:.2f} + blur {tot['compute']:.3f} + down "
+          f"{tot['down']:.2f} + write-back {tot['write_back']:.2f} = serial "
+          f"sum {serial_ms:.2f} ms; overlapped call {wall:.2f} ms (best of "
+          f"{OVL_RUNS}: " + ", ".join(f"{w:.2f}" for w in walls) + f"), "
+          f"{serial_ms / wall:.3f}x shorter than the serial sum; the "
+          f"largest part {ideal:.2f} ms is {ideal / wall:.1%} of it, the "
+          f"host thread's fill + write-back {host_ideal:.2f} ms "
+          f"{host_ideal / wall:.1%}; stencil launches {launches} (one a "
+          f"band); the same bits as the serial loop: {same}", flush=True)
+    return dict(bands=len(bands), band=one, total_ms=tot,
+                serial_ms=serial_ms, wall_ms=wall, walls_ms=walls,
+                ideal_ms=ideal, host_ideal_ms=host_ideal,
+                launches=launches, same_bits=same)
+
+
 def _sharded_nufft3_direct(outs, a, f, pts, N, n_check=1024):
     """ShardedNUFFT's d = 3 apply (type 1) at ``n_check`` modes and its
     adjoint (type 2) at ``n_check`` points against float64 direct sums:
@@ -3190,6 +3318,166 @@ def chromatic_phase(st, MaxIter):
                 objective=obj, small_diff=diff)
 
 
+def _notebook(device, small):
+    """Run the port's notebook's code cells (``small``: n 64 and 40
+    iterations, as the CPU tests shrink it) on ``device``; its namespace."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "pyxu_tpu_torch", "examples",
+                        "tv_deconvolution.ipynb")
+    with open(path) as fh:
+        nb = json.load(fh)
+    ns = {}
+    for cell in nb["cells"]:
+        if cell["cell_type"] != "code":
+            continue
+        src = "".join(cell["source"]).replace(
+            "device = None", f"device = {str(device)!r}")
+        if small:
+            src = src.replace("n, lam, sigma_blur = 256,",
+                              "n, lam, sigma_blur = 64,")
+            src = src.replace("MaxIter(400)", "MaxIter(40)").replace(
+                "max_iter=400", "max_iter=40")
+        exec(src, ns)
+    return ns
+
+
+def _with_group(device, fn):
+    """``fn(mesh)`` over a group of one rank on ``device`` (NCCL on the
+    card, gloo on the CPU), torn down after."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    import pyxu_tpu_torch.parallel as par
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    par.init_distributed(f"file://{tmp}/store", 1, 0, device=device)
+    try:
+        return fn(par.auto_mesh(device=device))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def examples_phase(ft, st, nu):
+    """Phase 19: the six example programs (see the module docstring)."""
+    import numpy as np
+    from pyxu_tpu_torch.examples import (deconvolution, distributed,
+                                         out_of_core, radio_interferometry,
+                                         tomography)
+    counters = (ft.tv_step, ft.tv_stepk, st.separable_correlate2d,
+                nu.nufft_spread2, nu.nufft_interp2)
+
+    def run(tag, fn):
+        """``fn()`` on the card, its printout and wall time, and the
+        launches it made."""
+        buf = io.StringIO()
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters if c.launches}
+        for line in buf.getvalue().splitlines():
+            print(f"[example] {tag}: {line}", flush=True)
+        print(f"[example] {tag}: {sec:.3f} s on the card, launches "
+              f"{launches}", flush=True)
+        return out, sec, launches, buf.getvalue()
+
+    def finite(a, shape=None):
+        a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+        assert np.isfinite(a).all() and (shape is None or a.shape == shape)
+        return a
+
+    res = {}
+    # -- at the programs' default sizes, on the card ------------------------
+    x, sec, ln, txt = run("deconvolution", lambda: deconvolution.main(
+        device="cuda"))
+    finite(x, (256, 256))
+    words = txt.split()
+    blurred, rec = float(words[3]), float(words[6])
+    assert rec < blurred and ln.get("tv_step", 0) > 0, (txt, ln)
+    res["deconvolution"] = dict(s=sec, launches=ln, err=rec)
+    for method in ("interp", "fourier"):
+        x, sec, ln, txt = run(f"tomography {method}", lambda: tomography.main(
+            method=method, device="cuda"))
+        assert finite(x, (96, 96)).min() >= -1e-6
+        assert ln.get("separable_correlate2d", 0) > 0, ln
+        if method == "fourier":
+            assert ln.get("nufft_spread2", 0) > 0 and \
+                ln.get("nufft_interp2", 0) > 0, ln
+        res[f"tomography_{method}"] = dict(s=sec, launches=ln,
+                                           err=float(txt.split()[5][:-1]))
+    x, sec, ln, txt = run("radio_interferometry",
+                          lambda: radio_interferometry.main(device="cuda"))
+    finite(x, (128, 128))
+    assert ln.get("nufft_spread2", 0) > 0 and ln.get("nufft_interp2", 0) > 0
+    res["radio_interferometry"] = dict(s=sec, launches=ln,
+                                       err=float(txt.split()[-1]))
+    (y, outs, sol), sec, ln, _ = run("out_of_core", lambda: out_of_core.main(
+        device="cuda"))
+    finite(y), finite(sol), [finite(o) for o in outs]
+    # 4 bands of the streamed blur, then 20 iterations of 4 band steps of
+    # 6 launches each
+    assert ln.get("separable_correlate2d") == 4 + 20 * 4 * 6, ln
+    res["out_of_core"] = dict(s=sec, launches=ln)
+    _, sec, ln, _ = run("distributed", lambda: distributed.main(
+        device="cuda"))
+    assert ln.get("separable_correlate2d", 0) > 0 and \
+        ln.get("nufft_spread2", 0) > 0 and ln.get("nufft_interp2", 0) > 0, ln
+    res["distributed"] = dict(s=sec, launches=ln)
+    ns, sec, ln, _ = run("notebook", lambda: _notebook("cuda", small=False))
+    assert ns["slv"].fused_path == "kernel" and ln.get("tv_step", 0) > 0
+    assert ns["err"] < 0.5, ns["err"]
+    res["notebook"] = dict(s=sec, launches=ln, err=ns["err"])
+
+    # -- at the CPU tests' sizes, card vs CPU -------------------------------
+    def small(dev):
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = {
+                "deconvolution": deconvolution.main(n=48, device=dev),
+                "tomography interp": tomography.main(n=32, n_angles=12,
+                                                     device=dev),
+                "tomography fourier": tomography.main(
+                    n=32, n_angles=12, method="fourier", device=dev),
+                "radio_interferometry": radio_interferometry.main(
+                    n=24, n_vis=400, device=dev),
+                "notebook": _notebook(dev, small=True)["x_rec"],
+            }
+            y, outs, sol = out_of_core.main(H=96, W=40, block_rows=32,
+                                            device=dev)
+            out.update({"out_of_core blur": y, "out_of_core TV": sol})
+            out.update(("out_of_core block", o) for o in outs[-1:])
+
+            def dist3(mesh):
+                return {"halo TV": distributed.tv_deconvolution_halo(
+                            mesh, n=48),
+                        "consensus": distributed.consensus_lasso(mesh, n=16),
+                        "type-3": distributed.sharded_type3_nufft(
+                            mesh, M=600, K=400)[0]}
+            out.update(_with_group(dev, dist3))
+        return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v) for k, v in out.items()}
+    card, cpu = small("cuda"), small("cpu")
+    errs = {}
+    for k, want in cpu.items():
+        errs[k] = float(np.abs(card[k] - want).max()) / max(
+            1.0, float(np.abs(want).max()))
+        print(f"[example] {k} at the CPU tests' size, card vs CPU: "
+              f"max_abs_diff / max(1, max|x|) {errs[k]:.3e} (tol "
+              f"{EX_TOL:.0e})", flush=True)
+    bad = {k: e for k, e in errs.items() if not e <= EX_TOL}
+    assert not bad, bad
+    res["card_vs_cpu"] = errs
+    return res
+
+
+def _example_launches(examples, kname):
+    """Phase 19's launches of kernel ``kname``, by example program."""
+    return {k: v["launches"].get(kname, 0) for k, v in examples.items()
+            if isinstance(v, dict) and "launches" in v}
+
+
 def parallel_phase(st, nu, MaxIter):
     """Phase 17: the parallel layer on the card over a NCCL group of world
     size 1 (see the module docstring)."""
@@ -3207,6 +3495,8 @@ def parallel_phase(st, nu, MaxIter):
         _mark("consensus (workload 5)")
         out["ooc"] = outofcore_phase(st)
         _mark("out-of-core TV")
+        out["overlap"] = overlap_phase(st)
+        _mark("overlapped streamed blur")
         out["sharded"] = sharded_ops_phase(st, nu, mesh)
     finally:
         dist.destroy_process_group()
@@ -3417,6 +3707,10 @@ def main() -> int:
     chroma = chromatic_phase(st, MaxIter)
     _mark("chromatic phase")
 
+    # ---- phase 19: the six example programs -------------------------------
+    examples = examples_phase(ft, st, nu)
+    _mark("example programs")
+
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -3432,6 +3726,8 @@ def main() -> int:
             "n_steps": n_steps,
             "bf16z": {k: rb[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms")},
+            # phase 19: each example program's launches at its default size
+            "examples_launches": _example_launches(examples, kname),
         })
     # the LASSO path's launches are symmetric applies and adjoints, half each
     path_mix = [st_recs[t] for t in ("symmetric", "symmetric-adjoint")]
@@ -3466,6 +3762,11 @@ def main() -> int:
         "ooc_launches": par["ooc"]["launches"],
         "ooc_band": par["ooc"]["band_check"],
         "sharded_launches": par["sharded"]["launches"]["stencil"],
+        # phase 17: the overlapped streamed 16384^2 blur's launches (one a
+        # band), phase 19: each example program's
+        "ooc_overlap_launches": par["overlap"]["launches"],
+        "examples_launches": _example_launches(examples,
+                                               "separable_correlate2d"),
         # phase 18: the timed chromatic fit's launches (a tap set a
         # channel), and the per-member kernel at 8x512^2 and 3x4K (phase 2)
         "chromatic_launches": chroma["launches"],
@@ -3529,6 +3830,7 @@ def main() -> int:
                    if k == kname},
             # phase 17: ShardedNUFFT's and ShardedNUFFT3's launches
             "sharded_launches": par["sharded"]["launches"][kname],
+            "examples_launches": _example_launches(examples, kname),
             "variants": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                                 "max_abs_err", "phases")
                              if f in v}
@@ -3560,6 +3862,8 @@ def main() -> int:
                           "consensus_admm_64x4096_1dev"]["rate"],
                       "ooc_tv_16k_s_per_iter": par["ooc"]["sec_per_iter"],
                       "chromatic_4k_it_per_s": chroma["rate"],
+                      "ooc_blur_16k_overlap": par["overlap"],
+                      "examples": examples,
                       "parallel": par,
                       "engine": engine}),
           flush=True)

@@ -12,6 +12,8 @@ tolerance (atol 2e-4) that the port is held to.
 
 import torch
 
+__version__ = "0.1.0"
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -76,6 +76,23 @@ class Property(enum.Enum):
     LINEAR_UNITARY = enum.auto()
     QUADRATIC = enum.auto()
 
+    def arithmetic_methods(self) -> frozenset:
+        """The instance methods this property brings (the JAX package's
+        sets)."""
+        data = {
+            Property.CAN_EVAL: ("apply", "__call__", "lipschitz",
+                                "estimate_lipschitz"),
+            Property.PROXIMABLE: ("prox", "fenchel_prox", "moreau_envelope"),
+            Property.DIFFERENTIABLE: ("jacobian", "diff_lipschitz",
+                                      "estimate_diff_lipschitz"),
+            Property.DIFFERENTIABLE_FUNCTION: ("grad",),
+            Property.LINEAR: ("adjoint", "asarray", "svdvals", "pinv",
+                              "gram", "cogram"),
+            Property.LINEAR_SQUARE: ("trace",),
+            Property.QUADRATIC: ("_quad_spec",),
+        }
+        return frozenset(data.get(self, ()))
+
 
 def _sum_core(arr: torch.Tensor, rank: int) -> torch.Tensor:
     """Sum over the trailing ``rank`` axes (a no-op for rank 0)."""
@@ -125,6 +142,35 @@ class Operator:
     @property
     def codim_rank(self) -> int:
         return len(self._codim_shape)
+
+    # -- the flat API: sizes, and outputs with a flat last axis ---------
+    @property
+    def dim(self) -> int:
+        """The domain's size, the product of ``dim_shape``."""
+        return self.dim_size
+
+    @property
+    def codim(self) -> int:
+        """The co-domain's size, the product of ``codim_shape``."""
+        return self.codim_size
+
+    @property
+    def shape(self) -> tuple:
+        """``(codim, dim)``."""
+        return (self.codim_size, self.dim_size)
+
+    def unravel(self, arr) -> torch.Tensor:
+        """A flat output ``(..., codim)`` as ``(..., *codim_shape)``."""
+        arr = torch.as_tensor(arr)
+        return arr.reshape(arr.shape[:-1] + tuple(self._codim_shape))
+
+    def ravel(self, arr) -> torch.Tensor:
+        """An output ``(..., *codim_shape)`` as ``(..., codim)``: the inverse
+        of :meth:`unravel`."""
+        arr = torch.as_tensor(arr)
+        rank = len(self._codim_shape)
+        batch = tuple(arr.shape[:arr.ndim - rank])
+        return arr.reshape(batch + (self.codim_size,))
 
     @property
     def name(self) -> str:

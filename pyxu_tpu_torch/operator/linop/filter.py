@@ -16,6 +16,7 @@ point and of the tangent), so that it never differentiates a kernel.
 from __future__ import annotations
 
 import math as _math
+import numbers
 
 import numpy as np
 import torch
@@ -141,6 +142,10 @@ def _edge_family(name, smooth):
         from pyxu_tpu_torch.operator.map.ufunc import sqrt, square
         dim_shape = as_canonical_shape(dim_shape)
         D = len(dim_shape)
+        if axis is not None and (isinstance(axis, bool)
+                                 or not isinstance(axis, numbers.Integral)):
+            raise ValueError(
+                f"{name}: axis must be an int or None, not {axis!r}")
         if axis is not None or D == 1:
             return _edge_filter(dim_shape, 0 if axis is None else int(axis),
                                 smooth, mode, sampling, name)

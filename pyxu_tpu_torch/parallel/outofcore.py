@@ -16,11 +16,14 @@ by the card's memory.
   iteration exactly (not block-Jacobi).
 
 Every band has the same extended shape (edge bands are zero-padded, which
-is ``mode="constant"`` global boundary handling).  The bands run one after
-the other: a band's host-to-device copy, its compute and its copy back do
-not overlap with the next band's.  All three stage their bands in host
-buffers that every band of the same shape reuses (:class:`_Staging`):
-page-locked where the device is CUDA.
+is ``mode="constant"`` global boundary handling).  The bands are staged in
+host buffers that later bands reuse (:class:`_Staging`): page-locked where
+the device is CUDA.  :func:`streamed_map_overlap` and
+:func:`streamed_block_diag` keep one band in flight, as the JAX package
+does: band i+1 is filled on the host, copied up and computed while band
+i's rows come back, and band i is written into the output only after its
+copy back is done.  :class:`StreamedCondatVu` runs its bands one after
+the other (each band's halo holds rows the band before it wrote).
 """
 
 from __future__ import annotations
@@ -55,50 +58,94 @@ def _fill_halo(dst, arr, s, e, depth):
 
 
 class _Staging:
-    """Host buffers for the band copies, one a (name, shape, dtype), reused
-    by every band: page-locked where the device is CUDA, so that the copies
-    run at the link's rate with no pageable bounce and may be
-    ``non_blocking``; plain host memory on the CPU, where a copy to the
-    device is the buffer itself.  ``moved`` counts the bytes copied up and
-    down.  A buffer is free for the next band after :meth:`sync`."""
+    """Host buffers for the band copies, keyed by (name, slot, shape,
+    dtype) and reused by later bands, and the copies between them and the
+    device.  ``moved`` counts the bytes copied up and down.
+
+    On CUDA the buffers are page-locked, so that the copies run at the
+    link's rate and are asynchronous.  Copies up run on one side stream
+    and copies down on another: the compute stream (the current stream,
+    where ``fn`` and the kernels run) waits for a band's copy up, and its
+    copy down waits for the compute queued before it.  A buffer's copy up
+    leaves an event, and :meth:`host` waits on it before the buffer is
+    written again.  Device tensors that cross streams are
+    ``record_stream``-ed, so that the caching allocator hands out their
+    memory only after the other stream is done with them.
+
+    On the CPU the buffers are plain host memory and a band on the
+    "device" is its buffer itself: with no queue, every copy is done when
+    its call returns."""
 
     def __init__(self, dev):
         self.dev = dev
         self.pin = dev.type == "cuda"
         self.moved = 0
         self._bufs = {}
+        self._busy = {}         # buffer key -> the event of its copy up
+        if self.pin:
+            self._compute = torch.cuda.current_stream(dev)
+            self._up = torch.cuda.Stream(dev)
+            self._down = torch.cuda.Stream(dev)
 
-    def host(self, name, shape, dtype) -> np.ndarray:
-        """The numpy view of buffer ``name`` (``dtype`` a numpy dtype)."""
-        dt = torch.from_numpy(np.empty(0, dtype)).dtype
-        return self._buffer(name, tuple(shape), dt).numpy()
+    @staticmethod
+    def _key(name, slot, shape, dtype):
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        return (name, slot, tuple(shape), dtype)
 
-    def _buffer(self, name, shape, dtype) -> torch.Tensor:
-        key = (name, shape, dtype)
+    def _buffer(self, key) -> torch.Tensor:
         buf = self._bufs.get(key)
         if buf is None:
-            buf = self._bufs[key] = torch.empty(shape, dtype=dtype,
+            buf = self._bufs[key] = torch.empty(key[2], dtype=key[3],
                                                 pin_memory=self.pin)
         return buf
 
-    def up(self, a: np.ndarray) -> torch.Tensor:
-        """``a`` (a :meth:`host` view) on the device."""
-        self.moved += a.nbytes
-        return torch.from_numpy(a).to(self.dev, non_blocking=True)
+    def host(self, name, shape, dtype, slot=0) -> np.ndarray:
+        """The numpy view of buffer (``name``, ``slot``), free to write:
+        its last copy up is done."""
+        key = self._key(name, slot, shape, dtype)
+        done = self._busy.pop(key, None)
+        if done is not None:
+            done.synchronize()
+        return self._buffer(key).numpy()
 
-    def down(self, name, t: torch.Tensor) -> np.ndarray:
-        """``t`` copied to the host (into buffer ``name`` on CUDA): read it
-        after :meth:`sync`, before the next band's :meth:`down`."""
+    def upload(self, name, slot, a: np.ndarray) -> torch.Tensor:
+        """``a``, the :meth:`host` view of buffer (``name``, ``slot``), on
+        the device, for the compute stream."""
+        self.moved += a.nbytes
+        t = torch.from_numpy(a)
+        if not self.pin:
+            return t
+        with torch.cuda.stream(self._up):
+            d = t.to(self.dev, non_blocking=True)
+        done = self._up.record_event()
+        self._busy[self._key(name, slot, a.shape, a.dtype)] = done
+        self._compute.wait_event(done)
+        d.record_stream(self._compute)
+        return d
+
+    def download(self, name, slot, t: torch.Tensor):
+        """Queue the copy of ``t`` into host buffer (``name``, ``slot``)
+        after the compute queued so far.  Returns the buffer's numpy view
+        and the event after which it holds ``t`` (None on the CPU, where
+        the view is ``t`` itself).  The caller reads the view, and the next
+        download into the buffer is queued, only after :meth:`wait` on that
+        event."""
         self.moved += t.nbytes
         if not self.pin:
-            return t.numpy()
-        buf = self._buffer(name, tuple(t.shape), t.dtype)
-        buf.copy_(t, non_blocking=True)
-        return buf.numpy()
+            return t.numpy(), None
+        buf = self._buffer(self._key(name, slot, t.shape, t.dtype))
+        self._down.wait_stream(self._compute)
+        with torch.cuda.stream(self._down):
+            buf.copy_(t, non_blocking=True)
+        t.record_stream(self._down)
+        return buf.numpy(), self._down.record_event()
 
-    def sync(self):
-        if self.pin:
-            torch.cuda.current_stream(self.dev).synchronize()
+    @staticmethod
+    def wait(done):
+        """Wait on the host for a :meth:`download`'s event."""
+        if done is not None:
+            done.synchronize()
 
 
 def streamed_map_overlap(fn, x, depth: int, block_rows: int = 4096,
@@ -110,41 +157,67 @@ def streamed_map_overlap(fn, x, depth: int, block_rows: int = 4096,
     must be shift-invariant with receptive-field radius <= ``depth`` along
     axis -2 and treat out-of-domain rows as zero (``mode="constant"``).
     Every band it sees has the shape ``(..., block + 2 depth, W)``.  The
-    result's rows are trimmed and written to a host output array.
+    result's rows are trimmed and written to a host output array.  One
+    band is in flight (see the module docstring): band i's rows reach the
+    output after band i+1 has been filled and queued.
     """
     x = np.asarray(x)
     stage = _Staging(resolve_device(device))
     n = x.shape[-2]
     block = min(block_rows, n)
-    out = None
-    for s, e in _band_slices(n, block):
-        xb = stage.host("x", x.shape[:-2] + (block + 2 * depth, x.shape[-1]),
-                        x.dtype)
-        yb = fn(stage.up(_fill_halo(xb, x, s, e, depth)))
-        rows = stage.down("y", yb[..., depth:depth + (e - s), :])
-        stage.sync()
+    shape = x.shape[:-2] + (block + 2 * depth, x.shape[-1])
+    out, prev = None, None
+    for i, (s, e) in enumerate(_band_slices(n, block)):
+        xb = stage.host("x", shape, x.dtype, i % 2)
+        _fill_halo(xb, x, s, e, depth)
+        yb = fn(stage.upload("x", i % 2, xb))
+        rows, done = stage.download("y", i % 2,
+                                    yb[..., depth:depth + (e - s), :])
         if out is None:
-            oshape = rows.shape[:-2] + (n,) + rows.shape[-1:]
-            out = np.zeros(oshape, out_dtype or rows.dtype)
-        out[..., s:e, :] = rows
+            out = np.zeros(rows.shape[:-2] + (n,) + rows.shape[-1:],
+                           out_dtype or rows.dtype)
+        if prev is not None:
+            _drain(stage, prev, out)
+        prev = (s, e, rows, done)
+    if prev is not None:
+        _drain(stage, prev, out)
     return out
+
+
+def _drain(stage, item, out):
+    """Band ``item``'s rows into ``out``, once its copy down is done."""
+    s, e, rows, done = item
+    stage.wait(done)
+    out[..., s:e, :] = rows
 
 
 def streamed_block_diag(ops, xs, device=None):
-    """Apply ``ops[i]`` to host-resident block ``xs[i]``, one block on the
-    device at a time.  Returns host blocks."""
+    """Apply ``ops[i]`` to host-resident block ``xs[i]``, one block in
+    flight as in :func:`streamed_map_overlap` (the staging buffers are
+    keyed by shape, so the blocks' shapes may differ).  Returns host
+    blocks."""
     if len(ops) != len(xs):
         raise ValueError(f"{len(ops)} ops vs {len(xs)} blocks")
     stage = _Staging(resolve_device(device))
-    out = []
-    for op, xb in zip(ops, xs):
+    out, prev = [], None
+    for i, (op, xb) in enumerate(zip(ops, xs)):
         xb = np.asarray(xb)
-        buf = stage.host("x", xb.shape, xb.dtype)
+        buf = stage.host("x", xb.shape, xb.dtype, i % 2)
         np.copyto(buf, xb)
-        yb = stage.down("y", op.apply(stage.up(buf)))
-        stage.sync()
-        out.append(np.array(yb))
+        item = stage.download("y", i % 2,
+                              op.apply(stage.upload("x", i % 2, buf)))
+        if prev is not None:
+            out.append(_copied(stage, *prev))
+        prev = item
+    if prev is not None:
+        out.append(_copied(stage, *prev))
     return out
+
+
+def _copied(stage, rows, done):
+    """A copy of block ``rows``, once its copy down is done."""
+    stage.wait(done)
+    return np.array(rows)
 
 
 class StreamedCondatVu:
@@ -259,11 +332,12 @@ class StreamedCondatVu:
                 rows = np.arange(s - Hh, s - Hh + Rh)
                 mask[:, 0] = (rows >= 0) & (rows < Ht)
                 t1 = time.perf_counter()
-                xpb, zpb = self._step(*map(stage.up, (xb, zb, yb, mask)))
+                xpb, zpb = self._step(*(stage.upload(k, 0, a) for k, a in (
+                    ("x", xb), ("z", zb), ("y", yb), ("mask", mask))))
                 n = e - s
-                x_out = stage.down("x_out", xpb[Hh:Hh + n])
-                z_out = stage.down("z_out", zpb[:, Hh:Hh + n])
-                stage.sync()
+                x_out, _ = stage.download("x_out", 0, xpb[Hh:Hh + n])
+                z_out, done = stage.download("z_out", 0, zpb[:, Hh:Hh + n])
+                stage.wait(done)        # the copies down run in order
                 t2 = time.perf_counter()
                 # save the rows the next band will need before overwriting
                 tail_lo = max(e - Hh, s)

@@ -1,5 +1,8 @@
 """Precision policy re-exports and device resolution.
 
+The precision names are those of ``pyxu_tpu.runtime`` but ``enable_x64``,
+which has no counterpart in PyTorch (float64 is always available).
+
 ``resolve_device`` is the one place that decides where an entry point runs:
 an explicit device wins, then the device of a tensor argument, else
 ``cuda``.  With no GPU present and no device given it raises — the port
@@ -15,20 +18,32 @@ from __future__ import annotations
 import torch
 
 from pyxu_tpu_torch.info.dtypes import (  # noqa: F401
+    CWidth,
+    EnforcePrecision,
     Precision,
     Width,
     atol_for,
+    coerce,
+    default_cdtype,
     default_fdtype,
+    enforce_precision,
+    getCoerceState,
     getPrecision,
     set_default_width,
 )
 
 __all__ = [
     "Width",
+    "CWidth",
     "Precision",
-    "default_fdtype",
-    "set_default_width",
+    "EnforcePrecision",
+    "enforce_precision",
+    "coerce",
     "getPrecision",
+    "getCoerceState",
+    "default_fdtype",
+    "default_cdtype",
+    "set_default_width",
     "atol_for",
     "resolve_device",
     "host_read",

@@ -82,11 +82,12 @@ def asarray_astype(arr, dtype, device=None) -> torch.Tensor:
     return host.to(dtype=dtype).to(device if device is not None else "cpu")
 
 
-def next_fast_len(n: int) -> int:
+def next_fast_len(n: int, even: bool = False) -> int:
     """Smallest 5-smooth number >= n (the JAX package's rule, so that fine
-    grids and circulant sizes match it)."""
+    grids and circulant sizes match it); ``even``: the smallest even one
+    that the search meets."""
     if n <= 1:
-        return 1
+        return 2 if even else 1
     best = None
     a_max = int(math.ceil(math.log2(n))) + 1
     for a in range(a_max + 1):
@@ -102,7 +103,8 @@ def next_fast_len(n: int) -> int:
             while True:
                 p = pb * 5 ** c
                 if p >= n:
-                    if best is None or p < best:
+                    if (not even or p % 2 == 0) and (best is None
+                                                     or p < best):
                         best = p
                     break
                 c += 1

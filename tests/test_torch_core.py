@@ -727,3 +727,102 @@ def test_from_source_matches_jax(fdtype, rng):
     with pytest.raises(NotImplementedError):
         t_source(tabc.ProxFunc, (4,), apply=torch.sum).prox(torch.ones(4),
                                                             1.0)
+
+
+# ------------------------------------------- flat API, runtime, utilities --
+
+def _flat_ops():
+    """(JAX, port) pairs: a Gradient, a functional, a Stencil, a dense op."""
+    k = np.asarray([0.25, 0.5, 0.25], np.float32)
+    A = np.random.default_rng(9).standard_normal((6, 4, 5)).astype(
+        np.float32)
+    return {
+        "gradient": (jlin.Gradient((4, 5)), tlin.Gradient((4, 5))),
+        "l1": (jfunc.L1Norm((6,)), tfunc.L1Norm((6,))),
+        "stencil": (jlin.Stencil((4, 5), [jnp.asarray(k)] * 2, [1, 1]),
+                    tlin.Stencil((4, 5), [k, k], [1, 1])),
+        "dense": (jabc.LinOp.from_array(jnp.asarray(A), dim_rank=2),
+                  tabc.LinOp.from_array(A, dim_rank=2, device="cpu")),
+    }
+
+
+@pytest.mark.parametrize("name", ["gradient", "l1", "stencil", "dense"])
+def test_flat_api_matches_jax(name):
+    """``dim``, ``codim``, ``shape`` and ``ravel``/``unravel`` of a batched
+    output, against the JAX package (``tests/test_compat_shims.py``'s
+    ``TestFlatAPICompat``)."""
+    jop, top = _flat_ops()[name]
+    assert (top.dim, top.codim, top.shape) == (jop.dim, jop.codim, jop.shape)
+    x = np.random.default_rng(1).standard_normal((3,) + jop.dim_shape) \
+        .astype(np.float32)
+    jy = jax.jit(jop.apply)(x)
+    ty = top.apply(torch.from_numpy(x))
+    jflat, tflat = jop.ravel(jy), top.ravel(ty)
+    assert tuple(tflat.shape) == tuple(jflat.shape) == (3, jop.codim)
+    np.testing.assert_allclose(tflat.numpy(), np.asarray(jflat), rtol=0,
+                               atol=atol_for(np.float32) * max(
+                                   1.0, float(abs(jy).max())))
+    back = top.unravel(tflat)
+    assert tuple(back.shape) == tuple(jop.unravel(jflat).shape)
+    assert torch.equal(back, ty)
+    # a numpy input, and an unbatched one
+    assert tuple(top.ravel(ty[0].numpy()).shape) == (top.codim,)
+
+
+def test_flat_api_shapes_of_compat_shims():
+    """The JAX package's own cases: Gradient((4, 5)) and L1Norm((6,))."""
+    g = tlin.Gradient((4, 5))
+    assert g.dim == 20 and g.codim == 40 and g.shape == (40, 20)
+    y = g.apply(torch.ones((3, 4, 5)))
+    assert tuple(g.ravel(y).shape) == (3, 40)
+    assert tuple(g.unravel(g.ravel(y)).shape) == (3, 2, 4, 5)
+    f = tfunc.L1Norm((6,))
+    assert f.shape == (1, 6) and f.dim == 6 and f.codim == 1
+
+
+def test_arithmetic_methods_match_jax():
+    """``Property.arithmetic_methods`` gives the JAX package's set for
+    every property."""
+    from pyxu_tpu.abc.operator import Property as JP
+    from pyxu_tpu_torch.abc.operator import Property as TP
+    assert [p.name for p in TP] == [p.name for p in JP]
+    for p in TP:
+        assert p.arithmetic_methods() == JP[p.name].arithmetic_methods(), p
+    assert "prox" in TP.PROXIMABLE.arithmetic_methods()
+    assert TP.FUNCTIONAL.arithmetic_methods() == frozenset()
+
+
+def test_runtime_names_match_jax():
+    """``pyxu_tpu_torch.runtime`` exports the JAX package's precision names
+    (``enable_x64`` aside) from ``info/dtypes.py``."""
+    import pyxu_tpu.runtime as jrt
+    import pyxu_tpu_torch.info.dtypes as tdt
+    import pyxu_tpu_torch.runtime as trt
+    names = ("CWidth", "EnforcePrecision", "enforce_precision", "coerce",
+             "default_cdtype", "getCoerceState")
+    for name in names:
+        assert name in trt.__all__ and name in jrt.__all__, name
+        assert getattr(trt, name) is getattr(tdt, name), name
+    assert set(jrt.__all__) - set(trt.__all__) == {"enable_x64"}
+    assert trt.default_cdtype() == torch.complex64
+    with trt.EnforcePrecision(False):
+        assert trt.getCoerceState() is False
+    assert trt.getCoerceState() is True
+    assert trt.coerce(torch.ones(2, dtype=torch.float64)).dtype == \
+        torch.float32
+    assert trt.CWidth.SINGLE.real is trt.Width.SINGLE
+
+
+def test_next_fast_len_even_matches_jax():
+    from pyxu_tpu.utils.misc import next_fast_len as jnfl
+    from pyxu_tpu_torch.utils.misc import next_fast_len as tnfl
+    for n in range(1, 301):
+        assert tnfl(n, even=True) == jnfl(n, even=True), n
+        assert tnfl(n) == jnfl(n), n
+        assert tnfl(n, even=True) % 2 == 0
+
+
+def test_version_matches_jax():
+    import pyxu_tpu
+    import pyxu_tpu_torch
+    assert pyxu_tpu_torch.__version__ == pyxu_tpu.__version__

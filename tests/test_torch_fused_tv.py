@@ -6,6 +6,7 @@ Pallas kernels in interpret mode, with the shapes and tolerances of
 versions in ``tests/test_torch_kernels.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,12 +49,17 @@ def _params(k0, k1, c0, c1, mode, rho, cst=1.0, lam=0.01, tau=0.2,
                        rho=rho, mode_k=mode, mode_d=mode)
 
 
+# one compile a parameter set and shape (the eager step compiles op by op)
+_tv_step_xla = jax.jit(tv_step_xla, static_argnames=(
+    "c0", "c1", "cst", "lam", "tau", "sigma", "rho", "mode_k", "mode_d"))
+
+
 def _xla(x, z0, z1, b, p):
-    return tv_step_xla(jnp.asarray(x), jnp.asarray(z0), jnp.asarray(z1),
-                       jnp.asarray(b), jnp.asarray(np.float32(p.k0)),
-                       jnp.asarray(np.float32(p.k1)), p.c0, p.c1, cst=p.cst,
-                       lam=p.lam, tau=p.tau, sigma=p.sigma, rho=p.rho,
-                       mode_k=p.mode_k, mode_d=p.mode_d)
+    return _tv_step_xla(jnp.asarray(x), jnp.asarray(z0), jnp.asarray(z1),
+                        jnp.asarray(b), jnp.asarray(np.float32(p.k0)),
+                        jnp.asarray(np.float32(p.k1)), c0=p.c0, c1=p.c1,
+                        cst=p.cst, lam=p.lam, tau=p.tau, sigma=p.sigma,
+                        rho=p.rho, mode_k=p.mode_k, mode_d=p.mode_d)
 
 
 def _t(a):

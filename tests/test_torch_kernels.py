@@ -1783,32 +1783,53 @@ def test_streamed_condatvu_launches_six_stencils_a_band(cuda):
 
 @pytest.mark.cuda
 def test_streamed_map_overlap_and_block_diag_on_the_card(cuda):
-    """Both streamed functions through the page-locked staging: a Stencil
-    band by band (one launch a band) and a block per operator, each result
-    a host array equal to the CPU's, blocks of one shape not aliased."""
+    """Both streamed functions with one band in flight (two page-locked
+    slots a name, copies on side streams): a batched Stencil band by band
+    (one launch a band; 10 bands, the last one short, so each slot is
+    reused four times) and 9 blocks of two shapes, each the same bits as
+    a serial loop on the card, in two calls, and the CPU's result."""
     from pyxu_tpu_torch.operator.linop import Stencil
     from pyxu_tpu_torch.operator.linop.base import HomothetyOp
     from pyxu_tpu_torch.parallel import (streamed_block_diag,
                                          streamed_map_overlap)
-    H, W, block = 200, 96, 64
-    x = np.random.default_rng(7).random((H, W), dtype=np.float32)
-    outs = {}
-    for dev in ("cpu", cuda):
-        K = Stencil((block + 8, W), [_gauss(), _gauss()], [4, 4],
-                    mode="constant")
+    H, W, block, depth = 600, 96, 64, 4
+    x = np.random.default_rng(7).random((2, H, W), dtype=np.float32)
+    K = Stencil((block + 2 * depth, W), [_gauss(), _gauss()], [4, 4],
+                mode="constant")
+    serial = np.zeros_like(x)
+    for s in range(0, H, block):        # fill the halo, apply, trim
+        e = min(s + block, H)
+        band = np.zeros((2, block + 2 * depth, W), np.float32)
+        a, b = max(s - depth, 0), min(e + depth, H)
+        band[:, a - (s - depth):a - (s - depth) + b - a] = x[:, a:b]
+        y = K.apply(torch.from_numpy(band).to(cuda))
+        serial[:, s:e] = y[:, depth:depth + e - s].cpu().numpy()
+    bands = -(-H // block)
+    assert bands >= 8
+    for _ in range(2):
         n0 = st.separable_correlate2d.launches
-        outs[str(dev)] = streamed_map_overlap(K.apply, x, depth=4,
-                                              block_rows=block, device=dev)
-    assert st.separable_correlate2d.launches - n0 == -(-H // block)
-    want = outs["cpu"]
-    assert np.abs(outs[str(cuda)] - want).max() <= \
-        1e-5 * np.abs(want).max()
-    cs = (1.0, -2.0, 0.5)
-    ys = streamed_block_diag([HomothetyOp(dim_shape=(H, W), cst=c)
-                              for c in cs], [x] * 3, device=cuda)
-    for c, yb in zip(cs, ys):
-        assert isinstance(yb, np.ndarray)
-        np.testing.assert_allclose(yb, c * x, atol=1e-6)
+        got = streamed_map_overlap(K.apply, x, depth=depth,
+                                   block_rows=block, device=cuda)
+        assert st.separable_correlate2d.launches - n0 == bands
+        np.testing.assert_array_equal(got, serial)
+    want = streamed_map_overlap(K.apply, x, depth=depth, block_rows=block,
+                                device="cpu")
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+    rng = np.random.default_rng(8)
+    shapes = [(H, W), (96, 130)] * 4 + [(96, 130)]
+    xs = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+    ops = [HomothetyOp(dim_shape=sh, cst=0.5 + i)
+           for i, sh in enumerate(shapes)]
+    serial = [op.apply(torch.from_numpy(xb).to(cuda)).cpu().numpy()
+              for op, xb in zip(ops, xs)]
+    for _ in range(2):
+        ys = streamed_block_diag(ops, xs, device=cuda)
+        for yb, sb in zip(ys, serial, strict=True):
+            assert isinstance(yb, np.ndarray)
+            np.testing.assert_array_equal(yb, sb)
+    assert not any(np.shares_memory(ys[i], ys[j])
+                   for i in range(len(ys)) for j in range(i))
 
 
 @pytest.mark.cuda

@@ -4,6 +4,7 @@ One numpy input goes through both packages; outputs agree within
 ``atol_for`` (2e-4 at f32, 1e-8 at f64).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -51,15 +52,22 @@ def _dot_test(op, rng, dtype):
     assert abs(lhs - rhs) <= 10 * atol_for(dtype) * max(1.0, abs(lhs))
 
 
+def _jit_apply_adjoint(jop, x, y):
+    """``(jop.apply(x), jop.adjoint(y))`` under one ``jax.jit`` (eager JAX
+    compiles op by op)."""
+    return jax.jit(lambda a, b: (jop.apply(a), jop.adjoint(b)))(x, y)
+
+
 @pytest.mark.parametrize("mode",
                          ["constant", "wrap", "reflect", "symmetric", "edge"])
 def test_pad_apply_adjoint(mode, rng, fdtype):
     pw = ((2, 3), (1, 0))
     jop, top = jlin.Pad((H, W), pw, mode=mode), tlin.Pad((H, W), pw, mode=mode)
     xj, xt = _both(rng.standard_normal((2, H, W)).astype(fdtype))
-    _close(jop.apply(xj), top.apply(xt), fdtype)
     yj, yt = _both(rng.standard_normal((2,) + top.codim_shape).astype(fdtype))
-    _close(jop.adjoint(yj), top.adjoint(yt), fdtype)
+    wa, wb = _jit_apply_adjoint(jop, xj, yj)
+    _close(wa, top.apply(xt), fdtype)
+    _close(wb, top.adjoint(yt), fdtype)
     assert top.lipschitz == pytest.approx(jop.lipschitz, rel=1e-12)
     _dot_test(top, rng, fdtype)
 
@@ -81,8 +89,9 @@ def test_stencil_apply_adjoint(name, mode, rng, fdtype):
     jop = jlin.Stencil((H, W), jk, ctr, mode=mode)
     top = tlin.Stencil((H, W), kern, ctr, mode=mode)
     xj, xt = _both(rng.standard_normal((H, W)).astype(fdtype))
-    _close(jop.apply(xj), top.apply(xt), fdtype)
-    _close(jop.adjoint(xj), top.adjoint(xt), fdtype)
+    wa, wb = _jit_apply_adjoint(jop, xj, xj)
+    _close(wa, top.apply(xt), fdtype)
+    _close(wb, top.adjoint(xt), fdtype)
     assert top.lipschitz == pytest.approx(jop.lipschitz, rel=1e-6)
     _dot_test(top, rng, fdtype)
 
@@ -91,9 +100,10 @@ def test_stencil_apply_adjoint(name, mode, rng, fdtype):
 def test_gradient_apply_adjoint(mode, rng, fdtype):
     jop, top = jlin.Gradient((H, W), mode=mode), tlin.Gradient((H, W), mode=mode)
     xj, xt = _both(rng.standard_normal((3, H, W)).astype(fdtype))
-    _close(jop.apply(xj), top.apply(xt), fdtype)
     yj, yt = _both(rng.standard_normal((2, H, W)).astype(fdtype))
-    _close(jop.adjoint(yj), top.adjoint(yt), fdtype)
+    wa, wb = _jit_apply_adjoint(jop, xj, yj)
+    _close(wa, top.apply(xt), fdtype)
+    _close(wb, top.adjoint(yt), fdtype)
     assert top.lipschitz == pytest.approx(jop.lipschitz, rel=1e-12)
     _dot_test(top, rng, fdtype)
 
@@ -106,11 +116,16 @@ def test_norms_apply_prox_fenchel(rng, fdtype):
         (lam * jfunc.L21Norm((2, H, W), l2_axis=0),
          lam * tfunc.L21Norm((2, H, W), l2_axis=0), (2, H, W)),
     ]
-    for jf, tf, shape in cases:
-        xj, xt = _both(rng.standard_normal((3,) + shape).astype(fdtype))
-        _close(jf.apply(xj), tf.apply(xt), fdtype)
-        _close(jf.prox(xj, tau), tf.prox(xt, tau), fdtype)
-        _close(jf.fenchel_prox(xj, tau), tf.fenchel_prox(xt, tau), fdtype)
+    xs = [rng.standard_normal((3,) + shape).astype(fdtype)
+          for _, _, shape in cases]
+    want = jax.jit(lambda *v: [                 # one compile for the three
+        (jf.apply(a), jf.prox(a, tau), jf.fenchel_prox(a, tau))
+        for (jf, _, _), a in zip(cases, v)])(*xs)
+    for (_, tf, _), x, (wa, wp, wf) in zip(cases, xs, want):
+        xt = torch.from_numpy(x)
+        _close(wa, tf.apply(xt), fdtype)
+        _close(wp, tf.prox(xt, tau), fdtype)
+        _close(wf, tf.fenchel_prox(xt, tau), fdtype)
 
 
 def _data_terms(rng, dtype, mode="symmetric"):
@@ -132,8 +147,9 @@ def test_data_term_structure_and_grad(rng, fdtype):
     assert Q._op._op is Kt
     assert isinstance(c, ChainMixin) and isinstance(c, LinFunc)
     xj, xt = _both(rng.standard_normal((H, W)).astype(fdtype))
-    _close(fj.grad(xj), ft.grad(xt), fdtype)
-    _close(fj.apply(xj), ft.apply(xt), fdtype)
+    wg, wa = jax.jit(lambda a: (fj.grad(a), fj.apply(a)))(xj)
+    _close(wg, ft.grad(xt), fdtype)
+    _close(wa, ft.apply(xt), fdtype)
     # constant-gradient cache of the linear term
     assert c.grad(xt) is not None and len(c._cgrad_w) == 1
 

@@ -178,3 +178,64 @@ def test_streamed_condatvu_accounting():
     with pytest.raises(ValueError, match="odd-length"):
         StreamedCondatVu(np.ones((8, 8), np.float32), np.ones(4),
                          device="cpu")
+
+
+def _serial_map_overlap(fn, x, depth, block_rows):
+    """The band loop in series, written out: fill each band's halo (zeros
+    outside the domain and past the band's end), apply, trim."""
+    n = x.shape[-2]
+    block = min(block_rows, n)
+    out = None
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        band = np.zeros(x.shape[:-2] + (block + 2 * depth, x.shape[-1]),
+                        x.dtype)
+        a, b = max(s - depth, 0), min(e + depth, n)
+        band[..., a - (s - depth):a - (s - depth) + b - a, :] = \
+            x[..., a:b, :]
+        rows = fn(torch.from_numpy(band)).numpy()[..., depth:depth + e - s, :]
+        if out is None:
+            out = np.zeros(rows.shape[:-2] + (n,) + rows.shape[-1:],
+                           rows.dtype)
+        out[..., s:e, :] = rows
+    return out
+
+
+@pytest.mark.parametrize("block_rows", [8, 13])
+def test_streamed_map_overlap_batch_and_short_band_bits(block_rows):
+    """Leading batch axes and a last band shorter than ``block_rows``
+    (50 rows): the same bits as the serial loop, and the JAX package's
+    streamed apply within the f32 tolerance."""
+    H, W = 50, 19
+    x = np.random.default_rng(block_rows).standard_normal((2, 3, H, W)) \
+        .astype(np.float32)
+    assert H % block_rows
+    k1 = _gauss1d(1.2, 5)
+    Kb = Stencil((block_rows + 6, W), [k1, k1], [2, 2], mode="constant")
+    got = streamed_map_overlap(Kb.apply, x, depth=3, block_rows=block_rows,
+                               device="cpu")
+    np.testing.assert_array_equal(
+        got, _serial_map_overlap(Kb.apply, x, 3, block_rows))
+    jKb = JStencil((block_rows + 6, W), [jnp.asarray(k1)] * 2, [2, 2],
+                   mode="constant")
+    _close(got, jpar.streamed_map_overlap(jKb.apply, x, depth=3,
+                                          block_rows=block_rows), TOL)
+
+
+def test_streamed_block_diag_two_shapes_bits():
+    """Blocks of two shapes, interleaved (the staging slots are keyed by
+    shape): the same bits as applying each operator alone, and the JAX
+    package's blocks."""
+    rng = np.random.default_rng(4)
+    shapes = [(8, 5), (6, 7), (8, 5), (6, 7), (6, 7)]
+    cs = [1.5, -0.5, 2.0, 3.0, 0.25]
+    xs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    ops = [HomothetyOp(dim_shape=s, cst=c) for s, c in zip(shapes, cs)]
+    ys = streamed_block_diag(ops, xs, device="cpu")
+    jys = jpar.streamed_block_diag(
+        [JHomothety(dim_shape=s, cst=c) for s, c in zip(shapes, cs)], xs)
+    for op, xb, yb, jb in zip(ops, xs, ys, jys, strict=True):
+        assert yb.shape == xb.shape
+        np.testing.assert_array_equal(
+            yb, op.apply(torch.from_numpy(xb)).numpy())
+        _close(yb, jb, TOL)

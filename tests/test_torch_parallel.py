@@ -27,6 +27,7 @@ import pytest
 import torch
 import torch.distributed as dist
 from conftest import atol_for
+from _torch_mesh import mesh1  # noqa: F401  (the fixture)
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 import pyxu_tpu.parallel as jpar
@@ -276,17 +277,6 @@ def ranks(tmp_path_factory):
 
 
 # ----------------------------------------------------- the in-process rank --
-
-@pytest.fixture(scope="module")
-def mesh1(tmp_path_factory):
-    """A gloo group of one rank on a ``file://`` store, and its mesh."""
-    store = tmp_path_factory.mktemp("gloo1") / "store"
-    assert tpar.init_distributed(f"file://{store}", 1, 0, device="cpu") == 1
-    try:
-        yield tpar.auto_mesh(device="cpu")
-    finally:
-        dist.destroy_process_group()
-
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))

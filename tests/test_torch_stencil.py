@@ -55,19 +55,29 @@ def _dot_test(op, rng, dtype):
     assert abs(lhs - rhs) <= 10 * atol_for(dtype) * max(1.0, abs(lhs))
 
 
+def _jax_apply_adjoint(jops, xs):
+    """``[(op.apply(x), op.adjoint(x)), ...]`` of the JAX operators, under
+    one ``jax.jit``."""
+    return jax.jit(lambda *v: [(op.apply(a), op.adjoint(a))
+                               for op, a in zip(jops, v)])(*xs)
+
+
 @pytest.mark.parametrize("mode", ["constant", "symmetric"])
 @pytest.mark.parametrize("taps", sorted(ST_TAPS))
 def test_stencil_matches_jax(taps, mode, rng, fdtype):
     kern, ctr = _taps(taps, rng)
-    for shape in ((70, 33), SHAPES.get(taps, (6, 9))):
-        jop = jlin.Stencil(shape, [jnp.asarray(k) for k in kern], ctr,
-                           mode=mode)
+    shapes = ((70, 33), SHAPES.get(taps, (6, 9)))
+    jops = [jlin.Stencil(shape, [jnp.asarray(k) for k in kern], ctr,
+                         mode=mode) for shape in shapes]
+    xs = [rng.standard_normal((2,) + shape).astype(fdtype)
+          for shape in shapes]
+    want = _jax_apply_adjoint(jops, xs)     # one compile for both shapes
+    for shape, x, (wa, wb) in zip(shapes, xs, want):
         top = tlin.Stencil(shape, kern, ctr, mode=mode)
         assert top.kernel_path == "kernel"
-        x = rng.standard_normal((2,) + shape).astype(fdtype)
-        xj, xt = jnp.asarray(x), torch.from_numpy(x)
-        _close(jax.jit(jop.apply)(xj), top.apply(xt), fdtype)
-        _close(jax.jit(jop.adjoint)(xj), top.adjoint(xt), fdtype)
+        xt = torch.from_numpy(x)
+        _close(wa, top.apply(xt), fdtype)
+        _close(wb, top.adjoint(xt), fdtype)
         _dot_test(top, rng, fdtype)
         if mode == "constant" and fdtype == np.float32:
             got = jax.jit(lambda v: pallas_corr(
@@ -105,9 +115,10 @@ def test_separable_stencil_off_the_kernel_matches_jax(case, rng, fdtype):
     top = tlin.Stencil(shape, kern, ctr, mode=mode)
     assert top.kernel_path is None
     x = rng.standard_normal((2,) + shape).astype(fdtype)
-    xj, xt = jnp.asarray(x), torch.from_numpy(x)
-    _close(jax.jit(jop.apply)(xj), top.apply(xt), fdtype)
-    _close(jax.jit(jop.adjoint)(xj), top.adjoint(xt), fdtype)
+    xt = torch.from_numpy(x)
+    [(wa, wb)] = _jax_apply_adjoint([jop], [x])
+    _close(wa, top.apply(xt), fdtype)
+    _close(wb, top.adjoint(xt), fdtype)
     _dot_test(top, rng, fdtype)
 
 
@@ -118,9 +129,9 @@ def test_convolve_and_accessors_match_jax(mode, rng, fdtype):
                         mode=mode)
     top = tlin.Convolve((20, 17), kern, ctr, mode=mode)
     x = rng.standard_normal((20, 17)).astype(fdtype)
-    _close(jax.jit(jop.apply)(x), top.apply(torch.from_numpy(x)), fdtype)
-    _close(jax.jit(jop.adjoint)(x), top.adjoint(torch.from_numpy(x)),
-           fdtype)
+    [(wa, wb)] = _jax_apply_adjoint([jop], [x])
+    _close(wa, top.apply(torch.from_numpy(x)), fdtype)
+    _close(wb, top.adjoint(torch.from_numpy(x)), fdtype)
     assert top.center == jop.center
     for a, b in zip(top.relative_indices, jop.relative_indices):
         np.testing.assert_array_equal(a, b)
@@ -146,9 +157,9 @@ def test_filters_match_jax(name, rng, fdtype):
     shape = (24, 19)
     jop, top = _FILTERS[name](jfil, shape), _FILTERS[name](tfil, shape)
     x = rng.standard_normal((2,) + shape).astype(fdtype)
-    _close(jax.jit(jop.apply)(x), top.apply(torch.from_numpy(x)), fdtype)
-    _close(jax.jit(jop.adjoint)(x), top.adjoint(torch.from_numpy(x)),
-           fdtype)
+    [(wa, wb)] = _jax_apply_adjoint([jop], [x])
+    _close(wa, top.apply(torch.from_numpy(x)), fdtype)
+    _close(wb, top.adjoint(torch.from_numpy(x)), fdtype)
     if name in ("moving_average", "gaussian", "sobel"):
         assert top.kernel_path == "kernel"
     if name == "sobel":
@@ -158,6 +169,19 @@ def test_filters_match_jax(name, rng, fdtype):
             type(jmag).__mro__[1].__name__
         _close(jax.jit(jmag.apply)(x), tmag.apply(torch.from_numpy(x)),
                fdtype)
+
+
+@pytest.mark.parametrize("name", ["Sobel", "Prewitt", "Scharr"])
+@pytest.mark.parametrize("axis", [(0, 1), (1,), 1.0, "0", True])
+def test_edge_filters_refuse_a_non_int_axis(name, axis):
+    """``axis`` is an int or None: a tuple (which the JAX package takes
+    for the smoothing Stencil alone) or any other type raises a
+    ValueError that names those forms."""
+    from pyxu_tpu_torch.operator.linop import filter as tfil
+    with pytest.raises(ValueError, match="axis must be an int or None"):
+        getattr(tfil, name)((12, 9), axis=axis)
+    assert getattr(tfil, name)((12, 9), axis=np.int64(1)).kernel_path \
+        == "kernel"
 
 
 @pytest.mark.parametrize("mode", ["constant", "symmetric"])
