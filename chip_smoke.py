@@ -111,8 +111,11 @@ Phases:
    warm-started iterations give a cold 300's bits; ``update_operands``
    onto seed 1's loss gives a fresh solve's bits; ``track_objective``'s
    last row is ``objective_func``; ``writeback`` under the ``npz`` and
-   ``torch`` backends reads back the same bits; a schedule with a bf16
-   phase raises the stencil kernel's ValueError); NLCG on Tikhonov
+   ``torch`` backends reads back the same bits; the schedule ``[(bf16,
+   200), (f32, None)]`` on seed 1's loss after a warm schedule: 600
+   stencil launches, bf16 then f32 in ``phase_log``, the objective within
+   1e-2 of the f32 solve's, each phase's it/s as two fits giving the
+   schedule's bits); NLCG on Tikhonov
    deconvolution with the 9-tap blur and ProxAdam (adam, ``inner_iter``
    10) on LASSO, 30 iterations each at 2160x3840 with their stencil
    launches checked, line-search trials and host reads an iteration, and
@@ -271,6 +274,47 @@ Phases:
    the card against the CPU, within 2e-4 of max(1, max|x|).  The kernels
    line's entries gain ``examples_launches``, the JSON line
    ``examples``.
+20. autodiff through the kernels, bf16 and big batches
+   (``autodiff_phase``): every autograd rule on the card (the stencil at
+   2160x3840 with the workload's taps, apply and adjoint; the per-member
+   launch at 3x2160x3840 with the chromatic sigmas and with a shared input
+   at 512^2; spread and interp on the RI 1024^2 plan and on the MRI 128^3
+   kooshball plan): the VJP and the JVP against autograd through the
+   plain versions (f32 within 1e-5 of max|.|, the NUFFT's against the
+   plain graph in float64; f64 1e-12), each VJP one launch of the adjoint
+   kernel and each JVP two of the kernel (asserted), the forward's and the
+   VJP's device ms; ``torch.func.vmap`` against a loop (one launch);
+   ``gradcheck`` in float64 (the stencil at 17x23 in both modes, apply and
+   adjoint, a member set with and without a shared input; spread and
+   interp at 64 points on 32^2 and 16^3).  Then 4K deblurring by
+   exponential reparameterisation, ``f = SquaredL2Norm.asloss(y) * (K *
+   Exp) + 1e-3 SquaredL2Norm`` (workload 1's image and blur, 1% noise),
+   NLCG 30 iterations from log(max(y, 1e-3)) after a warm fit: its
+   gradient through the rule engine's autograd fallback, 1 stencil launch
+   an apply and 2 a gradient, the fit's launches asserted as apply x (2
+   iterations + trials) + gradient x (iterations + 1); it/s, the device
+   ms of a gradient and of an iteration (``torch.profiler``), the idle
+   share, the objective's fall, the 64x48 form card vs CPU within 2e-4 of
+   max|u|; a ``from_torch`` DiffFunc, a ``from_source`` DiffMap's jacobian
+   (JVP, VJP) and ``(Sigmoid * K).jacobian`` at 4K with their launches (2,
+   2, 2 asserted for the first three), their 64x48 forms card vs CPU
+   within 2e-4; the same reparameterisation on the RI workload at 1024^2
+   / 10^6 visibilities, ``A = NUFFT.type2(uv, (1024, 1024), real=True)``,
+   the loss over M, 20 NLCG iterations from log(1e-3), one interp an apply
+   and one interp and one spread a gradient (asserted), the 256^2 / 20 000
+   form card vs CPU; the stencil kernel on bf16 storage at 2160x3840 and
+   2153x3833 (apply and adjoint, both modes) and the per-member launch at
+   3x2160x3840, within one bf16 ulp of max|y| of the plain version, timed
+   against the byte bound (4 bytes a pixel) and one bf16 ``conv2d`` of the
+   constant-mode apply (grouped for the members); the 4K symmetric apply
+   and adjoint again in each ``ST_BF16_SWEEP`` build beside the f32
+   launch (``[bf16 geometry]`` lines); batches over 65535 (70 000
+   images of 16x16, 3 members over 70 002, a NUFFT batch of 65 600: 2
+   launches each, against the plain versions).  The stencil's entry on the
+   ``kernels`` line gains ``bf16``, ``autodiff_launches``,
+   ``autodiff_checks`` and ``big_batch_launches``, each NUFFT entry
+   ``autodiff_launches`` and ``autodiff_checks``; the JSON line
+   ``expdeblur_4k_it_per_s``, ``ri_exp_1024_it_per_s`` and ``autodiff``.
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -297,12 +341,15 @@ import sys  # noqa: E402
 
 SOURCES = ("fused_tv.cu", "stencil.cu", "nufft.cu")
 # the stencil kernel's geometry sweep: -D overrides of csrc/stencil.cu
-# (band ST_BW = 32 ST_CPT columns, strip rows ST_SR, halved to reach
+# (bands of 32 ST_CPT columns, strip rows ST_SR, halved to reach
 # ST_FILL warps, ring depth ST_NBUF, warps a block ST_WARPS); () is the
 # source's own choice
 ST_SWEEP = ((), ("ST_NBUF=8",), ("ST_NBUF=2",), ("ST_SR=16", "ST_FILL=1"),
             ("ST_SR=64", "ST_FILL=1"), ("ST_CPT=2",), ("ST_CPT=8",),
             ("ST_WARPS=4",))
+# the bf16 storage's geometry: 4 columns a lane (the source's), 8 (16-byte
+# reads, 256-column bands), and 8 with 32-row strips at 4K
+ST_BF16_SWEEP = ((), ("ST_CPT=8",), ("ST_CPT=8", "ST_FILL=512"))
 # timing-only builds of csrc/nufft.cu's spread (wrong sums): without the
 # adds into the cells, and without the staging too (the walk over the
 # candidates and the output's stores)
@@ -327,9 +374,9 @@ def _start_builds():
     spec = importlib.util.spec_from_file_location("_chip_smoke_build", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    jobs = [(src, ()) for src in SOURCES] + [
-        ("stencil.cu", d) for d in ST_SWEEP if d] + [
-        ("nufft.cu", d) for d in NU_PHASES + NU_INTERP_PHASES]
+    jobs = list(dict.fromkeys([(src, ()) for src in SOURCES] + [
+        ("stencil.cu", d) for d in ST_SWEEP + ST_BF16_SWEEP if d] + [
+        ("nufft.cu", d) for d in NU_PHASES + NU_INTERP_PHASES]))
 
     def timed(job):
         t0 = time.perf_counter()
@@ -423,6 +470,14 @@ MEMBERS_SMALL, MEMBERS_SMALL_SIGMAS = (8, 512, 512), (1.0, 1.2, 1.4, 1.6,
 # the example programs (phase 19): card vs CPU at the CPU tests' sizes,
 # within the f32 conformance tolerance of max(1, max|x|)
 EX_TOL = 2e-4
+# autodiff through the kernels (phase 20): the exp-reparameterised 4K
+# deblurring (noise, the weight on ||u||^2, NLCG iterations) and RI 1024^2
+# (NLCG iterations), their card-vs-CPU forms; the rule checks' small
+# shapes; the big batches
+AD_SIGMA, AD_REG, AD_ITERS, AD_RI_ITERS = 0.01, 1e-3, 30, 20
+AD_SMALL, AD_RI_SMALL = (64, 48), ((256, 256), 20_000)
+AD_CHECK = (17, 23)
+BIG_IMAGES, BIG_NUFFT = 70_000, 65_600
 SLEEP_CYCLES = 40_000_000      # ~20 ms at 1.98 GHz: longer than the host
                                # takes to enqueue one timed run
 
@@ -626,9 +681,12 @@ def _st_variants(st, p, x, label, lib=None, plain_timed=True, verbose=True):
     """Apply and adjoint, constant and symmetric mode, of taps ``p`` on
     ``x`` through the kernel (``lib``'s build, by default the source's
     own) against the plain version: max error within 1e-5 max|x| (f32) or
-    1e-12 max|x| (f64) times sum|k0| sum|k1|; device times of the kernel
-    and (``plain_timed``) of the plain version; ``verbose``: a line for
-    each variant, else for a failure only."""
+    1e-12 max|x| (f64) times sum|k0| sum|k1|, or one bf16 ulp of max|y|
+    (2^-7 max|y|: bf16 storage, the same float32 arithmetic in another
+    order, one rounding); device times of the kernel and
+    (``plain_timed``) of the plain version; ``verbose``: a line for each
+    variant, else for a failure only."""
+    bf16 = x.dtype == torch.bfloat16
     eps = 1e-5 if x.dtype == torch.float32 else 1e-12
     tol = eps * float(x.abs().max()) * max(
         1.0, sum(map(abs, p.k0)) * sum(map(abs, p.k1)))
@@ -646,7 +704,11 @@ def _st_variants(st, p, x, label, lib=None, plain_timed=True, verbose=True):
 
             def plain(q=q, adj=adj):
                 return st.separable_correlate2d_plain(x, q, adj)
-            err = float((kern() - plain()).abs().max())
+            got, want = kern(), plain()
+            if bf16:
+                got, want = got.float(), want.float()
+                tol = 2.0 ** -7 * float(want.abs().max())
+            err = float((got - want).abs().max())
             torch.cuda.synchronize()
             ok = err <= tol
             if verbose or not ok:
@@ -1872,18 +1934,44 @@ def engine_phase(ft, st):
                                                          rate))
             ckpt[backend] = iters / dtb
     del other, fit1
-    # no bf16 in the stencil kernel and no fallback: the schedule raises
-    try:
-        slv.fit(stop_crit=MaxIter(iters), max_iter=iters,
-                precision_schedule=[(torch.bfloat16, rate),
-                                    (torch.float32, None)], **fit)
-    except ValueError as exc:
-        refused = str(exc)
-    else:
-        raise AssertionError("a bf16 phase ran on the stencil path")
-    assert "float32 or float64" in refused and slv.phase_log == [], refused
-    print(f"[engine] LASSO {shape[0]}x{shape[1]} schedule with a bf16 phase "
-          f"raises: {refused}", flush=True)
+    # a bf16 phase on the stencil kernel: a warm schedule (which caches K^T
+    # y in bf16), then the timed one, 2 launches an iteration in both
+    # phases; then its two phases as two fits (the schedule's bits)
+    obj32 = float(slv.objective_func(slv._mstate))  # seed 1's f32 solve
+    slv.fit(stop_crit=MaxIter(2 * rate), max_iter=2 * rate,
+            precision_schedule=[(torch.bfloat16, rate),
+                                (torch.float32, None)], **fit)      # warm
+    _reset(counters)
+    dts = _timed_fit(slv, iters - sched[0][1], stop_crit=MaxIter(iters),
+                     max_iter=iters, precision_schedule=sched, **fit)
+    sched_launches = launches()
+    assert_launches(sched_launches, {"tv_step": 0, "tv_stepk": 0,
+                                     "stencil": 2 * iters})
+    phases = [(q["dtype"], q["iterations"]) for q in slv.phase_log]
+    assert phases == [("bfloat16", 200), ("float32", 100)], phases
+    xs = slv.solution()
+    assert xs.dtype == torch.float32 and bool(xs.isfinite().all())
+    objs = float(slv.objective_func(slv._mstate))
+    rel = abs(objs - obj32) / abs(obj32)
+    assert rel < 1e-2, (objs, obj32)
+    d16 = _timed_fit(slv, 200, stop_crit=MaxIter(200), max_iter=200,
+                     precision_schedule=[sched[0]], **fit)
+    assert slv._mstate["x"].dtype == torch.bfloat16
+    d32 = _timed_fit(slv, 100, stop_crit=MaxIter(100), max_iter=100,
+                     warm_start=True,
+                     precision_schedule=[(torch.float32, None)])
+    assert torch.equal(slv.solution(), xs)
+    out["lasso_schedule"] = {"it_per_s": iters / dts,
+                             "bf16_phase_it_per_s": 200 / d16,
+                             "f32_phase_it_per_s": 100 / d32,
+                             "launches": sched_launches["stencil"],
+                             "objective_rel_to_f32": rel}
+    print(f"[engine] LASSO {shape[0]}x{shape[1]} schedule bf16 x200 + f32 "
+          f"x100 on the stencil kernel: {iters / dts:.2f} it/s (bf16 phase "
+          f"{200 / d16:.2f} it/s, f32 phase {100 / d32:.2f} it/s); "
+          f"launches {sched_launches}; phases {phases}; objective "
+          f"{objs:.6e} against f32 {obj32:.6e} (rel {rel:.3e}, limit 1e-2)",
+          flush=True)
     out["lasso_sessions"] = {
         "it_per_s": iters / dt_cold, "warm_it_per_s": (iters // 2) / dt_warm,
         "track_objective_it_per_s": iters / dt_obj,
@@ -3504,6 +3592,573 @@ def parallel_phase(st, nu, MaxIter):
     return out
 
 
+def _ad_err(tag, got, want, rel):
+    """The largest error of ``got`` against ``want``, pair by pair,
+    relative to each ``want``'s max|.|; raises above ``rel``."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        worst = max(worst, float((g.double() - w.double()).abs().max())
+                    / scale)
+    ok = worst <= rel
+    print(f"[autodiff] {tag}: max error {worst:.3e} of max|.| (tol "
+          f"{rel:.0e}): {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"autodiff {tag} disagrees with the plain graph")
+    return worst
+
+
+def _vjp_jvp(fn, x, w, t):
+    """``fn(x)``, its VJP of ``w`` (a recording graph) and its JVP along
+    ``t`` (``torch.func.jvp``)."""
+    xg = x.detach().requires_grad_(True)
+    y = fn(xg)
+    (g,) = torch.autograd.grad(y, xg, w)
+    _, jv = torch.func.jvp(fn, (x,), (t,))
+    return y.detach(), g, jv
+
+
+@contextlib.contextmanager
+def _plain_graph(st, nu):
+    """The wrappers with their rules off and the plain versions in place of
+    the kernels: autograd then differentiates the plain versions' own
+    graph, the reference of the rules."""
+    names = ((st, "under_autodiff"), (st, "_correlate"),
+             (st, "_correlate_members"), (nu, "under_autodiff"),
+             (nu, "_spread"), (nu, "_interp"))
+    saved = [(m, n, getattr(m, n)) for m, n in names]
+    st.under_autodiff = nu.under_autodiff = lambda *t: False
+    st._correlate = st.separable_correlate2d_plain
+    st._correlate_members = st.separable_correlate2d_members_plain
+    nu._spread = lambda wr, c, p, d: nu._spread_plain(c, p)
+    nu._interp = lambda wr, g, p, d: nu._interp_plain(g, p)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def _ad_case(st, nu, tag, fn, x, w, t, rel, this, other, ref=None,
+             timed=False):
+    """One rule on the card against the plain graph (``ref``: the
+    reference's function and inputs, default the same): the forward, the
+    VJP (one launch of ``other``, the adjoint kernel) and the JVP (two of
+    ``this``: primal and tangent); with ``timed`` the forward's and the
+    VJP's device ms.  Returns the record."""
+    n0 = (this.launches, other.launches)
+    got = _vjp_jvp(fn, x, w, t)
+    torch.cuda.synchronize()
+    dl = (this.launches - n0[0], other.launches - n0[1])
+    if this is other:
+        assert dl[0] == 4, (tag, dl)
+    else:
+        assert dl == (3, 1), (tag, dl)
+    rfn, rx, rw, rt = ref or (fn, x, w, t)
+    with _plain_graph(st, nu):
+        want = _vjp_jvp(rfn, rx, rw, rt)
+    rec = {"max_rel_err": _ad_err(tag, got, want, rel), "launches": dl}
+    if timed:
+        xg = x.detach().requires_grad_(True)
+        y = fn(xg)
+        rec["forward_ms"] = _time_ms(lambda: fn(x))
+        rec["vjp_ms"] = _time_ms(lambda: torch.autograd.grad(
+            y, xg, w, retain_graph=True))
+        print(f"[autodiff] {tag}: forward {rec['forward_ms']:.4f} ms, VJP "
+              f"{rec['vjp_ms']:.4f} ms (device, CUDA events)", flush=True)
+    return rec
+
+
+def _ad_vmap(tag, fn, xs, counter):
+    """``torch.func.vmap(fn)`` over the leading axis of ``xs`` (one launch
+    of ``counter``'s kernel) against a loop over it, within 1e-6 of
+    max|.|."""
+    n0 = counter.launches
+    got = torch.func.vmap(fn)(xs)
+    n_vmap = counter.launches - n0
+    want = torch.stack([fn(a) for a in xs])
+    err = float((got - want).abs().max())
+    print(f"[autodiff] {tag} vmap over {xs.shape[0]}: {n_vmap} launch, "
+          f"max_abs_diff to a loop {err:.3e}", flush=True)
+    assert n_vmap == 1 and err <= 1e-6 * float(want.abs().max()), (
+        tag, n_vmap, err)
+    return n_vmap
+
+
+def _gradcheck(tag, fn, x):
+    """``torch.autograd.gradcheck`` in float64 (VJP and JVP)."""
+    ok = torch.autograd.gradcheck(fn, (x.requires_grad_(True),),
+                                  check_forward_ad=True, fast_mode=True)
+    print(f"[autodiff] gradcheck {tag}: {ok}", flush=True)
+    assert ok, tag
+
+
+def autodiff_kernel_checks(st, nu, p, A2, A3):
+    """Phase 20, part 1: every rule on the card (see the module
+    docstring).  ``p``: the workload's taps; ``A2``, ``A3``: the RI 1024^2
+    and the MRI 128^3 operators, whose plans the NUFFT rules run on.
+    Returns the records and the 3-D kernels' launches."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    recs = {}
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+    # the stencil at the workload's shape and taps, and a tap set a member
+    mt = _member_taps(st, CHROMA_SIGMAS, "symmetric")
+    for dt, rel in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        w_ = str(dt).replace("torch.", "")
+        x = rnd(SHAPE, dt)
+        for adj in (False, True):
+            def fn(a, adj=adj):
+                return st.separable_correlate2d(a, p, adj)
+            tag = f"stencil {w_}{' adjoint' if adj else ''}"
+            recs[tag] = _ad_case(st, nu, tag, fn, x, rnd(SHAPE, dt),
+                                 rnd(SHAPE, dt), rel,
+                                 st.separable_correlate2d,
+                                 st.separable_correlate2d,
+                                 timed=dt == torch.float32)
+        xm = rnd((len(CHROMA_SIGMAS),) + SHAPE, dt)
+
+        def fm(a):
+            return st.separable_correlate2d_members(a, mt)
+        tag = f"stencil members 3x4K {w_}"
+        recs[tag] = _ad_case(st, nu, tag, fm, xm, rnd(xm.shape, dt),
+                             rnd(xm.shape, dt), rel,
+                             st.separable_correlate2d_members,
+                             st.separable_correlate2d_members,
+                             timed=dt == torch.float32)
+        xs = rnd((512, 512), dt)
+
+        def fs(a):
+            return st.separable_correlate2d_members(a, mt, False, True)
+        tag = f"stencil members shared 512^2 {w_}"
+        recs[tag] = _ad_case(st, nu, tag, fs, xs,
+                             rnd((len(CHROMA_SIGMAS), 512, 512), dt),
+                             rnd(xs.shape, dt), rel,
+                             st.separable_correlate2d_members,
+                             st.separable_correlate2d_members)
+    _ad_vmap("stencil", lambda a: st.separable_correlate2d(a, p, True),
+             rnd((3, 512, 512), torch.float32), st.separable_correlate2d)
+    _ad_vmap("stencil members", lambda a: st.separable_correlate2d_members(
+        a, mt), rnd((2, 3, 512, 512), torch.float32),
+        st.separable_correlate2d_members)
+    # the NUFFT pairs on the RI plan (2-D) and the MRI kooshball plan
+    # (3-D); float32 against the plain graph in float64 on the same plan
+    launches3 = {"nufft_spread3": 0, "nufft_interp3": 0}
+    for d, A in ((2, A2), (3, A3)):
+        plan = A._t1op._plan
+        plan64 = plan.astype(torch.float64)
+        sp, ip = ((nu.nufft_spread2, nu.nufft_interp2) if d == 2
+                  else (nu.nufft_spread3, nu.nufft_interp3))
+        for spread, this, other in ((True, sp, ip), (False, ip, sp)):
+            core = (plan.M, 2) if spread else plan.nf + (2,)
+            oc = plan.nf + (2,) if spread else (plan.M, 2)
+            for dt in (torch.float32, torch.float64):
+                w_ = str(dt).replace("torch.", "")
+                pl = plan if dt == torch.float32 else plan64
+                x, w, t = rnd((1,) + core, dt), rnd((1,) + oc, dt), \
+                    rnd((1,) + core, dt)
+
+                def fn(a, this=this, pl=pl):
+                    return this(a, pl)
+
+                def fref(a, this=this):
+                    return this(a, plan64)
+                tag = f"{this.__name__} {w_}"
+                recs[tag] = _ad_case(
+                    st, nu, tag, fn, x, w, t,
+                    1e-5 if dt == torch.float32 else 1e-12, this, other,
+                    ref=(fref, x.double(), w.double(), t.double()),
+                    timed=dt == torch.float32)
+                if d == 3:      # the checks' launches, not the timing's
+                    launches3[this.__name__] += recs[tag]["launches"][0]
+                    launches3[other.__name__] += recs[tag]["launches"][1]
+            if d == 2:
+                _ad_vmap(this.__name__, lambda a, this=this: this(a, plan),
+                         rnd((3, 1) + core, torch.float32), this)
+    # gradcheck in float64 at small shapes
+    for mode in ("constant", "symmetric"):
+        q = st.SepTaps(p.k0, p.c0, p.k1, p.c1, mode)
+        for adj in (False, True):
+            _gradcheck(f"stencil {mode}{' adjoint' if adj else ''} "
+                       f"{AD_CHECK[0]}x{AD_CHECK[1]}",
+                       lambda a, q=q, adj=adj: st.separable_correlate2d(
+                           a, q, adj), rnd((2,) + AD_CHECK, torch.float64))
+    for shared in (False, True):
+        shape = ((2,) if shared else (2, 3)) + AD_CHECK
+        _gradcheck(f"stencil members{' shared' if shared else ''}",
+                   lambda a, s=shared: st.separable_correlate2d_members(
+                       a, mt, False, s), rnd(shape, torch.float64))
+    rng = np.random.default_rng(20)
+    for d, nf in ((2, (32, 32)), (3, (16, 16, 16))):
+        pts = torch.from_numpy(rng.uniform(0.0, 2 * math.pi, (64, d))).cuda()
+        pl = (nu.plan2 if d == 2 else nu.plan3)(pts, nf, 6, 13.8,
+                                                torch.float64)
+        for name in (f"nufft_spread{d}", f"nufft_interp{d}"):
+            fn = getattr(nu, name)
+            core = (64, 2) if "spread" in name else nf + (2,)
+            _gradcheck(f"{name} 64 points on {'x'.join(map(str, nf))}",
+                       lambda a, fn=fn, pl=pl: fn(a, pl),
+                       rnd((1,) + core, torch.float64))
+    return recs, launches3
+
+
+def _exp_problem(shape, device):
+    """Phase 20's deblurring by exponential reparameterisation (x = exp u,
+    so x > 0) from the public API: workload 1's sparse image and 9-tap
+    sigma = 2 blur K (symmetric padding), y = K x + ``AD_SIGMA`` n with n
+    drawn from ``numpy.random.default_rng(0)`` after the image, f(u) =
+    ||K exp(u) - y||^2 + ``AD_REG`` ||u||^2, u0 = log(max(y, 1e-3)).
+    Returns ``(f, K, y, u0)``."""
+    import numpy as np
+    from pyxu_tpu_torch.models import lasso_deconvolution
+    from pyxu_tpu_torch.operator import SquaredL2Norm
+    from pyxu_tpu_torch.operator.map.ufunc import Exp
+    rng = np.random.default_rng(0)
+    rng.random(shape)                       # the factory's draw of the image
+    n = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    _, _, ex = lasso_deconvolution(shape, device=device)
+    K = ex["K"]
+    y = ex["y"] + AD_SIGMA * n.to(device)
+    f = SquaredL2Norm(shape).asloss(y) * (K * Exp(shape)) \
+        + AD_REG * SquaredL2Norm(shape)
+    return f, K, y, torch.log(torch.clamp(y, min=1e-3))
+
+
+def _ri_exp_problem(shape, n_vis, device):
+    """Phase 20's RI imaging by the same reparameterisation: the RI
+    workload's sky and Gaussian uv (``radio_interferometry``), ``A =
+    NUFFT.type2(uv, shape, real=True)``, y = A x, f(u) = ||A exp(u) -
+    y||^2 / M + ``AD_REG`` ||u||^2, u0 = log(1e-3).  Returns ``(f, A,
+    u0)``."""
+    from pyxu_tpu_torch.models import radio_interferometry
+    from pyxu_tpu_torch.operator import SquaredL2Norm
+    from pyxu_tpu_torch.operator.map.ufunc import Exp
+    _, _, ex = radio_interferometry(shape, n_vis=n_vis, device=device)
+    A, y = ex["A"], ex["y"]
+    f = (1.0 / n_vis) * SquaredL2Norm((n_vis, 2)).asloss(y) * (
+        A * Exp(shape)) + AD_REG * SquaredL2Norm(shape)
+    return f, A, torch.full(shape, math.log(1e-3), device=device)
+
+
+def _nlcg_path(tag, f, u0, nit, counters, names, small):
+    """NLCG on ``f`` from ``u0``: the launches of one apply and of one
+    gradient (``counters``, by ``names``), a warm fit, a timed fit of
+    ``nit`` iterations whose launches must be per_apply (2 nit + trials) +
+    per_grad (nit + 1), the objective's fall, the device ms of a gradient
+    and of an iteration (``torch.profiler``) and the idle share; then
+    ``small()`` -> (card, CPU) solutions within 2e-4 of max|u|."""
+    from pyxu_tpu_torch.math.linesearch import backtracking_linesearch
+    from pyxu_tpu_torch.opt.solver import NLCG
+    from pyxu_tpu_torch.opt.stop import MaxIter
+
+    def count():
+        return {n: c.launches for n, c in zip(names, counters)}
+    f.apply(u0), f.grad(u0)
+    torch.cuda.synchronize()
+    _reset(counters)
+    f.apply(u0)
+    per_apply = count()
+    _reset(counters)
+    f.grad(u0)
+    per_grad = count()
+    nl = NLCG(f, stop_rate=10)
+    nl.fit(x0=u0, stop_crit=MaxIter(10), max_iter=10)            # warm
+    _reset(counters)
+    t0 = backtracking_linesearch.trials
+    dt = _timed_fit(nl, nit, x0=u0, stop_crit=MaxIter(nit), max_iter=nit)
+    trials = backtracking_linesearch.trials - t0
+    got = count()
+    want = {n: per_apply[n] * (2 * nit + trials) + per_grad[n] * (nit + 1)
+            for n in names}
+    assert got == want, (tag, got, want)
+    u = nl.solution()
+    obj0 = float(nl.objective_func({"x": u0}))
+    obj = float(nl.objective_func(nl._mstate))
+    assert obj < obj0 and bool(u.isfinite().all()), (tag, obj, obj0)
+    host_ms = 1e3 * dt / nit
+    grad_ms = _profiled_device_ms(lambda: f.grad(u), 5)
+    state = dict(nl._mstate)
+    dev_ms = _profiled_device_ms(lambda: nl.m_step(state), 5)
+    idle = None if dev_ms is None else 1 - dev_ms / host_ms
+    card, cpu = small()
+    diff = float((card - cpu).abs().max())
+    peak = float(cpu.abs().max())
+    print(f"[autodiff] {tag}: NLCG {nit} iterations in {dt:.4f} s: "
+          f"{nit / dt:.2f} it/s; launches {got} (an apply {per_apply}, a "
+          f"gradient {per_grad}, {trials} further line-search trials); "
+          f"objective {obj0:.6e} -> {obj:.6e}; device ms a gradient "
+          f"{grad_ms}, an iteration {dev_ms} (torch.profiler), host "
+          f"{host_ms:.4f} ms an iteration, idle "
+          f"{'not measured' if idle is None else f'{idle:.1%}'}; small form "
+          f"card vs CPU max_abs_diff {diff:.3e} ({diff / peak:.3e} of "
+          f"max|u|, tol 2e-4)", flush=True)
+    assert diff <= 2e-4 * peak, (tag, diff, peak)
+    return dict(rate=nit / dt, launches=got, per_apply=per_apply,
+                per_grad=per_grad, trials=trials, grad_ms=grad_ms,
+                device_ms=dev_ms, host_ms=host_ms, idle=idle,
+                objective=(obj0, obj), small_diff=diff / peak)
+
+
+def _small_nlcg(build, nit):
+    """The NLCG solution of ``build(device)`` -> (f, u0) on the card and
+    on the CPU."""
+    from pyxu_tpu_torch.opt.solver import NLCG
+    from pyxu_tpu_torch.opt.stop import MaxIter
+    out = []
+    for dev in ("cuda", "cpu"):
+        f, u0 = build(dev)
+        s = NLCG(f)
+        s.fit(x0=u0, stop_crit=MaxIter(nit), max_iter=nit)
+        out.append(s.solution().cpu())
+    return out
+
+
+def _interop_ops(K, x, v, w):
+    """Item 4: a ``from_torch`` DiffFunc whose apply calls ``K.apply``, a
+    ``from_source`` DiffMap sigmoid(K u) (its jacobian a JVP and a VJP)
+    and ``(Sigmoid * K).jacobian`` (composed of its parts)."""
+    from pyxu_tpu_torch.abc import DiffFunc, DiffMap
+    from pyxu_tpu_torch.operator.interop import from_source, from_torch
+    from pyxu_tpu_torch.operator.map.ufunc import Sigmoid
+    shape = K.dim_shape
+    g = from_torch(DiffFunc, shape,
+                   apply=lambda t: (K.apply(t) ** 2).sum((-2, -1)))
+    D = from_source(DiffMap, shape, shape,
+                    apply=lambda t: torch.sigmoid(K.apply(t)))
+    J = D.jacobian(x)
+    Jc = (Sigmoid(shape) * K).jacobian(x)
+    return {"from_torch grad": lambda: g.grad(x),
+            "source jacobian apply (JVP)": lambda: J.apply(v),
+            "source jacobian adjoint (VJP)": lambda: J.adjoint(w),
+            "(Sigmoid*K).jacobian apply": lambda: Jc.apply(v),
+            "(Sigmoid*K).jacobian adjoint": lambda: Jc.adjoint(w)}
+
+
+def _interop_inputs(shape, device):
+    import numpy as np
+    rng = np.random.default_rng(21)
+    return [torch.from_numpy(0.3 * rng.standard_normal(shape).astype(
+        np.float32)).to(device) for _ in range(3)]
+
+
+def _members_bf16(st, x32):
+    """The per-member kernel on bf16 storage at 3x2160x3840 (the chromatic
+    sigmas), apply and adjoint, both modes, as :func:`_st_variants`
+    checks bf16: within one bf16 ulp of max|y|, timed against the byte
+    bound; one grouped bf16 ``conv2d`` of the constant-mode apply (a group
+    a member) as ``library_ms``."""
+    x = x32.to(torch.bfloat16)
+    bound_ms = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3    # 4 B a pixel
+    w = torch.stack([torch.outer(torch.from_numpy(_gauss9(s)),
+                                 torch.from_numpy(_gauss9(s)))
+                     for s in CHROMA_SIGMAS]).to(x)[:, None]
+    x4 = x[None]
+
+    def lib_call():
+        return torch.nn.functional.conv2d(x4, w, padding=4,
+                                          groups=len(CHROMA_SIGMAS))
+    diff = float((lib_call()[0].float() - st.separable_correlate2d_members(
+        x, _member_taps(st, CHROMA_SIGMAS, "constant")).float()).abs().max())
+    out = {"library_ms": _time_ms(lib_call)}
+    print(f"[kernel] stencil members bf16 3x{SHAPE[0]}x{SHAPE[1]}: grouped "
+          f"bf16 conv2d library_ms={out['library_ms']:.4f} (max_abs_diff to "
+          f"the kernel {diff:.3e})", flush=True)
+    for mode in ("constant", "symmetric"):
+        mt = _member_taps(st, CHROMA_SIGMAS, mode)
+        for adj in (False, True):
+            tag = f"{mode}{'-adjoint' if adj else ''}"
+
+            def kern(mt=mt, adj=adj):
+                return st.separable_correlate2d_members(x, mt, adj)
+            want = st.separable_correlate2d_members_plain(x, mt, adj)
+            err = float((kern().float() - want.float()).abs().max())
+            tol = 2.0 ** -7 * float(want.float().abs().max())
+            assert err <= tol, (tag, err, tol)
+            out[tag] = dict(max_abs_err=err, ms=_time_ms(kern),
+                            bound_ms=bound_ms)
+            print(f"[kernel] stencil members bf16 3x{SHAPE[0]}x{SHAPE[1]}"
+                  f"[{tag}] max_abs_err={err:.3e} tol {tol:.3e}: ok; ms="
+                  f"{out[tag]['ms']:.4f} bound_ms={bound_ms:.4f}", flush=True)
+    return out
+
+
+def _bf16_geometry(st, p, x):
+    """The 4K bf16 stencil's symmetric apply and adjoint (the LASSO path's
+    mix) in each ``ST_BF16_SWEEP`` build, checked as :func:`_st_variants`
+    does, beside the f32 launch on the same values, all in this run:
+    ``[bf16 geometry]`` lines; returns each build's ms, plan, and the
+    registers of its unrolled bf16 kernels (``ptxas -v``)."""
+    x32 = x.float()
+    out = {"f32": {}}
+    for adj in (False, True):
+        q = st.SepTaps(p.k0, p.c0, p.k1, p.c1, "symmetric")
+        out["f32"][f"symmetric{'-adjoint' if adj else ''}"] = _time_ms(
+            lambda q=q, adj=adj: st.separable_correlate2d(x32, q, adj))
+    for defines in ST_BF16_SWEEP:
+        lib = st._library(defines)[0]
+        tag = " ".join(defines) or "source"
+        plan = st.kernel_plan(lib, SHAPE, st.SepTaps(
+            p.k0, p.c0, p.k1, p.c1, "symmetric"), False, torch.bfloat16)
+        rec = _st_variants(st, p, x, f" bf16 geometry {tag}", lib=lib,
+                           plain_timed=False, verbose=False)
+        _, log, _ = BUILDS[("stencil.cu", defines)].result()
+        regs = [int(line.split("Used ")[1].split()[0]) for line in
+                _kernel_resources(log, ("st_kernelI13__nv_bfloat16Li9E",))
+                if "Used " in line]
+        out[tag] = dict({k: rec[k]["ms"] for k in (
+            "symmetric", "symmetric-adjoint")}, bands=plan["bands"],
+            sr=plan["sr"], warps=plan["warps"],
+            blocks=plan["stream_blocks"],
+            registers=f"{min(regs)}-{max(regs)}" if regs else "unread")
+    for tag, r in out.items():
+        print(f"[bf16 geometry] {tag}: " + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items()), flush=True)
+    return out
+
+
+def _big_batches(st, nu, p):
+    """Batches beyond 65535 images, in launches of at most 65535: the
+    stencil over ``BIG_IMAGES`` images of 16x16, 3 members over 70002, a
+    NUFFT batch of ``BIG_NUFFT`` on a 50-point plan; each against its plain
+    version, launches counted."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    out = {}
+    x = torch.randn((BIG_IMAGES, 16, 16), generator=gen, device="cuda")
+    n0 = st.separable_correlate2d.launches
+    got = st.separable_correlate2d(x, p, True)
+    out["stencil"] = st.separable_correlate2d.launches - n0
+    want = st.separable_correlate2d_plain(x, p, True)
+    e1 = float((got - want).abs().max()) / float(want.abs().max())
+    mt = _member_taps(st, CHROMA_SIGMAS, "constant")
+    xm = torch.randn((-(-BIG_IMAGES // 3), 3, 16, 16), generator=gen,
+                     device="cuda")
+    n0 = st.separable_correlate2d_members.launches
+    got = st.separable_correlate2d_members(xm, mt)
+    out["stencil_members"] = st.separable_correlate2d_members.launches - n0
+    want = st.separable_correlate2d_members_plain(xm, mt)
+    e2 = float((got - want).abs().max()) / float(want.abs().max())
+    rng = np.random.default_rng(22)
+    pts = torch.from_numpy(rng.uniform(0, 2 * math.pi, (50, 2))).cuda()
+    pl = nu.plan2(pts, (16, 16), 4, 2.3 * 4, torch.float32)
+    c = torch.randn((BIG_NUFFT, 50, 2), generator=gen, device="cuda")
+    s0, i0 = nu.nufft_spread2.launches, nu.nufft_interp2.launches
+    g = nu.nufft_spread2(c, pl)
+    v = nu.nufft_interp2(g, pl)
+    out["nufft_spread2"] = nu.nufft_spread2.launches - s0
+    out["nufft_interp2"] = nu.nufft_interp2.launches - i0
+    p64 = pl.astype(torch.float64)
+    gw = nu.nufft_spread2_plain(c.double(), p64)
+    vw = nu.nufft_interp2_plain(g.double(), p64)
+    e3 = max(float((g - gw).abs().max()) / float(gw.abs().max()),
+             float((v - vw).abs().max()) / float(vw.abs().max()))
+    print(f"[big] stencil {BIG_IMAGES} images of 16x16: {out['stencil']} "
+          f"launches, {e1:.3e} of max|y|; 3 members over {3 * xm.shape[0]}:"
+          f" {out['stencil_members']} launches, {e2:.3e}; NUFFT batch "
+          f"{BIG_NUFFT}: {out['nufft_spread2']} spreads, "
+          f"{out['nufft_interp2']} interps, {e3:.3e} (tol 1e-5)", flush=True)
+    assert out == {"stencil": 2, "stencil_members": 2, "nufft_spread2": 2,
+                   "nufft_interp2": 2}, out
+    assert max(e1, e2, e3) <= 1e-5, (e1, e2, e3)
+    return out
+
+
+def _exp_small(dev):
+    f, _, _, u0 = _exp_problem(AD_SMALL, dev)
+    return f, u0
+
+
+def _ri_exp_small(dev):
+    f, _, u0 = _ri_exp_problem(AD_RI_SMALL[0], AD_RI_SMALL[1], dev)
+    return f, u0
+
+
+def autodiff_phase(st, nu, p):
+    """Phase 20: autodiff through the stencil and NUFFT kernels, bf16 in
+    the stencil kernel and big batches (see the module docstring).
+    ``p``: the workload's blur taps."""
+    from pyxu_tpu_torch.operator.linop.nufft import NUFFT
+    out = {}
+    pts, _, _ = _mri_data(MRI_N, MRI_SPOKES, MRI_READ)
+    A3 = NUFFT.type2(pts, MRI_N, eps=1e-6, dtype=torch.float32,
+                     device="cuda")
+    fr, A2, ur = _ri_exp_problem(RI_SHAPE, RI_VIS, "cuda")
+    assert A2.kernel_path == A3.kernel_path == "kernel"
+    out["checks"], out["launches3"] = autodiff_kernel_checks(st, nu, p, A2,
+                                                             A3)
+    del A3, pts
+    _mark("autodiff rule checks")
+    # the 4K exp-reparameterised deblurring
+    f, K, y, u0 = _exp_problem(SHAPE, "cuda")
+    assert K.kernel_path == "kernel"
+
+    out["expdeblur"] = _nlcg_path(
+        f"exp deblur {SHAPE[0]}x{SHAPE[1]}", f, u0, AD_ITERS,
+        [st.separable_correlate2d], ["stencil"],
+        lambda: _small_nlcg(_exp_small, AD_ITERS))
+    assert out["expdeblur"]["per_grad"] == {"stencil": 2}
+    assert out["expdeblur"]["per_apply"] == {"stencil": 1}
+    # item 4: from_torch and jacobians at 4K, launches counted, and their
+    # 64x48 forms card vs CPU
+    x, v, w = _interop_inputs(SHAPE, "cuda")
+    ops = _interop_ops(K, x, v, w)
+    out["interop_launches"] = {}
+    for name, fn in ops.items():
+        n0 = st.separable_correlate2d.launches
+        r = fn()
+        torch.cuda.synchronize()
+        assert r.shape == SHAPE and bool(r.isfinite().all()), name
+        out["interop_launches"][name] = st.separable_correlate2d.launches - n0
+    il = out["interop_launches"]
+    assert il["from_torch grad"] == il["source jacobian apply (JVP)"] == \
+        il["source jacobian adjoint (VJP)"] == 2, il
+    small = {}
+    for dev in ("cuda", "cpu"):
+        fs, Ks, _, _ = _exp_problem(AD_SMALL, dev)
+        small[dev] = {k: fn().cpu() for k, fn in _interop_ops(
+            Ks, *_interop_inputs(AD_SMALL, dev)).items()}
+    errs = {k: float((small["cuda"][k] - small["cpu"][k]).abs().max())
+            / float(small["cpu"][k].abs().max()) for k in small["cpu"]}
+    print(f"[autodiff] interop at {SHAPE[0]}x{SHAPE[1]}: stencil launches "
+          f"{il}; {AD_SMALL[0]}x{AD_SMALL[1]} card vs CPU (of max|.|, tol "
+          f"2e-4): " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()),
+          flush=True)
+    assert max(errs.values()) <= 2e-4, errs
+    out["interop_small"] = errs
+    del f, K, y, u0, x, v, w, ops
+    _mark("exp deblur 4K and interop")
+    # the RI exp-reparameterised imaging at 1024^2, 10^6 visibilities
+    out["ri_exp"] = _nlcg_path(
+        f"RI exp {RI_SHAPE[0]}^2 / {RI_VIS} visibilities", fr, ur,
+        AD_RI_ITERS, [nu.nufft_spread2, nu.nufft_interp2],
+        ["nufft_spread2", "nufft_interp2"],
+        lambda: _small_nlcg(_ri_exp_small, AD_RI_ITERS))
+    assert out["ri_exp"]["per_grad"] == {"nufft_spread2": 1,
+                                         "nufft_interp2": 1}
+    assert out["ri_exp"]["per_apply"] == {"nufft_spread2": 0,
+                                          "nufft_interp2": 1}
+    del fr, A2, ur
+    _mark("RI exp 1024^2")
+    # bf16 in the stencil kernel, and big batches
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    xs = {s: torch.rand(s, generator=gen, device="cuda").to(torch.bfloat16)
+          for s in (SHAPE, ODD_SHAPE)}
+    out["bf16"] = {f"{s[0]}x{s[1]}": _st_variants(
+        st, p, x, f" bf16 {s[0]}x{s[1]}") for s, x in xs.items()}
+    out["bf16"]["members"] = _members_bf16(st, torch.rand(
+        (len(CHROMA_SIGMAS),) + SHAPE, generator=gen, device="cuda"))
+    out["bf16_library_ms"], err = _conv2d_ms(st, xs[SHAPE], p)
+    print(f"[kernel] stencil bf16 {SHAPE[0]}x{SHAPE[1]} conv2d library_ms="
+          f"{out['bf16_library_ms']:.4f} (max_abs_diff to the kernel "
+          f"{err:.3e})", flush=True)
+    out["bf16_geometry"] = _bf16_geometry(st, p, xs[SHAPE])
+    out["big"] = _big_batches(st, nu, p)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3711,6 +4366,11 @@ def main() -> int:
     examples = examples_phase(ft, st, nu)
     _mark("example programs")
 
+    # ---- phase 20: autodiff through the kernels, bf16, big batches -------
+    ad = autodiff_phase(st, nu, ex["K"]._taps)
+    _mark("autodiff, bf16 and big batches")
+
+    bf16_4k = f"{SHAPE[0]}x{SHAPE[1]}"
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -3782,6 +4442,21 @@ def main() -> int:
                                              "max_abs_err", "bound_ms")}
                        for k, v in r[w].items()} for w in ("f32", "f64")}}
             for n, r in hess_recs.items()},
+        # phase 20: bf16 storage (the LASSO path's mix at 4K, then every
+        # variant), the exp deblurring's timed fit, the batches over 65535
+        "bf16": {
+            "ms": statistics.fmean(ad["bf16"][bf16_4k][t]["ms"] for t in (
+                "symmetric", "symmetric-adjoint")),
+            "bound_ms": ad["bf16"][bf16_4k]["symmetric"]["bound_ms"],
+            "max_abs_err": max(v["max_abs_err"] for s in ad["bf16"].values()
+                               for v in s.values() if isinstance(v, dict)),
+            "library_ms": ad["bf16_library_ms"],
+            "variants": ad["bf16"], "geometry": ad["bf16_geometry"]},
+        "autodiff_launches": ad["expdeblur"]["launches"]["stencil"],
+        "autodiff_checks": {k: v for k, v in ad["checks"].items()
+                            if k.startswith("stencil")},
+        "big_batch_launches": {k: ad["big"][k] for k in (
+            "stencil", "stencil_members")},
     })
     # the RI 1024^2 path spreads twice on the Toeplitz grid and once (A^H y)
     # on A's; it interpolates once (y) on A's grid.  The MRI 128^3 path
@@ -3831,6 +4506,13 @@ def main() -> int:
             # phase 17: ShardedNUFFT's and ShardedNUFFT3's launches
             "sharded_launches": par["sharded"]["launches"][kname],
             "examples_launches": _example_launches(examples, kname),
+            # phase 20: the RI exp path's timed fit (2-D), the rule checks
+            # on the MRI plan (3-D)
+            "autodiff_launches": (ad["ri_exp"]["launches"][kname]
+                                  if kname.endswith("2")
+                                  else ad["launches3"][kname]),
+            "autodiff_checks": {k: v for k, v in ad["checks"].items()
+                                if k.startswith(kname)},
             "variants": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                                 "max_abs_err", "phases")
                              if f in v}
@@ -3862,8 +4544,13 @@ def main() -> int:
                           "consensus_admm_64x4096_1dev"]["rate"],
                       "ooc_tv_16k_s_per_iter": par["ooc"]["sec_per_iter"],
                       "chromatic_4k_it_per_s": chroma["rate"],
+                      "expdeblur_4k_it_per_s": ad["expdeblur"]["rate"],
+                      "ri_exp_1024_it_per_s": ad["ri_exp"]["rate"],
                       "ooc_blur_16k_overlap": par["overlap"],
                       "examples": examples,
+                      "autodiff": {k: ad[k] for k in (
+                          "expdeblur", "ri_exp", "interop_launches",
+                          "interop_small", "big")},
                       "parallel": par,
                       "engine": engine}),
           flush=True)

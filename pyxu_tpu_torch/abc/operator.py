@@ -16,10 +16,12 @@ tuples and functionals have ``codim_shape == ()``; leading batch axes are
 allowed.  A generic ``LinOp.adjoint`` comes from autograd (the vector-
 Jacobian product of the linear ``apply``); the operators of the TV path
 override it with closed forms.  ``DiffMap.jacobian`` linearises ``apply``
-with ``torch.func.jvp``/``vjp``; the CUDA kernel wrappers have no
-autograd rule, so a transform that reaches one on a CUDA tensor raises
-(the rules compose their parts' Jacobians, so a linear part such as a
-Stencil is applied as itself, never differentiated).
+with ``torch.func.jvp``/``vjp``.  The stencil and NUFFT kernel wrappers
+carry autograd rules whose backward is the adjoint kernel (``ops/``), so
+these transforms run through them on the card; the fused TV step, a
+solver step only ``CondatVu`` calls, refuses them.  The rules compose
+their parts' Jacobians, so a linear part such as a Stencil is applied as
+itself.
 """
 
 from __future__ import annotations

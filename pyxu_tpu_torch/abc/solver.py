@@ -240,8 +240,8 @@ class Solver:
         of the ``max_iter`` budget, e.g. ``precision_schedule=
         [(torch.bfloat16, 700), (torch.float32, None)]``.  BLOCK mode only.
         A segment that raises keeps the last good state and logs the error;
-        within a schedule the error then ends the fit (the stencil kernel,
-        for one, refuses bfloat16 on the card).
+        within a schedule the error then ends the fit (a kernel that
+        refuses the phase's dtype, say).
         """
         if precision_schedule is not None:
             return self._fit_scheduled(

@@ -87,6 +87,21 @@
 // its own (separable_correlate2d, above, takes one tap set).  Bound: the
 // same bytes as B single launches, the taps' N (L0 + L1) values besides.
 //
+// Storage and arithmetic (st_kernel<T, ...>; A = StAcc<T>::type): float32
+// and float64 compute in their own type; bfloat16 storage (the counterpart
+// of the JAX Stencil's bf16 phase, which rounds its taps with
+// kernel.astype(x.dtype)) loads and stores bf16, takes its taps rounded to
+// bf16 (st_args), and widens every value to float32 for the products and
+// sums (ring rows hold bf16, the horizontal sums and the fold's edge window
+// float32), so that an output is rounded once (st_store, as tv_st of
+// csrc/fused_tv.cu).  A lane takes ST_CPT = 4 bf16 columns, as at f32, in
+// 8-byte reads and stores.  With ST_CPT = 8 (16-byte reads, 256-column
+// bands) the unrolled bf16 kernel took ~145 registers against ~98 and ran
+// 2.4x slower on the H100 (chip_smoke.py's [bf16 geometry] lines, PERF.md
+// section 6).  cp.async copies 4, 8 or 16 bytes: a bf16 row that is not
+// 16-byte aligned (an odd width) loads through the scalar edge routine by
+// plain loads.  Bound: 4 bytes a pixel, 0.0099 ms at 2160x3840.
+//
 // Reads never leave the image plane: rows and columns map through the
 // boundary into [0, n), and halo columns beyond h of the image are never
 // read.  Test builds define ST_COUNT_STRAY_READS: a read whose address
@@ -94,7 +109,9 @@
 // instead, and stencil_stray_reads() returns the count.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 #define ST_MAXL 32
 // tap count of the unrolled path: for the workloads' 9+9-tap blur
@@ -137,8 +154,8 @@ __device__ unsigned long long st_stray_reads;
 struct StArgs {
   double k0[ST_MAXL];
   double k1[ST_MAXL];
-  float k0f[ST_MAXL];  // the taps rounded to float, for float storage
-  float k1f[ST_MAXL];
+  float k0f[ST_MAXL];  // the taps rounded to float (to bf16 for bf16
+  float k1f[ST_MAXL];  // storage), for float arithmetic
   int L0, L1, c0, c1;  // tap counts and centres (rows, cols)
   int h0, h1;          // halo per side (rows, cols)
   int H, W;
@@ -158,7 +175,7 @@ struct StGeom {
   int n_edge;             // edge blocks (the fold's frame)
   int H1;                 // column halo of a ring row, rounded up to 16 B
   int rw;                 // elements of a ring row
-  int warp_elems;         // shared elements of one warp
+  int warp_bytes;         // shared bytes of one warp
   int fa, fb, fa1, fb1;   // streaming warps store rows [fa, fb) x [fa1, fb1)
   int vec;                // rows 16-byte aligned: 16-byte copies and stores
 };
@@ -167,12 +184,41 @@ __host__ __device__ __forceinline__ int st_cdiv(int a, int b) {
   return (a + b - 1) / b;
 }
 
-// Tap t of axis 0 or 1 in the storage type, read from the kernel's
+// The arithmetic type of a storage type: bf16 computes in float.
+template <typename T>
+struct StAcc {
+  using type = T;
+};
+template <>
+struct StAcc<__nv_bfloat16> {
+  using type = float;
+};
+
+__device__ __forceinline__ float st_wide(float v) { return v; }
+__device__ __forceinline__ double st_wide(double v) { return v; }
+__device__ __forceinline__ float st_wide(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void st_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_store(double* p, double v) { *p = v; }
+__device__ __forceinline__ void st_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ __forceinline__ T st_zero() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 st_zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16((unsigned short)0);
+}
+
+// Tap t of axis 0 or 1 in the arithmetic type A, read from the kernel's
 // parameters: inside an unrolled loop an FMA takes it as a constant operand
 // and spends no register on it.
-template <typename T>
-__device__ __forceinline__ T st_tap(const StArgs& a, int axis, int t) {
-  if constexpr (sizeof(T) == 4)
+template <typename A>
+__device__ __forceinline__ A st_tap(const StArgs& a, int axis, int t) {
+  if constexpr (sizeof(A) == 4)
     return axis ? a.k1f[t] : a.k0f[t];
   else
     return axis ? a.k1[t] : a.k0[t];
@@ -220,15 +266,18 @@ __device__ __forceinline__ void st_cp16(void* dst, const void* src) {
                "l"(src));
 }
 
+// one element; cp.async has no 2-byte copy, so bf16 loads and stores
 template <typename T>
 __device__ __forceinline__ void st_cp1(T* dst, const T* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (sizeof(T) == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
                  "l"(src));
-  else
+  else if constexpr (sizeof(T) == 4)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                  "l"(src));
+  else
+    *dst = *src;
 }
 
 __device__ __forceinline__ void st_commit() {
@@ -240,10 +289,38 @@ __device__ __forceinline__ void st_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// RV consecutive values at p (RV * sizeof(T) <= 16 bytes, aligned to that)
-template <typename T, int RV>
-__device__ __forceinline__ void st_get(const T* p, T* w) {
-  if constexpr (RV == 4 && sizeof(T) == 4) {
+// RV consecutive values at p (RV * sizeof(T) <= 16 bytes, aligned to
+// that), widened to the arithmetic type
+template <typename T, int RV, typename A>
+__device__ __forceinline__ void st_get(const T* p, A* w) {
+  if constexpr (sizeof(T) == 2 && RV % 8 == 0) {
+#pragma unroll
+    for (int e = 0; e < RV; e += 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + e);
+      const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        __nv_bfloat162 b;
+        memcpy(&b, &u[h], 4);
+        const float2 f = __bfloat1622float2(b);
+        w[e + 2 * h] = f.x;
+        w[e + 2 * h + 1] = f.y;
+      }
+    }
+  } else if constexpr (sizeof(T) == 2 && RV % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < RV; e += 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p + e);
+      __nv_bfloat162 b0, b1;
+      memcpy(&b0, &v.x, 4);
+      memcpy(&b1, &v.y, 4);
+      const float2 f0 = __bfloat1622float2(b0), f1 = __bfloat1622float2(b1);
+      w[e] = f0.x; w[e + 1] = f0.y; w[e + 2] = f1.x; w[e + 3] = f1.y;
+    }
+  } else if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int e = 0; e < RV; ++e) w[e] = st_wide(p[e]);
+  } else if constexpr (RV == 4 && sizeof(T) == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
   } else if constexpr (RV == 2 && sizeof(T) == 8) {
@@ -258,9 +335,36 @@ __device__ __forceinline__ void st_get(const T* p, T* w) {
   }
 }
 
-template <typename T, int RV>
-__device__ __forceinline__ void st_put(T* p, const T* w) {
-  if constexpr (RV == 4 && sizeof(T) == 4) {
+// RV arithmetic values rounded into the storage type at p (aligned as in
+// st_get)
+template <typename T, int RV, typename A>
+__device__ __forceinline__ void st_put(T* p, const A* w) {
+  if constexpr (sizeof(T) == 2 && RV % 8 == 0) {
+#pragma unroll
+    for (int e = 0; e < RV; e += 8) {
+      unsigned u[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const __nv_bfloat162 b =
+            __floats2bfloat162_rn(w[e + 2 * h], w[e + 2 * h + 1]);
+        memcpy(&u[h], &b, 4);
+      }
+      *reinterpret_cast<uint4*>(p + e) = make_uint4(u[0], u[1], u[2], u[3]);
+    }
+  } else if constexpr (sizeof(T) == 2 && RV % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < RV; e += 4) {
+      const __nv_bfloat162 b0 = __floats2bfloat162_rn(w[e], w[e + 1]);
+      const __nv_bfloat162 b1 = __floats2bfloat162_rn(w[e + 2], w[e + 3]);
+      uint2 v;
+      memcpy(&v.x, &b0, 4);
+      memcpy(&v.y, &b1, 4);
+      *reinterpret_cast<uint2*>(p + e) = v;
+    }
+  } else if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int e = 0; e < RV; ++e) st_store(p + e, w[e]);
+  } else if constexpr (RV == 4 && sizeof(T) == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(w[0], w[1], w[2], w[3]);
   } else if constexpr (RV == 2 && sizeof(T) == 8) {
     *reinterpret_cast<double2*>(p) = make_double2(w[0], w[1]);
@@ -286,7 +390,7 @@ __device__ __noinline__ void st_load_row_edge(T* dst, const T* __restrict__ x,
                                               int lane) {
   const long plane = (long)H * W;
   if (r < 0 || r >= H) {
-    for (int v = lane; v < n; v += 32) dst[v] = T(0);
+    for (int v = lane; v < n; v += 32) dst[v] = st_zero<T>();
     return;
   }
   const T* row = x + (long)r * W;
@@ -296,7 +400,7 @@ __device__ __noinline__ void st_load_row_edge(T* dst, const T* __restrict__ x,
     if (q >= 0 && q < W && !st_stray(x, row + q, 1, plane))
       st_cp1(dst + v, row + q);
     else
-      dst[v] = T(0);
+      dst[v] = st_zero<T>();
   }
 }
 
@@ -317,7 +421,7 @@ __device__ __forceinline__ void st_load_row(T* dst, const T* __restrict__ x,
         st_cp16(dst + c * V, row + c * V);
       } else {
 #pragma unroll
-        for (int e = 0; e < V; ++e) dst[c * V + e] = T(0);
+        for (int e = 0; e < V; ++e) dst[c * V + e] = st_zero<T>();
       }
     }
   } else {
@@ -354,11 +458,12 @@ __device__ __forceinline__ void st_prefetch(T* ring, const T* __restrict__ x,
 
 // The unrolled path: LK taps on both axes; SUB = (H1 - c1) mod RV.  PM:
 // the taps of the block's member, from the shared k0s / k1s into
-// registers; otherwise from the kernel's parameters.
-template <typename T, int LK, int SUB, bool PM>
+// registers; otherwise from the kernel's parameters.  A: the arithmetic
+// type.
+template <typename T, int LK, int SUB, bool PM, typename A>
 __device__ __forceinline__ void st_stream_fixed(
     const T* __restrict__ x, T* __restrict__ y, const StArgs& a,
-    const StGeom& g, const T* k0s, const T* k1s, T* ring, int band,
+    const StGeom& g, const A* k0s, const A* k1s, T* ring, int band,
     const StStrip& sp, int lane) {
   constexpr int V = 16 / sizeof(T);
   constexpr int RV = ST_CPT < V ? ST_CPT : V;   // vector of a lane's reads
@@ -366,7 +471,7 @@ __device__ __forceinline__ void st_stream_fixed(
   const int q0 = band * ST_BW;
   const int base = ST_CPT * lane + g.H1 - a.c1 - SUB;
   const int qo = q0 + ST_CPT * lane;
-  T tk0[LK], tk1[LK];
+  A tk0[LK], tk1[LK];
   if constexpr (PM) {
 #pragma unroll
     for (int t = 0; t < LK; ++t) {
@@ -374,7 +479,7 @@ __device__ __forceinline__ void st_stream_fixed(
       tk1[t] = k1s[t];
     }
   }
-  T ring_r[LK][ST_CPT];
+  A ring_r[LK][ST_CPT];
 #pragma unroll 1
   for (int j = 0; j < ST_NBUF - 1; ++j)
     st_prefetch(ring, x, j, sp, q0, a, g, lane);
@@ -387,28 +492,28 @@ __device__ __forceinline__ void st_stream_fixed(
       __syncwarp();
       st_prefetch(ring, x, i + ST_NBUF - 1, sp, q0, a, g, lane);
       const T* row = ring + (i & (ST_NBUF - 1)) * g.rw + base;
-      T w[NW];
+      A w[NW];
 #pragma unroll
       for (int v = 0; v < NW; v += RV) st_get<T, RV>(row + v, w + v);
 #pragma unroll
       for (int k = 0; k < ST_CPT; ++k) {
-        T h = T(0);
+        A h = A(0);
 #pragma unroll
         for (int b = 0; b < LK; ++b)
-          h += (PM ? tk1[b] : st_tap<T>(a, 1, b)) * w[SUB + k + b];
+          h += (PM ? tk1[b] : st_tap<A>(a, 1, b)) * w[SUB + k + b];
         ring_r[u][k] = h;
       }
       if (i >= LK - 1) {
         const int s = sp.s0 + i - (LK - 1);
         if (s >= g.fa && s < g.fb && qo < a.W) {
-          T out[ST_CPT];
+          A out[ST_CPT];
 #pragma unroll
           for (int k = 0; k < ST_CPT; ++k) {
-            T acc = T(0);
+            A acc = A(0);
             // tap t reads image row s - c0 + t: loop row i - LK + 1 + t
 #pragma unroll
             for (int t = 0; t < LK; ++t)
-              acc += (PM ? tk0[t] : st_tap<T>(a, 0, t)) *
+              acc += (PM ? tk0[t] : st_tap<A>(a, 0, t)) *
                      ring_r[(u + 1 + t) % LK][k];
             out[k] = acc;
           }
@@ -421,7 +526,7 @@ __device__ __forceinline__ void st_stream_fixed(
 #pragma unroll
             for (int k = 0; k < ST_CPT; ++k) {
               const int q = qo + k;
-              if (q >= g.fa1 && q < g.fb1) yrow[q] = out[k];
+              if (q >= g.fa1 && q < g.fb1) st_store(yrow + q, out[k]);
             }
           }
         }
@@ -432,16 +537,18 @@ __device__ __forceinline__ void st_stream_fixed(
 }
 
 // Runtime tap counts: lane owns columns lane + 32 k; the last L0
-// horizontal sums of its columns live in the warp's shared ring `hs`.
-template <typename T>
+// horizontal sums of its columns live in the warp's shared ring `hs`, in
+// the arithmetic type A.
+template <typename T, typename A>
 __device__ __forceinline__ void st_stream_any(
     const T* __restrict__ x, T* __restrict__ y, const StArgs& a,
-    const StGeom& g, const T* k0s, const T* k1s, T* ring, int band,
+    const StGeom& g, const A* k0s, const A* k1s, T* ring, int band,
     const StStrip& sp, int lane) {
   const int L0 = a.L0, L1 = a.L1;
   const int q0 = band * ST_BW;
   const int off = g.H1 - a.c1;
-  T* hs = ring + ST_NBUF * g.rw;     // L0 rows of ST_BW sums
+  // L0 rows of ST_BW sums; the ring's bytes are a multiple of 16
+  A* hs = reinterpret_cast<A*>(ring + ST_NBUF * g.rw);
 #pragma unroll 1
   for (int j = 0; j < ST_NBUF - 1; ++j)
     st_prefetch(ring, x, j, sp, q0, a, g, lane);
@@ -454,8 +561,8 @@ __device__ __forceinline__ void st_stream_any(
 #pragma unroll
     for (int k = 0; k < ST_CPT; ++k) {
       const int v = lane + 32 * k;
-      T h = T(0);
-      for (int b = 0; b < L1; ++b) h += k1s[b] * row[v + b];
+      A h = A(0);
+      for (int b = 0; b < L1; ++b) h += k1s[b] * st_wide(row[v + b]);
       hs[slot * ST_BW + v] = h;
     }
     if (i >= L0 - 1) {
@@ -465,13 +572,13 @@ __device__ __forceinline__ void st_stream_any(
 #pragma unroll
         for (int k = 0; k < ST_CPT; ++k) {
           const int v = lane + 32 * k, q = q0 + v;
-          T acc = T(0);
+          A acc = A(0);
           int sl = slot + 1 == L0 ? 0 : slot + 1;   // the oldest row: tap 0
           for (int t = 0; t < L0; ++t) {
             acc += k0s[t] * hs[sl * ST_BW + v];
             sl = sl + 1 == L0 ? 0 : sl + 1;
           }
-          if (q < a.W && q >= g.fa1 && q < g.fb1) yrow[q] = acc;
+          if (q < a.W && q >= g.fa1 && q < g.fb1) st_store(yrow + q, acc);
         }
       }
     }
@@ -488,12 +595,13 @@ __device__ __forceinline__ void st_stream_any(
 // horizontal pass.  The fold needs every reflected index inside the
 // window, which holds for any tile: a ghost index lies within h of the
 // edge the tile's own outputs lie within h of.  LK: the tap count of both
-// axes when fixed at compile time, 0 for a runtime count.
-template <typename T, int LK>
+// axes when fixed at compile time, 0 for a runtime count.  The window and
+// the vertical pass hold the arithmetic type A.
+template <typename T, int LK, typename A>
 __device__ __forceinline__ void st_edge_tile(const T* __restrict__ x,
                                              T* __restrict__ y,
-                                             const StArgs& a, const T* k0,
-                                             const T* k1, T* S, int r0,
+                                             const StArgs& a, const A* k0,
+                                             const A* k1, A* S, int r0,
                                              int q0, int rows, int cols) {
   const int H = a.H, W = a.W;
   const int L0 = LK ? LK : a.L0, L1 = LK ? LK : a.L1;
@@ -502,7 +610,7 @@ __device__ __forceinline__ void st_edge_tile(const T* __restrict__ x,
   const int wr = r0 - h0, wq = q0 - h1;
   const int NR = rows + 2 * h0, NC = cols + 2 * h1, P = ST_TC + 2 * h1;
   const int nt = blockDim.x;
-  T* V = S + (ST_TR + 2 * h0) * P;
+  A* V = S + (ST_TR + 2 * h0) * P;
 
   // the block's threads take the window's elements in turn, four loads
   // in flight a thread
@@ -513,7 +621,7 @@ __device__ __forceinline__ void st_edge_tile(const T* __restrict__ x,
     const T* p = x + (long)g * W + gq;
     const bool in = g >= 0 && g < H && gq >= 0 && gq < W &&
                     !st_stray(x, p, 1, (long)H * W);
-    S[u * P + v] = in ? *p : T(0);
+    S[u * P + v] = in ? A(st_wide(*p)) : A(0);
   }
   __syncthreads();
 
@@ -521,8 +629,8 @@ __device__ __forceinline__ void st_edge_tile(const T* __restrict__ x,
   for (int e = threadIdx.x; e < rows * NC; e += nt) {
     const int i = e / NC, v = e - i * NC;
     const int s = r0 + i;
-    const T* src = S + (i + h0 - c0) * P + v;
-    T acc = T(0);
+    const A* src = S + (i + h0 - c0) * P + v;
+    A acc = A(0);
 #pragma unroll
     for (int t = 0; t < L0; ++t) acc += k0[t] * src[t * P];
     for (int t = 0; t < L0; ++t) {
@@ -537,10 +645,10 @@ __device__ __forceinline__ void st_edge_tile(const T* __restrict__ x,
   // horizontal pass; each output pixel is written once
   for (int e = threadIdx.x; e < rows * cols; e += nt) {
     const int i = e / cols, j = e - i * cols;
-    const T* row = V + i * P;
+    const A* row = V + i * P;
     const int q = q0 + j;
-    const T* src = row + j + h1 - c1;
-    T acc = T(0);
+    const A* src = row + j + h1 - c1;
+    A acc = A(0);
 #pragma unroll
     for (int t = 0; t < L1; ++t) acc += k1[t] * src[t];
     for (int t = 0; t < L1; ++t) {
@@ -548,7 +656,7 @@ __device__ __forceinline__ void st_edge_tile(const T* __restrict__ x,
       if (lo >= 0) acc += k1[t] * row[lo - wq];
       if (hi < W) acc += k1[t] * row[hi - wq];
     }
-    y[(long)(r0 + i) * W + q] = acc;
+    st_store(y + (long)(r0 + i) * W + q, acc);
   }
 }
 
@@ -561,39 +669,42 @@ __device__ __forceinline__ void st_edge_tile(const T* __restrict__ x,
 template <typename T, int LK, int SUB, bool PM>
 __global__ void __launch_bounds__(32 * ST_WARPS)
 st_kernel(const T* __restrict__ x, T* __restrict__ y, StArgs a, StGeom g) {
+  using A = typename StAcc<T>::type;
   extern __shared__ __align__(16) unsigned char st_smem[];
-  __shared__ T k0[ST_MAXL], k1[ST_MAXL];
+  __shared__ A k0[ST_MAXL], k1[ST_MAXL];
   const int t = threadIdx.x;
   if constexpr (PM) {
     const long m = blockIdx.y % a.members;
     if (t < ST_MAXL) {
-      k0[t] = t < a.L0 ? static_cast<const T*>(a.mk0)[m * a.L0 + t] : T(0);
-      k1[t] = t < a.L1 ? static_cast<const T*>(a.mk1)[m * a.L1 + t] : T(0);
+      k0[t] = t < a.L0 ? A(st_wide(static_cast<const T*>(a.mk0)[m * a.L0 + t]))
+                       : A(0);
+      k1[t] = t < a.L1 ? A(st_wide(static_cast<const T*>(a.mk1)[m * a.L1 + t]))
+                       : A(0);
     }
   } else if (t < ST_MAXL) {
-    k0[t] = (T)a.k0[t];
-    k1[t] = (T)a.k1[t];
+    k0[t] = st_tap<A>(a, 0, t);
+    k1[t] = st_tap<A>(a, 1, t);
   }
   __syncthreads();
   const long plane = (long)a.H * a.W;
   x += (PM ? blockIdx.y / a.x_rep : blockIdx.y) * plane;
   y += blockIdx.y * plane;
-  T* S = reinterpret_cast<T*>(st_smem);
   const int blk = blockIdx.x;
   if (blk < g.n_stream) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int w = blk * g.warps + warp;
     if (w >= g.bands * g.strips) return;
-    T* ring = S + warp * g.warp_elems;
+    T* ring = reinterpret_cast<T*>(st_smem + (size_t)warp * g.warp_bytes);
     const StStrip sp = st_strip(a, g, w / g.bands, LK ? LK : a.L0);
     if constexpr (LK > 0) {
-      st_stream_fixed<T, LK, SUB, PM>(x, y, a, g, k0, k1, ring, w % g.bands,
-                                      sp, lane);
+      st_stream_fixed<T, LK, SUB, PM, A>(x, y, a, g, k0, k1, ring,
+                                         w % g.bands, sp, lane);
     } else {
-      st_stream_any<T>(x, y, a, g, k0, k1, ring, w % g.bands, sp, lane);
+      st_stream_any<T, A>(x, y, a, g, k0, k1, ring, w % g.bands, sp, lane);
     }
     return;
   }
+  A* S = reinterpret_cast<A*>(st_smem);
   int e = blk - g.n_stream;
   for (int k = 0; k < 4; ++k) {
     int r0, r1, q0, q1;
@@ -601,8 +712,8 @@ st_kernel(const T* __restrict__ x, T* __restrict__ y, StArgs a, StGeom g) {
     if (e < n) {
       const int nc = st_cdiv(q1 - q0, ST_TC);
       const int tr = r0 + (e / nc) * ST_TR, tq = q0 + (e % nc) * ST_TC;
-      st_edge_tile<T, LK>(x, y, a, k0, k1, S, tr, tq, min(ST_TR, r1 - tr),
-                          min(ST_TC, q1 - tq));
+      st_edge_tile<T, LK, A>(x, y, a, k0, k1, S, tr, tq, min(ST_TR, r1 - tr),
+                             min(ST_TC, q1 - tq));
       return;
     }
     e -= n;
@@ -611,15 +722,17 @@ st_kernel(const T* __restrict__ x, T* __restrict__ y, StArgs a, StGeom g) {
 
 // ------------------------------------------------------------------ host --
 
-static size_t st_edge_smem(const StArgs& a, size_t elem) {
+// bytes of the fold's edge window and vertical pass, in the arithmetic type
+static size_t st_edge_smem(const StArgs& a, size_t aelem) {
   const size_t P = ST_TC + 2 * a.h1;
-  return ((ST_TR + 2 * a.h0) * P + ST_TR * P) * elem;
+  return ((ST_TR + 2 * a.h0) * P + ST_TR * P) * aelem;
 }
 
-// The launch geometry of one call; returns the dynamic shared memory a
+// The launch geometry of one call, for storage elements of `elem` bytes
+// and arithmetic values of `aelem`; returns the dynamic shared memory a
 // block asks for.
-static size_t st_plan(const StArgs& a, int B, size_t elem, int aligned,
-                      StGeom* g) {
+static size_t st_plan(const StArgs& a, int B, size_t elem, size_t aelem,
+                      int aligned, StGeom* g) {
   const int V = 16 / (int)elem;
   const bool fast = a.L0 == ST_FAST_L && a.L1 == ST_FAST_L;
   g->bands = st_cdiv(a.W, ST_BW);
@@ -631,7 +744,8 @@ static size_t st_plan(const StArgs& a, int B, size_t elem, int aligned,
   g->H1 = st_cdiv(a.h1, V) * V;
   // the band, its halo, and a vector a lane's window may read past it
   g->rw = ST_BW + 2 * g->H1 + V;
-  g->warp_elems = ST_NBUF * g->rw + (fast ? 0 : a.L0 * ST_BW);
+  g->warp_bytes = ST_NBUF * g->rw * (int)elem +
+                  (fast ? 0 : a.L0 * ST_BW * (int)aelem);
   g->vec = aligned && a.W % V == 0;
   if (a.fold) {
     g->fa = a.h0 < a.H ? a.h0 : a.H;
@@ -647,13 +761,13 @@ static size_t st_plan(const StArgs& a, int B, size_t elem, int aligned,
     for (int k = 0; k < 4; ++k)
       g->n_edge += st_rect(k, a, *g, &r0, &r1, &q0, &q1);
   }
-  const size_t edge = g->n_edge ? st_edge_smem(a, elem) : 0;
+  const size_t edge = g->n_edge ? st_edge_smem(a, aelem) : 0;
   // fewer warps a block while the ring overflows shared memory or the
   // launch has fewer blocks than ST_BLOCKS
   g->warps = ST_WARPS;
   size_t smem;
   for (;;) {
-    smem = (size_t)g->warps * g->warp_elems * elem;
+    smem = (size_t)g->warps * g->warp_bytes;
     if (edge > smem) smem = edge;
     g->n_stream = st_cdiv(g->bands * g->strips, g->warps);
     if (g->warps == 2 ||
@@ -685,7 +799,7 @@ template <typename T, bool PM>
 static int st_launch_taps(const void* x, void* y, int B, const StArgs& a,
                           const StGeom& g, size_t smem, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  constexpr int RV = ST_CPT < V ? ST_CPT : V;
+  constexpr int RV = ST_CPT < V ? ST_CPT : V;   // 8 for bf16 at ST_CPT 8
   if (!(a.L0 == ST_FAST_L && a.L1 == ST_FAST_L))
     return st_launch<T, 0, 0, PM>(x, y, B, a, g, smem, s);
   switch ((g.H1 - a.c1) % RV) {
@@ -694,22 +808,48 @@ static int st_launch_taps(const void* x, void* y, int B, const StArgs& a,
       return st_launch<T, ST_FAST_L, 1 % RV, PM>(x, y, B, a, g, smem, s);
     case 2:
       return st_launch<T, ST_FAST_L, 2 % RV, PM>(x, y, B, a, g, smem, s);
-    default:
+    case 3:
       return st_launch<T, ST_FAST_L, 3 % RV, PM>(x, y, B, a, g, smem, s);
+    case 4:
+      return st_launch<T, ST_FAST_L, 4 % RV, PM>(x, y, B, a, g, smem, s);
+    case 5:
+      return st_launch<T, ST_FAST_L, 5 % RV, PM>(x, y, B, a, g, smem, s);
+    case 6:
+      return st_launch<T, ST_FAST_L, 6 % RV, PM>(x, y, B, a, g, smem, s);
+    default:
+      return st_launch<T, ST_FAST_L, 7 % RV, PM>(x, y, B, a, g, smem, s);
   }
 }
 
+// v rounded to the nearest bf16 (ties to even), as a float; v finite
+static float st_round_bf16(float v) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  u = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+  memcpy(&v, &u, 4);
+  return v;
+}
+
+// Bytes of a storage element and of an arithmetic value for the storage
+// type's code (0 float, 1 double, 2 bf16; st_args refuses others).
+static size_t st_elem(int dt) { return dt == 1 ? 8 : (dt == 2 ? 2 : 4); }
+static size_t st_aelem(int dt) { return dt == 1 ? 8 : 4; }
+
 static int st_args(StArgs* a, int H, int W, const double* k0, int L0,
                    int c0, const double* k1, int L1, int c1, int reflect,
-                   int fold) {
+                   int fold, int dt) {
   if (L0 < 1 || L0 > ST_MAXL || L1 < 1 || L1 > ST_MAXL || c0 < 0 ||
-      c0 >= L0 || c1 < 0 || c1 >= L1 || H < 1 || W < 1)
+      c0 >= L0 || c1 < 0 || c1 >= L1 || H < 1 || W < 1 || dt < 0 || dt > 2)
     return (int)cudaErrorInvalidValue;
   for (int t = 0; t < ST_MAXL; ++t) {
     a->k0[t] = k0 && t < L0 ? k0[t] : 0.0;
     a->k1[t] = k1 && t < L1 ? k1[t] : 0.0;
     a->k0f[t] = (float)a->k0[t];
     a->k1f[t] = (float)a->k1[t];
+    if (dt == 2) {
+      a->k0f[t] = st_round_bf16(a->k0f[t]);
+      a->k1f[t] = st_round_bf16(a->k1f[t]);
+    }
   }
   a->L0 = L0; a->L1 = L1; a->c0 = c0; a->c1 = c1;
   a->h0 = c0 > L0 - 1 - c0 ? c0 : L0 - 1 - c0;
@@ -727,21 +867,25 @@ static int st_args(StArgs* a, int H, int W, const double* k0, int L0,
 extern "C" {
 
 // y = one separable correlation of each of the B contiguous (H, W) images
-// of x.  f64: 1 for double storage, 0 for float.  reflect / fold as in
-// StArgs.  Returns cudaGetLastError() after the launch.
-int stencil_launch(const void* x, void* y, int B, int H, int W, int f64,
+// of x (B <= 65535: the wrapper cuts larger batches).  dt: the storage
+// type, 0 float, 1 double, 2 bf16 (float arithmetic).  reflect / fold as
+// in StArgs.  Returns cudaGetLastError() after the launch.
+int stencil_launch(const void* x, void* y, int B, int H, int W, int dt,
                    const double* k0, int L0, int c0, const double* k1, int L1,
                    int c1, int reflect, int fold, void* stream) {
   if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   StArgs a;
-  const int err = st_args(&a, H, W, k0, L0, c0, k1, L1, c1, reflect, fold);
+  const int err =
+      st_args(&a, H, W, k0, L0, c0, k1, L1, c1, reflect, fold, dt);
   if (err) return err;
   const int aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
   StGeom g;
-  const size_t smem = st_plan(a, B, f64 ? 8 : 4, aligned, &g);
+  const size_t smem = st_plan(a, B, st_elem(dt), st_aelem(dt), aligned, &g);
   if (smem > ST_SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (f64) return st_launch_taps<double, false>(x, y, B, a, g, smem, s);
+  if (dt == 1) return st_launch_taps<double, false>(x, y, B, a, g, smem, s);
+  if (dt == 2)
+    return st_launch_taps<__nv_bfloat16, false>(x, y, B, a, g, smem, s);
   return st_launch_taps<float, false>(x, y, B, a, g, smem, s);
 }
 
@@ -749,9 +893,11 @@ int stencil_launch(const void* x, void* y, int B, int H, int W, int f64,
 // taps (k0: n_members x L0, k1: n_members x L1, device arrays in the
 // storage type) of input image b / x_rep of x (x_rep: 1, or n_members
 // when every member reads the same input).  B must be a multiple of
-// n_members.  Returns cudaGetLastError() after the launch.
+// n_members (and at most 65535: the wrapper cuts larger batches into
+// whole groups of members).  dt as in stencil_launch.  Returns
+// cudaGetLastError() after the launch.
 int stencil_launch_members(const void* x, void* y, int B, int H, int W,
-                           int f64, const void* k0, int L0, int c0,
+                           int dt, const void* k0, int L0, int c0,
                            const void* k1, int L1, int c1, int n_members,
                            int x_rep, int reflect, int fold, void* stream) {
   if (B < 1 || B > 65535 || n_members < 1 || B % n_members != 0 ||
@@ -759,16 +905,18 @@ int stencil_launch_members(const void* x, void* y, int B, int H, int W,
     return (int)cudaErrorInvalidValue;
   StArgs a;
   const int err = st_args(&a, H, W, nullptr, L0, c0, nullptr, L1, c1,
-                          reflect, fold);
+                          reflect, fold, dt);
   if (err) return err;
   a.mk0 = k0; a.mk1 = k1;
   a.members = n_members; a.x_rep = x_rep;
   const int aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
   StGeom g;
-  const size_t smem = st_plan(a, B, f64 ? 8 : 4, aligned, &g);
+  const size_t smem = st_plan(a, B, st_elem(dt), st_aelem(dt), aligned, &g);
   if (smem > ST_SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (f64) return st_launch_taps<double, true>(x, y, B, a, g, smem, s);
+  if (dt == 1) return st_launch_taps<double, true>(x, y, B, a, g, smem, s);
+  if (dt == 2)
+    return st_launch_taps<__nv_bfloat16, true>(x, y, B, a, g, smem, s);
   return st_launch_taps<float, true>(x, y, B, a, g, smem, s);
 }
 
@@ -776,14 +924,14 @@ int stencil_launch_members(const void* x, void* y, int B, int H, int W,
 // strip rows, warps a block, streaming blocks, edge blocks, dynamic shared
 // bytes, ring row elements, 16-byte path (for 16-byte aligned pointers),
 // the unrolled path.  Returns 0, or cudaErrorInvalidValue.
-int stencil_plan(int B, int H, int W, int f64, int L0, int c0, int L1,
+int stencil_plan(int B, int H, int W, int dt, int L0, int c0, int L1,
                  int c1, int reflect, int fold, long long* out) {
   StArgs a;
   const int err = st_args(&a, H, W, nullptr, L0, c0, nullptr, L1, c1,
-                          reflect, fold);
+                          reflect, fold, dt);
   if (err) return err;
   StGeom g;
-  const size_t smem = st_plan(a, B, f64 ? 8 : 4, 1, &g);
+  const size_t smem = st_plan(a, B, st_elem(dt), st_aelem(dt), 1, &g);
   const long long v[10] = {g.bands, g.strips, g.sr, g.warps, g.n_stream,
                            g.n_edge, (long long)smem, g.rw, g.vec,
                            L0 == ST_FAST_L && L1 == ST_FAST_L};

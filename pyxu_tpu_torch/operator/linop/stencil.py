@@ -18,7 +18,10 @@ correlation, :func:`~pyxu_tpu_torch.ops.stencil.fwd_axis` /
 is one N-D correlation written as a weighted sum of shifted slices of the
 padded input.  Taps live on the host as numpy arrays (the fused-TV matcher
 reads them there) and are applied as Python scalars, so they take the
-input's dtype.
+input's dtype; on the kernel path a bfloat16 input computes in float32
+from taps rounded to bfloat16 and is rounded once.  The kernel path
+differentiates through the wrapper's autograd rule (its backward is the
+adjoint kernel), so ``grad``, ``jacobian`` and ``torch.func`` reach it.
 
 Lipschitz via Young's inequality: ``L <= L_pad * prod ||k_i||_1``.
 Closed-form trace in constant mode: ``tr = N * prod k_i[center_i]``.

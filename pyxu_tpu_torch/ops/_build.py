@@ -1,4 +1,5 @@
-"""Build a CUDA source of ``csrc/`` into a shared library and load it.
+"""Build a CUDA source of ``csrc/`` into a shared library and load it, and
+cut a batch into the runs a launch takes (:func:`batch_runs`).
 
 Each source has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` at first use into ``csrc/_build/`` (git-ignored), under a name
@@ -15,12 +16,13 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["compile_source", "compile_and_load"]
+__all__ = ["compile_source", "compile_and_load", "MAX_BATCH", "batch_runs"]
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = _CSRC / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_BATCH = 65535   # batch elements a launch takes (gridDim.y)
 
 
 def _nvcc() -> str:
@@ -65,3 +67,9 @@ def compile_and_load(source: str, defines: tuple = ()):
     ``(ctypes.CDLL, compiler output)``."""
     so, log = compile_source(source, defines)
     return ctypes.CDLL(str(so)), log
+
+
+def batch_runs(n: int, step: int = MAX_BATCH):
+    """``(lo, hi)`` runs of at most ``step`` of ``n`` batch elements, one a
+    launch: a batch larger than a launch takes runs as several."""
+    return ((lo, min(lo + step, n)) for lo in range(0, n, step))

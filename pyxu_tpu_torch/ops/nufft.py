@@ -43,7 +43,17 @@ as ``(..., 2)`` real pairs: strengths ``(B, M, 2)`` and grids ``(B, *nf,
 
 The kernels take float32 and float64, 2 to 16 taps and any grid size.  An
 empty point set (M = 0) launches nothing: spread gives zeros, interp an
-empty result.
+empty result.  A batch of more than ``MAX_BATCH`` elements runs as
+several launches, each counted.
+
+Autodiff: spread and interp on one plan are each other's exact transpose
+(the real (re, im) view has real ES weights), so each pair carries a
+``torch.autograd.Function`` (:class:`_NuFunction`) whose VJP is the other
+kernel through its wrapper (the kernel on a CUDA tensor, the plain version
+on a CPU one), whose JVP is the same kernel on the tangent, and whose
+``vmap`` rule folds the mapped axis into ``B``.  The plan is a constant.
+A wrapper enters the rule only under autodiff (``ops/_guard.py``
+:func:`under_autodiff`); ``.rule_calls`` counts the rule's calls.
 
 d = 1 has no kernel (the JAX package has no Pallas kernel for it either):
 :func:`plan1` and :func:`nufft_spread1_plain` / :func:`nufft_interp1_plain`
@@ -52,6 +62,7 @@ run the plain versions on either device.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -59,8 +70,8 @@ import math
 
 import torch
 
-from pyxu_tpu_torch.ops._build import compile_and_load
-from pyxu_tpu_torch.ops._guard import refuse_autodiff
+from pyxu_tpu_torch.ops._build import MAX_BATCH, batch_runs, compile_and_load
+from pyxu_tpu_torch.ops._guard import under_autodiff
 
 __all__ = [
     "Plan",
@@ -632,7 +643,6 @@ def build() -> str:
 
 
 def _check(a: torch.Tensor, plan: Plan, d: int, core: tuple):
-    refuse_autodiff(f"nufft ({d}-D)", a)
     _plain_check(a, plan, d)
     if not a.is_cuda:
         raise ValueError(f"input must lie on a CUDA device, not {a.device}")
@@ -645,8 +655,6 @@ def _check(a: torch.Tensor, plan: Plan, d: int, core: tuple):
         raise ValueError(f"shape {tuple(a.shape)}: want (B, *{core})")
     if not a.is_contiguous():
         raise ValueError("input must be contiguous")
-    if not 1 <= a.shape[0] <= 65535:
-        raise ValueError("1 to 65535 batch elements per launch")
 
 
 def _launch(fn, src: torch.Tensor, dst: torch.Tensor, plan: Plan,
@@ -672,8 +680,20 @@ def _launch(fn, src: torch.Tensor, dst: torch.Tensor, plan: Plan,
                            f"({lib.nufft_error_string(err).decode()})")
 
 
+def _launches(wrapper, fn, src, dst, plan: Plan):
+    """``fn`` over the batch in launches of at most ``MAX_BATCH``
+    elements, each counted on ``wrapper``."""
+    B = src.shape[0]
+    for lo, hi in batch_runs(B):
+        wrapper.launches += 1
+        if hi - lo == B:
+            _launch(fn, src, dst, plan)
+        else:
+            _launch(fn, src[lo:hi], dst[lo:hi], plan)
+
+
 def _spread(wrapper, c: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
-    if c.device.type == "cpu":
+    if c.is_cpu:
         _plain_check(c, plan, d)
         return _spread_plain(c, plan)
     _check(c, plan, d, (plan.M, 2))
@@ -682,13 +702,12 @@ def _spread(wrapper, c: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
         return torch.zeros(shape, dtype=c.dtype, device=c.device)
     # the kernel writes every cell once
     g = torch.empty(shape, dtype=c.dtype, device=c.device)
-    wrapper.launches += 1
-    _launch(f"nufft_spread{d}_launch", c, g, plan)
+    _launches(wrapper, f"nufft_spread{d}_launch", c, g, plan)
     return g
 
 
 def _interp(wrapper, g: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
-    if g.device.type == "cpu":
+    if g.is_cpu:
         _plain_check(g, plan, d)
         return _interp_plain(g, plan)
     _check(g, plan, d, plan.nf + (2,))
@@ -699,37 +718,94 @@ def _interp(wrapper, g: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
                       device=g.device)
     if plan.M == 0:
         return out
-    wrapper.launches += 1
-    _launch(f"nufft_interp{d}_launch", g, out, plan)
+    _launches(wrapper, f"nufft_interp{d}_launch", g, out, plan)
     return out
+
+
+def _cells(a: torch.Tensor) -> torch.Tensor:
+    """``a`` contiguous and, on the card, starting on a whole (re, im)
+    cell, as the kernels read it (a cotangent or tangent may be a view of
+    any offset).  A tensor under a transform has no storage of its own:
+    the rule it reaches aligns the tensor it unwraps."""
+    a = a.contiguous()
+    if (a.is_cuda and not torch._C._functorch.is_functorch_wrapped_tensor(a)
+            and a.data_ptr() % (2 * a.element_size())):
+        a = a.clone()
+    return a
+
+
+class _NuFunction(torch.autograd.Function):
+    """The autograd rule of the spread and interp wrappers of one ``d``:
+    ``spread`` selects the direction.  Linear in the values: the VJP is
+    the other direction on the same plan, the JVP this direction on the
+    tangent, ``vmap`` one call over the mapped axis folded into ``B``."""
+
+    @staticmethod
+    def forward(a, plan, d, spread):
+        return (_spread if spread else _interp)(_WRAPPERS[d, spread],
+                                                _cells(a), plan, d)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.plan, ctx.d, ctx.spread = inputs
+
+    @staticmethod
+    def backward(ctx, gout):
+        _WRAPPERS[ctx.d, ctx.spread].rule_calls["vjp"] += 1
+        back = _WRAPPERS[ctx.d, not ctx.spread](_cells(gout), ctx.plan)
+        return back, None, None, None
+
+    @staticmethod
+    def jvp(ctx, ta, *_):
+        _WRAPPERS[ctx.d, ctx.spread].rule_calls["jvp"] += 1
+        return _WRAPPERS[ctx.d, ctx.spread](_cells(ta), ctx.plan)
+
+    @staticmethod
+    def vmap(info, in_dims, a, plan, d, spread):
+        wrapper = _WRAPPERS[d, spread]
+        wrapper.rule_calls["vmap"] += 1
+        a = a.movedim(in_dims[0], 0)
+        V, B = a.shape[:2]
+        out = wrapper(_cells(a.reshape((V * B,) + a.shape[2:])), plan)
+        return out.reshape((V, B) + out.shape[1:]), 0
+
+
+def _entry(a: torch.Tensor, plan: Plan, d: int, spread: bool):
+    """A wrapper's body: the rule under autodiff, else the direct call."""
+    wrapper = _WRAPPERS[d, spread]
+    if under_autodiff(a):
+        wrapper.rule_calls["forward"] += 1
+        return _NuFunction.apply(a, plan, d, spread)
+    return (_spread if spread else _interp)(wrapper, a, plan, d)
 
 
 def nufft_spread2(c: torch.Tensor, plan: Plan) -> torch.Tensor:
     """Spread of ``c`` ``(B, M, 2)`` onto ``(B, n1, n2, 2)``: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    return _spread(nufft_spread2, c, plan, 2)
+    return _entry(c, plan, 2, True)
 
 
 def nufft_interp2(g: torch.Tensor, plan: Plan) -> torch.Tensor:
     """Interp of the grid ``g`` ``(B, n1, n2, 2)`` at the plan's points:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    return _interp(nufft_interp2, g, plan, 2)
+    return _entry(g, plan, 2, False)
 
 
 def nufft_spread3(c: torch.Tensor, plan: Plan) -> torch.Tensor:
     """Spread of ``c`` ``(B, M, 2)`` onto ``(B, n1, n2, n3, 2)``: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    return _spread(nufft_spread3, c, plan, 3)
+    return _entry(c, plan, 3, True)
 
 
 def nufft_interp3(g: torch.Tensor, plan: Plan) -> torch.Tensor:
     """Interp of the grid ``g`` ``(B, n1, n2, n3, 2)`` at the plan's
     points: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors."""
-    return _interp(nufft_interp3, g, plan, 3)
+    return _entry(g, plan, 3, False)
 
 
-nufft_spread2.launches = 0
-nufft_interp2.launches = 0
-nufft_spread3.launches = 0
-nufft_interp3.launches = 0
+_WRAPPERS = {(2, True): nufft_spread2, (2, False): nufft_interp2,
+             (3, True): nufft_spread3, (3, False): nufft_interp3}
+for _w in _WRAPPERS.values():
+    _w.launches = 0
+    _w.rule_calls = collections.Counter()

@@ -25,14 +25,28 @@ with ``m`` the boundary map of ``mode``: zero outside the image
   the taps in device memory.  ``separable_correlate2d_members.launches``
   counts its launches.
 
-The kernel takes float32 and float64, constant and symmetric modes, and at
-most ``_MAX_TAPS`` taps per axis; :func:`kernel_takes` is the rule a
-Stencil applies once, at construction.  :func:`launch_plan` mirrors the
-kernel's launch geometry (row strips, column bands, fold edge tiles).
+The kernel takes float32, float64 and bfloat16 storage (bfloat16: the taps
+rounded to bfloat16, products and sums in float32, the result rounded
+once), constant and symmetric modes, and at most ``_MAX_TAPS`` taps per
+axis; :func:`kernel_takes` is the rule a Stencil applies once, at
+construction.  A batch of more than ``MAX_BATCH`` images runs as several
+launches (the members launch in whole groups of members), each counted.
+:func:`launch_plan` mirrors the kernel's launch geometry (row strips,
+column bands, fold edge tiles).
+
+Autodiff: both wrappers are linear in ``x``, and each carries a
+``torch.autograd.Function`` (:class:`_Correlate`, :class:`_MembersCorrelate`)
+whose VJP is the other direction's launch through the same wrapper (the
+kernel on a CUDA tensor, the plain version on a CPU one), whose JVP is the
+launch on the tangent, and whose ``vmap`` rule folds the mapped axis into
+the batch.  The taps are constants.  A wrapper enters its rule only under
+autodiff (``ops/_guard.py`` :func:`under_autodiff`); ``.rule_calls``
+counts the rules' calls.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -41,8 +55,8 @@ import numpy as np
 import torch
 
 from pyxu_tpu_torch.operator.linop.pad import pad_axis, pad_axis_adjoint
-from pyxu_tpu_torch.ops._build import compile_and_load
-from pyxu_tpu_torch.ops._guard import refuse_autodiff
+from pyxu_tpu_torch.ops._build import MAX_BATCH, batch_runs, compile_and_load
+from pyxu_tpu_torch.ops._guard import under_autodiff
 
 __all__ = [
     "SepTaps",
@@ -68,7 +82,8 @@ _GEOM = {"cpt": 4, "warps": 8, "nbuf": 4, "sr": 32, "sr_min": 4,
 _EDGE_TILE = (32, 64)                # ST_TR, ST_TC
 _MAX_SMEM = 232448                   # ST_SMEM_MAX
 _MODES = ("constant", "symmetric")
-_DTYPES = (torch.float32, torch.float64)
+_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+_DT_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,16 +127,18 @@ class MemberTaps:
         return len(self.taps)
 
     def device_taps(self, device, dtype, adjoint: bool) -> tuple:
-        """``(k0, k1)`` of the kernel's correlation on ``device`` in
-        ``dtype``: the adjoint's taps flipped."""
+        """``(k0, k1)`` of the kernel's correlation on ``device`` in the
+        storage ``dtype`` (bfloat16: rounded from float32, as
+        :func:`_bf16_taps`): the adjoint's taps flipped."""
         key = (torch.device(device), dtype, adjoint)
         hit = self._dev.get(key)
         if hit is None:
             k0, k1 = ((self.k0[:, ::-1], self.k1[:, ::-1]) if adjoint
                       else (self.k0, self.k1))
+            via = torch.float32 if dtype == torch.bfloat16 else dtype
             hit = self._dev[key] = tuple(
-                torch.tensor(np.ascontiguousarray(k), dtype=dtype,
-                             device=device) for k in (k0, k1))
+                torch.tensor(np.ascontiguousarray(k), dtype=via,
+                             device=device).to(dtype) for k in (k0, k1))
         return hit
 
 
@@ -167,9 +184,22 @@ def adj_axis(r, k, c, ax, mode):
     return pad_axis_adjoint(out, ax, c, L - 1 - c, n, mode)
 
 
+def _bf16_taps(k):
+    """Taps (host floats, or an array) rounded to bfloat16 from float32, as
+    the kernel rounds them for bfloat16 storage, as float32 values: a tuple,
+    or a float32 tensor for an array."""
+    t = torch.as_tensor(np.asarray(k, dtype=np.float32)).to(torch.bfloat16)
+    return t.float() if isinstance(k, np.ndarray) else tuple(t.tolist())
+
+
 def separable_correlate2d_plain(x, p: SepTaps, adjoint: bool = False):
     """The function of the kernel over the trailing two axes of ``x``, in
-    its dtype: rows first, then columns."""
+    its dtype: rows first, then columns.  bfloat16: the kernel's
+    arithmetic, the bfloat16-rounded taps on ``x`` in float32, the result
+    rounded once."""
+    if x.dtype == torch.bfloat16:
+        q = dataclasses.replace(p, k0=_bf16_taps(p.k0), k1=_bf16_taps(p.k1))
+        return separable_correlate2d_plain(x.float(), q, adjoint).to(x.dtype)
     a0, a1 = x.ndim - 2, x.ndim - 1
     if adjoint:
         return adj_axis(adj_axis(x, p.k0, p.c0, a0, p.mode), p.k1, p.c1, a1,
@@ -190,17 +220,26 @@ def separable_correlate2d_members_plain(x, mt: MemberTaps,
                                         adjoint: bool = False,
                                         shared_input: bool = False):
     """Member ``i``'s correlation of image ``(..., i, :, :)`` of ``x``
-    ``(..., N, H, W)``, in its dtype; ``shared_input``: ``x`` is ``(...,
-    H, W)``, each member's input, and the result ``(..., N, H, W)``."""
+    ``(..., N, H, W)``, in its dtype (bfloat16 as
+    :func:`separable_correlate2d_plain`); ``shared_input``: ``x`` is
+    ``(..., H, W)``, each member's input, and the result ``(..., N, H,
+    W)``."""
     x = _member_input(x, mt, shared_input)
-    k0, k1 = (torch.as_tensor(k.T, dtype=x.dtype, device=x.device)
-              for k in (mt.k0, mt.k1))
+    if x.dtype == torch.bfloat16:
+        k0, k1 = (_bf16_taps(k.T).to(x.device) for k in (mt.k0, mt.k1))
+        xc = x.float()
+    else:
+        k0, k1 = (torch.as_tensor(k.T, dtype=x.dtype, device=x.device)
+                  for k in (mt.k0, mt.k1))
+        xc = x
     a0, a1 = x.ndim - 2, x.ndim - 1
     if adjoint:
-        return adj_axis(adj_axis(x, k0, mt.c0, a0, mt.mode), k1, mt.c1, a1,
-                        mt.mode)
-    return fwd_axis(fwd_axis(x, k0, mt.c0, a0, mt.mode), k1, mt.c1, a1,
-                    mt.mode)
+        y = adj_axis(adj_axis(xc, k0, mt.c0, a0, mt.mode), k1, mt.c1, a1,
+                     mt.mode)
+    else:
+        y = fwd_axis(fwd_axis(xc, k0, mt.c0, a0, mt.mode), k1, mt.c1, a1,
+                     mt.mode)
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------- launch geometry --
@@ -227,10 +266,13 @@ def launch_plan(shape, p: SepTaps, adjoint: bool = False,
     ``frame`` (rows ``[fa, fb)`` x columns ``[fa1, fb1)``) and
     ``edge_blocks`` more blocks compute the rest.  ``smem_bytes`` is a
     block's dynamic shared memory, ``vec`` the 16-byte path (for 16-byte
-    aligned pointers), ``fast`` the unrolled 9+9-tap path."""
+    aligned pointers), ``fast`` the unrolled 9+9-tap path.  The ring rows
+    hold the storage type; the runtime-tap path's sums and the fold's edge
+    window the arithmetic type (float32 for bfloat16 storage)."""
     H, W = int(shape[-2]), int(shape[-1])
     B = int(np.prod(shape[:-2], dtype=np.int64))
     elem = torch.empty((), dtype=dtype).element_size()
+    aelem = 8 if dtype == torch.float64 else 4
     V = 16 // elem
     L0, L1 = len(p.k0), len(p.k1)
     h0, h1 = p.halo
@@ -244,7 +286,8 @@ def launch_plan(shape, p: SepTaps, adjoint: bool = False,
     strips = _cdiv(H, sr)
     H1 = _cdiv(h1, V) * V
     rw = band + 2 * H1 + V
-    warp_elems = _GEOM["nbuf"] * rw + (0 if fast else L0 * band)
+    warp_bytes = _GEOM["nbuf"] * rw * elem + (0 if fast else
+                                               L0 * band * aelem)
     if fold:
         fa, fa1 = min(h0, H), min(h1, W)
         frame = (fa, max(H - h0, fa), fa1, max(W - h1, fa1))
@@ -259,11 +302,11 @@ def launch_plan(shape, p: SepTaps, adjoint: bool = False,
         for r0, r1, q0, q1 in edge_rects(plan):
             if r1 > r0 and q1 > q0:
                 n_edge += _cdiv(r1 - r0, tr) * _cdiv(q1 - q0, tc)
-    edge_smem = ((tr + 2 * h0) * (tc + 2 * h1) + tr * (tc + 2 * h1)) * elem \
+    edge_smem = ((tr + 2 * h0) * (tc + 2 * h1) + tr * (tc + 2 * h1)) * aelem \
         if n_edge else 0
     warps = _GEOM["warps"]
     while True:
-        smem = max(warps * warp_elems * elem, edge_smem)
+        smem = max(warps * warp_bytes, edge_smem)
         n_stream = _cdiv(bands * strips, warps)
         if warps == 2 or (smem <= _MAX_SMEM
                           and B * n_stream >= _GEOM["blocks"]):
@@ -310,12 +353,11 @@ def build() -> str:
 
 
 def _check(x, p: SepTaps):
-    refuse_autodiff("separable_correlate2d", x)
     if not x.is_cuda:
         raise ValueError(f"x must lie on a CUDA device, not {x.device}")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"dtype {x.dtype}: the kernel takes float32 or "
-                         "float64")
+        raise ValueError(f"dtype {x.dtype}: the kernel takes float32, "
+                         "float64 or bfloat16")
     if x.ndim < 2 or x.shape[-2] < 1 or x.shape[-1] < 1:
         raise ValueError(f"shape {tuple(x.shape)}: want (..., H, W)")
     if not x.is_contiguous():
@@ -325,62 +367,149 @@ def _check(x, p: SepTaps):
                          f"{_MAX_TAPS} taps per axis")
     if max(p.halo[0] - x.shape[-2], p.halo[1] - x.shape[-1]) > 0:
         raise ValueError("pad width exceeds the axis length")
-    if x.numel() // (x.shape[-2] * x.shape[-1]) > 65535:
-        raise ValueError("at most 65535 images per launch")
+
+
+def _batch_first(x, bdim):
+    """``x`` with its ``vmap`` axis ``bdim`` in front, contiguous: the
+    wrappers treat leading axes as a batch of images."""
+    return x.movedim(bdim, 0).contiguous()
+
+
+class _Correlate(torch.autograd.Function):
+    """The autograd rule of :func:`separable_correlate2d`, linear in ``x``:
+    the VJP is the other direction's launch, the JVP the same launch on
+    the tangent, ``vmap`` one launch over the folded batch."""
+
+    @staticmethod
+    def forward(x, p, adjoint):
+        return _correlate(x, p, adjoint)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.p, ctx.adjoint = inputs
+
+    @staticmethod
+    def backward(ctx, gy):
+        separable_correlate2d.rule_calls["vjp"] += 1
+        return (separable_correlate2d(gy.contiguous(), ctx.p,
+                                      not ctx.adjoint), None, None)
+
+    @staticmethod
+    def jvp(ctx, tx, *_):
+        separable_correlate2d.rule_calls["jvp"] += 1
+        return separable_correlate2d(tx.contiguous(), ctx.p, ctx.adjoint)
+
+    @staticmethod
+    def vmap(info, in_dims, x, p, adjoint):
+        separable_correlate2d.rule_calls["vmap"] += 1
+        return separable_correlate2d(_batch_first(x, in_dims[0]), p,
+                                     adjoint), 0
+
+
+class _MembersCorrelate(torch.autograd.Function):
+    """The autograd rule of :func:`separable_correlate2d_members`: as
+    :class:`_Correlate`; with a shared input the VJP sums the members'
+    adjoints."""
+
+    @staticmethod
+    def forward(x, mt, adjoint, shared_input):
+        return _correlate_members(x, mt, adjoint, shared_input)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mt, ctx.adjoint, ctx.shared = inputs
+
+    @staticmethod
+    def backward(ctx, gy):
+        separable_correlate2d_members.rule_calls["vjp"] += 1
+        gx = separable_correlate2d_members(gy.contiguous(), ctx.mt,
+                                           not ctx.adjoint)
+        return (gx.sum(-3) if ctx.shared else gx), None, None, None
+
+    @staticmethod
+    def jvp(ctx, tx, *_):
+        separable_correlate2d_members.rule_calls["jvp"] += 1
+        return separable_correlate2d_members(tx.contiguous(), ctx.mt,
+                                             ctx.adjoint, ctx.shared)
+
+    @staticmethod
+    def vmap(info, in_dims, x, mt, adjoint, shared_input):
+        separable_correlate2d_members.rule_calls["vmap"] += 1
+        return separable_correlate2d_members(
+            _batch_first(x, in_dims[0]), mt, adjoint, shared_input), 0
 
 
 def separable_correlate2d(x, p: SepTaps, adjoint: bool = False):
     """Apply (or adjoint) of the separable correlation over the trailing two
     axes: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
-    if x.device.type == "cpu":
+    tensors; under autodiff through :class:`_Correlate`."""
+    if under_autodiff(x):
+        separable_correlate2d.rule_calls["forward"] += 1
+        return _Correlate.apply(x, p, adjoint)
+    return _correlate(x, p, adjoint)
+
+
+def _correlate(x, p: SepTaps, adjoint: bool):
+    if x.is_cpu:
         return separable_correlate2d_plain(x, p, adjoint)
     _check(x, p)
-    separable_correlate2d.launches += 1
-    return _launch(_library()[0], x, p, adjoint)
+    return _launch(_library()[0], x, p, adjoint, separable_correlate2d)
 
 
 def separable_correlate2d_members(x, mt: MemberTaps, adjoint: bool = False,
                                   shared_input: bool = False):
     """:func:`separable_correlate2d_members_plain`'s function: one launch of
-    the kernel with per-member taps for CUDA tensors, the plain version for
-    CPU tensors."""
-    if x.device.type == "cpu":
+    the kernel with per-member taps for CUDA tensors (one a
+    ``MAX_BATCH // N`` groups of members), the plain version for CPU
+    tensors; under autodiff through :class:`_MembersCorrelate`."""
+    if under_autodiff(x):
+        separable_correlate2d_members.rule_calls["forward"] += 1
+        return _MembersCorrelate.apply(x, mt, adjoint, shared_input)
+    return _correlate_members(x, mt, adjoint, shared_input)
+
+
+def _correlate_members(x, mt: MemberTaps, adjoint: bool,
+                       shared_input: bool):
+    if x.is_cpu:
         return separable_correlate2d_members_plain(x, mt, adjoint,
                                                    shared_input)
-    p = mt.taps[0]
-    _check(x, p)
+    _check(x, mt.taps[0])
     if not shared_input and (x.ndim < 3 or x.shape[-3] != mt.n):
         raise ValueError(f"shape {tuple(x.shape)}: want (..., {mt.n}, H, W)")
-    n_out = x.numel() // (x.shape[-2] * x.shape[-1]) * (
-        mt.n if shared_input else 1)
-    if n_out > 65535:
-        raise ValueError("at most 65535 images per launch")
-    separable_correlate2d_members.launches += 1
-    return _launch_members(_library()[0], x, mt, adjoint, shared_input)
+    if mt.n > MAX_BATCH:
+        raise ValueError(f"at most {MAX_BATCH} members")
+    return _launch_members(_library()[0], x, mt, adjoint, shared_input,
+                           separable_correlate2d_members)
 
 
 def _launch_members(lib, x, mt: MemberTaps, adjoint: bool,
-                    shared_input: bool):
-    """One launch of ``lib``'s kernel with per-member taps on the checked
-    CUDA tensor ``x``."""
+                    shared_input: bool, counter=None):
+    """The kernel with per-member taps on the checked CUDA tensor ``x``:
+    launches of at most ``MAX_BATCH`` output images, whole groups of
+    members each, each counted on ``counter`` (a wrapper) if given."""
     _, c0, _, c1 = _kernel_taps(mt.taps[0], adjoint)
     k0, k1 = mt.device_taps(x.device, x.dtype, adjoint)
     sym = int(mt.mode == "symmetric")
     H, W = x.shape[-2:]
     y = torch.empty(_member_input(x, mt, shared_input).shape,
                     dtype=x.dtype, device=x.device)
+    rep = mt.n if shared_input else 1
+    plane = H * W * x.element_size()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.stencil_launch_members(
-            x.data_ptr(), y.data_ptr(), y.numel() // (H * W), H, W,
-            int(x.dtype == torch.float64), k0.data_ptr(), k0.shape[1], c0,
-            k1.data_ptr(), k1.shape[1], c1, mt.n,
-            mt.n if shared_input else 1, sym * int(not adjoint),
-            sym * int(adjoint), stream)
-    if err != 0:
-        raise RuntimeError(f"stencil_launch_members: CUDA error {err} "
-                           f"({lib.stencil_error_string(err).decode()})")
+        for lo, hi in batch_runs(y.numel() // (H * W),
+                                 (MAX_BATCH // mt.n) * mt.n):
+            if counter is not None:
+                counter.launches += 1
+            err = lib.stencil_launch_members(
+                x.data_ptr() + lo // rep * plane, y.data_ptr() + lo * plane,
+                hi - lo, H, W, _DT_CODE[x.dtype], k0.data_ptr(), k0.shape[1],
+                c0, k1.data_ptr(), k1.shape[1], c1, mt.n, rep,
+                sym * int(not adjoint), sym * int(adjoint), stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"stencil_launch_members: CUDA error {err} "
+                    f"({lib.stencil_error_string(err).decode()})")
     return y
 
 
@@ -401,10 +530,9 @@ def kernel_plan(lib, shape, p: SepTaps, adjoint: bool = False,
     sym = int(p.mode == "symmetric")
     out = (ctypes.c_longlong * 10)()
     B = int(np.prod(shape[:-2], dtype=np.int64))
-    err = lib.stencil_plan(B, shape[-2], shape[-1],
-                           int(dtype == torch.float64), len(k0), c0, len(k1),
-                           c1, sym * int(not adjoint), sym * int(adjoint),
-                           out)
+    err = lib.stencil_plan(B, shape[-2], shape[-1], _DT_CODE[dtype], len(k0),
+                           c0, len(k1), c1, sym * int(not adjoint),
+                           sym * int(adjoint), out)
     if err != 0:
         raise ValueError(f"stencil_plan: error {err}")
     keys = ("bands", "strips", "sr", "warps", "stream_blocks", "edge_blocks",
@@ -413,26 +541,36 @@ def kernel_plan(lib, shape, p: SepTaps, adjoint: bool = False,
             for k, v in zip(keys, out)}
 
 
-def _launch(lib, x, p: SepTaps, adjoint: bool):
-    """One launch of ``lib``'s kernel on the checked CUDA tensor ``x``."""
+def _launch(lib, x, p: SepTaps, adjoint: bool, counter=None):
+    """``lib``'s kernel on the checked CUDA tensor ``x``: launches of at
+    most ``MAX_BATCH`` images, each counted on ``counter`` (a wrapper) if
+    given."""
     # flipped taps, mirrored centres; fold in symmetric mode
     k0, c0, k1, c1 = _kernel_taps(p, adjoint)
     sym = int(p.mode == "symmetric")
     H, W = x.shape[-2:]
     y = torch.empty_like(x)
+    plane = H * W * x.element_size()
+    taps0 = (ctypes.c_double * len(k0))(*k0)
+    taps1 = (ctypes.c_double * len(k1))(*k1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.stencil_launch(
-            x.data_ptr(), y.data_ptr(), x.numel() // (H * W), H, W,
-            int(x.dtype == torch.float64),
-            (ctypes.c_double * len(k0))(*k0), len(k0), c0,
-            (ctypes.c_double * len(k1))(*k1), len(k1), c1,
-            sym * int(not adjoint), sym * int(adjoint), stream)
-    if err != 0:
-        raise RuntimeError(f"stencil_launch: CUDA error {err} "
-                           f"({lib.stencil_error_string(err).decode()})")
+        for lo, hi in batch_runs(x.numel() // (H * W)):
+            if counter is not None:
+                counter.launches += 1
+            err = lib.stencil_launch(
+                x.data_ptr() + lo * plane, y.data_ptr() + lo * plane,
+                hi - lo, H, W, _DT_CODE[x.dtype], taps0, len(k0), c0, taps1,
+                len(k1), c1, sym * int(not adjoint), sym * int(adjoint),
+                stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"stencil_launch: CUDA error {err} "
+                    f"({lib.stencil_error_string(err).decode()})")
     return y
 
 
 separable_correlate2d.launches = 0
 separable_correlate2d_members.launches = 0
+separable_correlate2d.rule_calls = collections.Counter()
+separable_correlate2d_members.rule_calls = collections.Counter()

@@ -1,10 +1,10 @@
 """Batching helpers (counterpart of ``pyxu_tpu/utils/vectorize.py``).
 
 The JAX package maps a single-sample function over stacking dims with
-``jax.vmap``.  The port's kernel wrappers refuse ``torch.func``
-transforms, so here the batch is written out: the leading axes are
-flattened to one, the function runs on each sample, and the results are
-stacked.
+``jax.vmap``.  Here the batch is written out, so that any function
+maps, one that reaches the fused TV step too (its wrapper refuses
+``torch.func`` transforms): the leading axes are flattened to one, the
+function runs on each sample, and the results are stacked.
 """
 
 from __future__ import annotations

@@ -372,23 +372,37 @@ def test_jacobian_of_constant_map_and_linear_op():
     assert A.jacobian(torch.zeros(3, 4)) is A and At.jacobian(0) is At
 
 
-def test_jacobian_never_differentiates_a_kernel_on_the_card():
+def test_jacobian_never_differentiates_a_kernel_on_the_card(monkeypatch):
     """A Chain composes its parts' Jacobians, so a Stencil on the kernel
-    path is applied as itself; a transform that reaches a kernel wrapper
-    off the CPU raises (meta tensors stand in for the card's)."""
+    path is applied as itself; a transform that reaches the kernel wrapper
+    runs through its autograd rule (counted; on a CPU tensor the rule's
+    launches are the plain version's, so no kernel launch is counted) and
+    gives the numbers of autograd through the plain version."""
     S = tlin.Stencil((16, 16), [K3, K3], [1, 1], mode="symmetric")
     assert S.kernel_path == "kernel"
     D = t_source(tabc.DiffMap, (16, 16), (16, 16), apply=torch.tanh)
     n0 = st_kern.separable_correlate2d.launches
     J = (D * S).jacobian(torch.zeros((16, 16)))
     assert J._expr()[0] == "compose" and J._rhs is S
-    x = torch.zeros((16, 16), device="meta")
-    with pytest.raises(ValueError, match="no autograd rule"):
-        torch.func.jvp(S.apply, (x,), (x,))
-    with pytest.raises(ValueError, match="no autograd rule"):
-        (tfunc.SquaredL2Norm((16, 16)) * S).jacobian(x).apply(x)
-    with pytest.raises(ValueError, match="no autograd rule"):
-        S.apply(torch.zeros((16, 16), device="meta", requires_grad=True))
+    rng = np.random.default_rng(0)
+    x, v = (_t(rng.standard_normal((16, 16))) for _ in range(2))
+    f = tfunc.SquaredL2Norm((16, 16)) * S
+    calls = st_kern.separable_correlate2d.rule_calls
+
+    def run():
+        xg = x.clone().requires_grad_(True)
+        S.apply(xg).pow(2).sum().backward()
+        return [torch.func.jvp(S.apply, (x,), (v,))[1],
+                f.jacobian(x).apply(v), xg.grad]
+    c0 = dict(calls)
+    got = run()
+    assert calls["jvp"] > c0.get("jvp", 0) and calls["vjp"] > c0.get(
+        "vjp", 0)
+    with monkeypatch.context() as m:     # the plain version's own graph
+        m.setattr(st_kern, "under_autodiff", lambda *t: False)
+        want = run()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-12)
     assert st_kern.separable_correlate2d.launches == n0
 
 

@@ -7,7 +7,8 @@ four directional forms with constant and per-pixel fields, each on its
 apply, adjoint, declared Lipschitz constant and ``asarray``.  Then the
 Hessian-Frobenius deconvolution path at 64x48 (30 CondatVu iterations, f32
 and f64) against the JAX package's solve, the 2-D partials' kernel path,
-and the kernel wrappers' refusal of ``torch.func``.  Tolerance:
+and ``torch.func`` through the stencil wrapper's autograd rule (the fused
+TV step's wrapper still refuses).  Tolerance:
 ``atol_for`` times the output's largest magnitude (at least 1).
 """
 
@@ -259,23 +260,50 @@ def test_path_partials_take_the_kernel():
             assert (s.kernel_path == "kernel") == want, name
 
 
-def test_wrappers_refuse_torch_func():
-    """The stencil wrapper raises under ``torch.func`` and under a
-    recording graph off the CPU (meta tensors stand in for the card's), and
-    launches nothing."""
+def test_wrappers_refuse_torch_func(monkeypatch):
+    """Under ``torch.func`` and a recording graph the stencil wrapper runs
+    through its autograd rule (counted) and gives the numbers of autograd
+    through the plain version, launching no kernel on CPU tensors; only the
+    fused TV step's wrapper still refuses (meta tensors stand in for the
+    card's)."""
+    from pyxu_tpu_torch.ops import fused_tv as ft
     from pyxu_tpu_torch.ops import stencil as st
     _, _, _, L, K, _ = _hf_problem("torch", (16, 12), np.float32)
-    x = torch.zeros((16, 12), device="meta")
+    rng = np.random.default_rng(1)
+    x, v = (_t(rng.standard_normal((16, 12)).astype(np.float32))
+            for _ in range(2))
     n0 = st.separable_correlate2d.launches
+    calls = st.separable_correlate2d.rule_calls
     for op in (L, K, tlin.Laplacian((16, 12)),
                tlin.DirectionalDerivative((16, 12), 1, (1.0, 1.0),
                                           device="cpu")):
-        with pytest.raises(ValueError, match="no autograd rule"):
-            torch.func.jvp(op.apply, (x,), (x,))
-        with pytest.raises(ValueError, match="no autograd rule"):
-            op.apply(torch.zeros((16, 12), device="meta",
-                                 requires_grad=True))
+        def run():
+            xg = x.clone().requires_grad_(True)
+            op.apply(xg).pow(2).sum().backward()
+            return torch.func.jvp(op.apply, (x,), (v,))[1], xg.grad
+        c0 = dict(calls)
+        got = run()
+        assert calls["jvp"] > c0.get("jvp", 0)
+        assert calls["vjp"] > c0.get("vjp", 0)
+        with monkeypatch.context() as m:
+            m.setattr(st, "under_autodiff", lambda *t: False)
+            want = run()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * max(
+                1.0, float(w.abs().max())))
     assert st.separable_correlate2d.launches == n0
+    p = ft.TVParams(k0=(0.25, 0.5, 0.25), k1=(0.25, 0.5, 0.25), c0=1, c1=1,
+                    cst=1.0, lam=0.01, tau=0.1, sigma=0.1, rho=1.0,
+                    mode_k="symmetric", mode_d="symmetric")
+    xm = torch.zeros((16, 12), device="meta", requires_grad=True)
+    zm = torch.zeros((2, 16, 12), device="meta")
+    n1 = ft.tv_step.launches
+    with pytest.raises(ValueError, match="no autograd rule"):
+        ft.tv_step(xm, zm, xm.detach(), p)
+    with pytest.raises(ValueError, match="no autograd rule"):
+        torch.func.jvp(lambda t: ft.tv_step(t, zm, t, p)[0],
+                       (xm.detach(),), (xm.detach(),))
+    assert ft.tv_step.launches == n1
 
 
 def test_direction_fields_are_normalised_and_kept_on_their_device():

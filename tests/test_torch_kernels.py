@@ -312,7 +312,7 @@ def test_stencil_launch_covers_test_shapes_once(taps):
             if not _fits(shape, p):
                 continue
             for adjoint in (False, True):
-                for dtype in (torch.float32, torch.float64):
+                for dtype in (torch.float32, torch.float64, torch.bfloat16):
                     _, n = _stencil_cover(shape, p, adjoint, dtype)
                     assert n.min() == n.max() == 1, (shape, mode, adjoint)
 
@@ -337,12 +337,15 @@ def test_stencil_launch_blocks(shape, adjoint, want):
 
 def test_stencil_ring_fits_shared_memory():
     """A block's rings (ST_NBUF rows of the band, its rounded halo and one
-    16-byte piece a warp, and for runtime tap counts L0 rows of sums) and
-    the fold's edge window fit the shared memory the launch asks for, and
-    that fits the card, for every tap count and centre the kernel takes."""
+    16-byte piece a warp, in the storage type, and for runtime tap counts
+    L0 rows of sums) and the fold's edge window (the sums and the window in
+    the arithmetic type, float32 for bfloat16 storage) fit the shared
+    memory the launch asks for, and that fits the card, for every tap
+    count and centre the kernel takes."""
     gm = st._GEOM
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         elem = torch.empty((), dtype=dtype).element_size()
+        aelem = 8 if dtype == torch.float64 else 4
         V = 16 // elem
         for L in range(1, st._MAX_TAPS + 1):
             for c in {0, L // 2, L - 1}:
@@ -353,12 +356,13 @@ def test_stencil_ring_fits_shared_memory():
                 for adjoint in (False, True):
                     plan = st.launch_plan((3, 200, 300), p, adjoint, dtype)
                     assert plan["ring_row"] == plan["band"] + 2 * H1 + V
-                    ring = gm["nbuf"] * plan["ring_row"] + (
-                        0 if plan["fast"] else L * plan["band"])
-                    edge = (32 + 2 * h0 + 32) * (64 + 2 * h1) \
+                    ring = gm["nbuf"] * plan["ring_row"] * elem + (
+                        0 if plan["fast"] else L * plan["band"] * aelem)
+                    assert ring % 16 == 0
+                    edge = aelem * (32 + 2 * h0 + 32) * (64 + 2 * h1) \
                         if plan["edge_blocks"] else 0
                     assert bool(plan["edge_blocks"]) == (adjoint and L > 1)
-                    assert plan["smem_bytes"] == elem * max(
+                    assert plan["smem_bytes"] == max(
                         plan["warps"] * ring, edge)
                     assert plan["smem_bytes"] <= st._MAX_SMEM
                     assert plan["warps"] >= 2
@@ -409,21 +413,28 @@ def test_stencil_kernel_matches_plain(cuda, shape, taps, mode, adjoint,
 def test_stencil_kernel_reads_stay_in_the_image(cuda, shape):
     """A build that counts window reads outside the image plane (and loads
     zero there instead) counts none, in a batch whose images sit back to
-    back, and agrees with the plain version."""
+    back, and agrees with the plain version: float64, and bfloat16 storage
+    (its own band of 256 columns) within one bf16 ulp of max|y|."""
     lib = st._library(("ST_COUNT_STRAY_READS",))[0]
     assert lib.stencil_stray_reads() == 0
-    x = torch.randn((3,) + shape, device=cuda, dtype=torch.float64)
-    for taps in sorted(ST_TAPS):
-        for mode in ("constant", "symmetric"):
-            p = _sep(taps, mode)
-            for adjoint in (False, True):
-                got = st._launch(lib, x, p, adjoint)
-                want = st.separable_correlate2d_plain(x, p, adjoint)
-                torch.cuda.synchronize()
-                assert lib.stencil_stray_reads() == 0, (taps, mode, adjoint)
-                assert float((got - want).abs().max()) <= 1e-12 * float(
-                    x.abs().max()) * float(np.sum(np.abs(p.k0))
-                                           * np.sum(np.abs(p.k1)))
+    x64 = torch.randn((3,) + shape, device=cuda, dtype=torch.float64)
+    for x in (x64, x64.to(torch.bfloat16)):
+        for taps in sorted(ST_TAPS):
+            for mode in ("constant", "symmetric"):
+                p = _sep(taps, mode)
+                for adjoint in (False, True):
+                    got = st._launch(lib, x, p, adjoint)
+                    want = st.separable_correlate2d_plain(x, p, adjoint)
+                    torch.cuda.synchronize()
+                    assert lib.stencil_stray_reads() == 0, (
+                        taps, mode, adjoint, x.dtype)
+                    err = float((got.double() - want.double()).abs().max())
+                    if x.dtype == torch.bfloat16:
+                        assert err <= 2.0 ** -7 * float(
+                            want.double().abs().max())
+                    else:
+                        assert err <= 1e-12 * float(x.abs().max()) * float(
+                            np.sum(np.abs(p.k0)) * np.sum(np.abs(p.k1)))
 
 
 @pytest.mark.cuda
@@ -437,7 +448,8 @@ def test_stencil_plan_matches_the_kernel(cuda):
                 if not _fits(shape, p):
                     continue
                 for adjoint in (False, True):
-                    for dtype in (torch.float32, torch.float64):
+                    for dtype in (torch.float32, torch.float64,
+                                  torch.bfloat16):
                         got = st.kernel_plan(lib, shape, p, adjoint, dtype)
                         want = st.launch_plan(shape, p, adjoint, dtype)
                         assert got == {k: want[k] for k in got}, (
@@ -1597,20 +1609,36 @@ def test_tv_schedule_on_the_card(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_stencil_schedule_bf16_phase_raises_on_the_card(cuda):
-    """The stencil kernel takes float32 and float64 only, and nothing falls
-    back: a LASSO schedule with a bfloat16 phase raises its ValueError and
-    leaves the state of the phase's start."""
+def test_stencil_schedule_bf16_phase_raises_on_the_card(cuda, monkeypatch):
+    """The stencil kernel takes bfloat16 storage: a LASSO schedule with a
+    bfloat16 phase runs both phases on the kernel (bf16 launches, then
+    f32: two an iteration and the phase's K^T y), logs two phases, and
+    ends within 1e-2 of the f32 solve's objective."""
     from pyxu_tpu_torch.convert import lasso_problem
     from pyxu_tpu_torch.opt.stop import MaxIter
     y = np.random.default_rng(6).random((96, 67)).astype(np.float32)
-    _, _, _, slv, fit = lasso_problem(y, (_gauss(), _gauss()), (4, 4),
-                                      device=cuda, stop_rate=10)
-    with pytest.raises(ValueError, match="float32 or float64"):
+    seen = []
+    launch = st._launch
+
+    def recording(lib, x, *args, **kw):
+        seen.append(x.dtype)
+        return launch(lib, x, *args, **kw)
+    monkeypatch.setattr(st, "_launch", recording)
+    objs = {}
+    for sched in (None, [(torch.bfloat16, 20), (torch.float32, None)]):
+        f, g, _, slv, fit = lasso_problem(y, (_gauss(), _gauss()), (4, 4),
+                                          device=cuda, stop_rate=10)
+        seen.clear()
         slv.fit(stop_crit=MaxIter(30), max_iter=30,
-                precision_schedule=[(torch.bfloat16, 20),
-                                    (torch.float32, None)], **fit)
-    assert slv.phase_log == [] and slv._mstate["x"].dtype == torch.bfloat16
+                precision_schedule=sched, **fit)
+        in_fit = list(seen)
+        x = slv.solution()
+        assert x.dtype == torch.float32 and bool(x.isfinite().all())
+        objs[sched is None] = float(f.apply(x) + g.apply(x))
+    assert [p["dtype"] for p in slv.phase_log] == ["bfloat16", "float32"]
+    assert in_fit == [torch.bfloat16] * 41 + [torch.float32] * 21, [
+        (d, in_fit.count(d)) for d in (torch.bfloat16, torch.float32)]
+    assert abs(objs[False] - objs[True]) <= 1e-2 * abs(objs[True]), objs
 
 
 @pytest.mark.cuda
@@ -1882,3 +1910,176 @@ def test_sharded_nufft3_launches(nccl1):
     want = nudft3(c[:, 0] + 1j * c[:, 1], x, z)
     err = np.abs(got.cpu().double().numpy() @ np.array([1, 1j]) - want)
     assert err.max() <= 1e-4 * np.abs(want).max()
+
+
+# ----------------------------------- autodiff rules, bf16, big batches --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("mode", ["constant", "symmetric"])
+@pytest.mark.parametrize("taps", ["9x9", "3x4", "4x3off"])
+@pytest.mark.parametrize("shape", [(300, 520), (257, 389), (3, 67, 129)],
+                         ids=str)
+def test_stencil_bf16_kernel_matches_plain(cuda, shape, taps, mode, adjoint):
+    """bfloat16 storage (bf16 taps, float32 sums, one rounding): the
+    kernel within one bf16 ulp of max|y| of the plain version, which does
+    the same arithmetic in another order; the members launch too."""
+    p = _sep(taps, mode)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    n0 = st.separable_correlate2d.launches
+    got = st.separable_correlate2d(x, p, adjoint)
+    want = st.separable_correlate2d_plain(x, p, adjoint)
+    mt = st.MemberTaps([p, _sep(taps, mode, seed=2)])
+    xm = torch.stack([x.reshape((-1,) + x.shape[-2:])] * 2, dim=1)
+    got_m = st.separable_correlate2d_members(xm, mt, adjoint)
+    want_m = st.separable_correlate2d_members_plain(xm, mt, adjoint)
+    torch.cuda.synchronize()
+    assert st.separable_correlate2d.launches == n0 + 1
+    for g, w in ((got, want), (got_m, want_m)):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        tol = 2.0 ** -7 * float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol
+
+
+def _grad_pair(fn, x, w):
+    """(y, VJP of w, JVP along w's input-shaped twin) of ``fn`` at x."""
+    xg = x.clone().requires_grad_(True)
+    y = fn(xg)
+    (g,) = torch.autograd.grad(y, xg, w)
+    _, jv = torch.func.jvp(fn, (x,), (x.flip(-1).contiguous(),))
+    return y.detach(), g, jv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind", ["single", "members", "shared"])
+def test_stencil_rules_on_the_card(cuda, kind, dtype, monkeypatch):
+    """The stencil rules on the card: VJP and JVP against autograd through
+    the plain version on the card (f32 1e-5 max|.|, f64 1e-12), the VJP
+    launching the flipped kernel once, ``vmap`` against a loop, gradcheck
+    in float64 at 17x23."""
+    dt = getattr(torch, dtype)
+    mt = _members("9x9", "symmetric")
+    p = _sep("4x3off", "constant")
+    shape = {"single": (2, 300, 520), "members": (2, 3, 300, 520),
+             "shared": (2, 300, 520)}[kind]
+    if kind == "single":
+        def fn(t):
+            return st.separable_correlate2d(t, p, False)
+        counter = st.separable_correlate2d
+    else:
+        def fn(t):
+            return st.separable_correlate2d_members(t, mt, False,
+                                                    kind == "shared")
+        counter = st.separable_correlate2d_members
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda, dtype=dt)
+    w = torch.randn(tuple(fn(x).shape), generator=gen, device=cuda, dtype=dt)
+    n0 = counter.launches
+    got = _grad_pair(fn, x, w)
+    torch.cuda.synchronize()
+    # the forward, the VJP, and the JVP's primal and tangent
+    assert counter.launches == n0 + 4
+    monkeypatch.setattr(st, "_correlate", lambda x, p, a:
+                        st.separable_correlate2d_plain(x, p, a))
+    monkeypatch.setattr(st, "_correlate_members", lambda x, m, a, s:
+                        st.separable_correlate2d_members_plain(x, m, a, s))
+    monkeypatch.setattr(st, "under_autodiff", lambda *t: False)
+    want = _grad_pair(fn, x, w)
+    monkeypatch.undo()
+    rel = 1e-5 if dtype == "float32" else 1e-12
+    for g, r in zip(got, want):
+        assert float((g - r).abs().max()) <= rel * float(r.abs().max())
+    vs = torch.stack([x, 2 * x], dim=1)
+    vm = torch.func.vmap(fn, in_dims=1)(vs)
+    assert float((vm - torch.stack([fn(x), fn(2 * x)])).abs().max()) <= \
+        rel * float(vm.abs().max())
+    small = torch.randn((2, 3, 17, 23) if kind == "members" else (2, 17, 23),
+                        generator=gen, device=cuda, dtype=torch.float64)
+    assert torch.autograd.gradcheck(fn, (small.requires_grad_(True),),
+                                    check_forward_ad=True, fast_mode=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", [True, False], ids=["spread", "interp"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_nufft_rules_on_the_card(cuda, d, spread, monkeypatch):
+    """The NUFFT rules on the card: the VJP launches the other kernel on
+    the same plan once, the JVP this one; both against autograd through the
+    plain versions in float64 (1e-12 of max|.|); ``vmap`` against a loop;
+    gradcheck at 64 points on a 32^2 and a 16^3 grid."""
+    nf = (40, 36, 33) if d == 3 else (64, 80)
+    p = (_nu3_plan if d == 3 else _nu_plan)("cluster", 3000, nf, 7,
+                                            torch.float64, cuda)
+    fn_k = {(2, True): nu.nufft_spread2, (2, False): nu.nufft_interp2,
+            (3, True): nu.nufft_spread3, (3, False): nu.nufft_interp3}
+    wrap, back = fn_k[d, spread], fn_k[d, not spread]
+
+    def fn(t):
+        return wrap(t, p)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    core = (3000, 2) if spread else nf + (2,)
+    x = torch.randn((2,) + core, generator=gen, device=cuda,
+                    dtype=torch.float64)
+    w = torch.randn(tuple(fn(x).shape), generator=gen, device=cuda,
+                    dtype=torch.float64)
+    n0, b0 = wrap.launches, back.launches
+    got = _grad_pair(fn, x, w)
+    torch.cuda.synchronize()
+    # the forward and the JVP's primal and tangent; the VJP
+    assert (wrap.launches - n0, back.launches - b0) == (3, 1)
+    monkeypatch.setattr(nu, "_spread", lambda wr, c, pl, dd:
+                        nu._spread_plain(c, pl))
+    monkeypatch.setattr(nu, "_interp", lambda wr, g, pl, dd:
+                        nu._interp_plain(g, pl))
+    monkeypatch.setattr(nu, "under_autodiff", lambda *t: False)
+    want = _grad_pair(fn, x, w)
+    monkeypatch.undo()
+    for g, r in zip(got, want):
+        assert float((g - r).abs().max()) <= 1e-12 * float(r.abs().max())
+    vm = torch.func.vmap(fn, in_dims=1)(torch.stack([x, -x], dim=1))
+    assert float((vm - torch.stack([fn(x), fn(-x)])).abs().max()) <= \
+        1e-12 * float(vm.abs().max())
+    ng = (16, 16, 16) if d == 3 else (32, 32)
+    ps = (_nu3_plan if d == 3 else _nu_plan)("uniform", 64, ng, 6,
+                                             torch.float64, cuda)
+    small = torch.randn((1,) + ((64, 2) if spread else ng + (2,)),
+                        generator=gen, device=cuda, dtype=torch.float64)
+    assert torch.autograd.gradcheck(lambda t: wrap(t, ps),
+                                    (small.requires_grad_(True),),
+                                    check_forward_ad=True, fast_mode=True)
+
+
+@pytest.mark.cuda
+def test_big_batches_run_in_chunks(cuda):
+    """Batches beyond 65535 images run in launches of at most 65535: 70000
+    images of 16x16 through the stencil (2 launches), 3 members over 70002
+    (two launches of whole groups), a NUFFT batch of 65600 (2 launches
+    each way), each against its plain version."""
+    p = _sep("3x4", "symmetric")
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((70000, 16, 16), generator=gen, device=cuda)
+    n0 = st.separable_correlate2d.launches
+    got = st.separable_correlate2d(x, p, True)
+    assert st.separable_correlate2d.launches == n0 + 2
+    want = st.separable_correlate2d_plain(x, p, True)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    mt = _members("3x4", "constant")
+    xm = torch.randn((23334, 3, 16, 16), generator=gen, device=cuda)
+    m0 = st.separable_correlate2d_members.launches
+    got = st.separable_correlate2d_members(xm, mt)
+    assert st.separable_correlate2d_members.launches == m0 + 2
+    want = st.separable_correlate2d_members_plain(xm, mt)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    pl = _nu_plan("uniform", 50, (16, 16), 4, torch.float32, cuda)
+    c = torch.randn((65600, 50, 2), generator=gen, device=cuda)
+    s0, i0 = nu.nufft_spread2.launches, nu.nufft_interp2.launches
+    g = nu.nufft_spread2(c, pl)
+    v = nu.nufft_interp2(g, pl)
+    assert (nu.nufft_spread2.launches - s0, nu.nufft_interp2.launches - i0) \
+        == (2, 2)
+    for k, r in ((g, _ref(nu.nufft_spread2_plain, c, pl)),
+                 (v, _ref(nu.nufft_interp2_plain, g, pl))):
+        assert float((k - r).abs().max()) <= 1e-5 * float(r.abs().max())

@@ -387,7 +387,7 @@ def test_from_sciop_matches_jax():
     assert T.apply(_t(x)).dtype == torch.float64
 
 
-def test_from_torch_matches_jax():
+def test_from_torch_matches_jax(monkeypatch):
     w = torch.linspace(-1.0, 1.0, 12, dtype=torch.float64).reshape(3, 4)
 
     def f_apply(x):
@@ -412,17 +412,23 @@ def test_from_torch_matches_jax():
         _close(Tl.apply(_t(x)), Jl.apply(jnp.asarray(x)), np.float64)
         _close(Tl.adjoint(_t(y)), Jl.adjoint(jnp.asarray(y)), np.float64)
         assert Tl.lipschitz == 3.0
-    # a callable that reaches a kernel wrapper off the CPU raises, and
-    # launches nothing (meta tensors stand in for the card's)
+    # a callable that reaches a kernel wrapper runs through its autograd
+    # rule (counted), launches no kernel on CPU tensors, and gives the
+    # numbers of torch.func through the plain version
     from pyxu_tpu_torch.ops import stencil as st
     K = tlin.Stencil((16, 16), [np.array([0.25, 0.5, 0.25])] * 2, [1, 1],
                      mode="symmetric")
     g = tint.from_torch(tabc.DiffFunc, (16, 16),
                         apply=lambda t: (K.apply(t) ** 2).sum((-2, -1)))
     n0 = st.separable_correlate2d.launches
-    with pytest.raises(ValueError, match="no autograd rule"):
-        g.grad(torch.zeros((16, 16), device="meta"))
+    x = _t(np.random.default_rng(4).standard_normal((16, 16)))
+    c0 = st.separable_correlate2d.rule_calls["vjp"]
+    got = g.grad(x)
+    assert st.separable_correlate2d.rule_calls["vjp"] > c0
     assert st.separable_correlate2d.launches == n0
+    monkeypatch.setattr(st, "under_autodiff", lambda *t: False)
+    want = g.grad(x)                          # the plain version's graph
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
     _close(g.grad(torch.ones(16, 16, dtype=torch.float64)),
            2 * K.adjoint(K.apply(torch.ones(16, 16, dtype=torch.float64))),
            np.float64)
