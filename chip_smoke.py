@@ -315,6 +315,27 @@ Phases:
    ``autodiff_checks`` and ``big_batch_launches``, each NUFFT entry
    ``autodiff_launches`` and ``autodiff_checks``; the JSON line
    ``expdeblur_4k_it_per_s``, ``ri_exp_1024_it_per_s`` and ``autodiff``.
+21. input dtypes (``dtype_phase``): the families and dtypes (bf16, f16,
+   f32, f64; apply and adjoint) of ``tests/test_torch_dtypes.py`` on the
+   card against the port on the CPU (the same dtype: a NUFFT's, a
+   FourierRadon's and an FFT's input computes in ``promote(dtype, f32)``,
+   the stencil, Radon and chunked type-3 families keep a 2-byte dtype;
+   values within f32 2e-4 / f64 1e-8 of max(1, max|y|), a 2-byte result
+   one ulp of max|y|), the kernels' launches counted by the dtype they ran
+   at; RI 1024^2 / 10^6 visibilities and Fourier CT 512^2 / 60 views
+   under ``[(bf16, n), (f32, None)]`` (n = 75 of 150 and 200 of 400
+   iterations): the set-up, a warm f32 fit, the bf16 phase twice and the
+   f32 phase alone (each phase's it/s), the schedule and an f32 fit of its
+   length, each fit's NUFFT and stencil launches asserted (no new plan:
+   the bf16 phase widens onto the f32 plan, and its first fit computes the
+   loss's constant gradient once at its dtype), the schedule's objective
+   against the f32 fit's, then the benches' sizes under the schedule card
+   vs CPU (1e-2 of max|x|); the stencil kernel on f16 storage at 2160x3840
+   and 2153x3833 against its plain version (one f16 ulp of max|y|), timed
+   against the byte bound beside the bf16 and f32 launches on the same
+   values.  The stencil's entry on the ``kernels`` line gains ``f16``,
+   every kernel's ``dtypes`` and ``dtype_launches``; the JSON line
+   ``ri_1024_bf16_it_per_s``, ``ct_512_bf16_it_per_s`` and ``dtype``.
 
 Each phase prints its host time (``[time]``).  It prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -681,12 +702,12 @@ def _st_variants(st, p, x, label, lib=None, plain_timed=True, verbose=True):
     """Apply and adjoint, constant and symmetric mode, of taps ``p`` on
     ``x`` through the kernel (``lib``'s build, by default the source's
     own) against the plain version: max error within 1e-5 max|x| (f32) or
-    1e-12 max|x| (f64) times sum|k0| sum|k1|, or one bf16 ulp of max|y|
-    (2^-7 max|y|: bf16 storage, the same float32 arithmetic in another
-    order, one rounding); device times of the kernel and
-    (``plain_timed``) of the plain version; ``verbose``: a line for each
-    variant, else for a failure only."""
-    bf16 = x.dtype == torch.bfloat16
+    1e-12 max|x| (f64) times sum|k0| sum|k1|, or for bf16 and f16 storage
+    one ulp of max|y| (eps max|y|, 2^-7 for bf16 and 2^-10 for f16: the
+    same float32 arithmetic in another order, one rounding); device times
+    of the kernel and (``plain_timed``) of the plain version; ``verbose``:
+    a line for each variant, else for a failure only."""
+    narrow = x.dtype in st.NARROW
     eps = 1e-5 if x.dtype == torch.float32 else 1e-12
     tol = eps * float(x.abs().max()) * max(
         1.0, sum(map(abs, p.k0)) * sum(map(abs, p.k1)))
@@ -705,9 +726,9 @@ def _st_variants(st, p, x, label, lib=None, plain_timed=True, verbose=True):
             def plain(q=q, adj=adj):
                 return st.separable_correlate2d_plain(x, q, adj)
             got, want = kern(), plain()
-            if bf16:
+            if narrow:
                 got, want = got.float(), want.float()
-                tol = 2.0 ** -7 * float(want.abs().max())
+                tol = torch.finfo(x.dtype).eps * float(want.abs().max())
             err = float((got - want).abs().max())
             torch.cuda.synchronize()
             ok = err <= tol
@@ -4159,6 +4180,318 @@ def autodiff_phase(st, nu, p):
     return out
 
 
+# ------------------------------------------------ phase 21: input dtypes --
+
+DT_NAMES = {"bf16": torch.bfloat16, "f16": torch.float16,
+            "f32": torch.float32, "f64": torch.float64}
+DT_SCHED = {"ri": ((RI_SHAPE, RI_VIS), 75, RI_ITERS),
+            "ct": ((CT_SHAPE, CT_ANGLES), 200, CT_ITERS)}
+# card vs CPU of the schedules at the benches' sizes: 1e-2 of max|x| (the
+# tolerance tests/test_torch_dtypes.py holds the fits to against the JAX
+# package)
+DT_SMALL = {"ri": ((RI_BENCH_SHAPE, RI_BENCH_VIS), 20),
+            "ct": (((64, 64), 16), 40)}
+DT_FIT_TOL = 1e-2
+
+
+def _dt_families(dev):
+    """The operator families of ``tests/test_torch_dtypes.py`` (the port's
+    side, on ``dev``): name -> (operator, widens)."""
+    import numpy as np
+
+    from pyxu_tpu_torch.operator import linop as L
+
+    def nufft(kind, d, plan64=False):
+        rng = np.random.default_rng(10 + d)
+        x = rng.uniform(-np.pi, np.pi, ({1: 40, 2: 60, 3: 50}[d], d))
+        kw = dict(dtype=torch.float64) if plan64 else {}
+        N = {1: (16,), 2: (8, 10), 3: (6, 5, 4)}[d]
+        if kind in ("t3", "chunked"):
+            z = rng.uniform(-8, 8, (30, d))
+            ck = (dict(chunked=True, fft_mem_mb=0.01, max_blocks=4)
+                  if kind == "chunked" else {})
+            return L.NUFFT.type3(x, z, device=dev, **ck, **kw)
+        A = getattr(L.NUFFT, "type1" if kind in ("t1", "gram1") else
+                    "type2")(x, N, device=dev, **kw)
+        return A.gram() if kind.startswith("gram") else A
+
+    def radon(cls, gram=False, plan64=False):
+        ang = np.linspace(0, np.pi, 5 if cls == "fourier" else 6,
+                          endpoint=False)
+        if cls == "interp":
+            return L.RadonTransform((12, 10), ang, device=dev)
+        kw = dict(dtype=torch.float64) if plan64 else {}
+        R = L.FourierRadon((12, 10), ang, eps=1e-9, device=dev, **kw)
+        return R.gram() if gram else R
+
+    k0 = np.exp(-0.5 * ((np.arange(9) - 4) / 2.0) ** 2)
+    k1 = np.exp(-0.5 * ((np.arange(5) - 2) / 1.0) ** 2)
+    k0, k1 = k0 / k0.sum(), k1 / k1.sum()
+    fams = {f"nufft_{k}_d{d}": (lambda k=k, d=d: nufft(k, d), True)
+            for k in ("t1", "t2", "t3") for d in (1, 2, 3)}
+    fams.update({
+        "nufft_gram1_d2": (lambda: nufft("gram1", 2), True),
+        "nufft_gram2_d2": (lambda: nufft("gram2", 2), True),
+        "nufft_t1_d2_plan64": (lambda: nufft("t1", 2, True), True),
+        "nufft_t2_d2_plan64": (lambda: nufft("t2", 2, True), True),
+        "nufft_t3_d2_plan64": (lambda: nufft("t3", 2, True), True),
+        "nufft_gram2_d2_plan64": (lambda: nufft("gram2", 2, True), True),
+        "fourier_radon": (lambda: radon("fourier"), True),
+        "fourier_radon_plan64": (lambda: radon("fourier", plan64=True),
+                                 True),
+        "fourier_radon_gram": (lambda: radon("fourier", gram=True), True),
+        "fft": (lambda: L.FFT((6, 8)), True),
+        "nufft_chunked_d2": (lambda: nufft("chunked", 2), False),
+        "stencil_kernel": (lambda: L.Stencil((20, 24), [k0, k1], [4, 2],
+                                             mode="symmetric"), False),
+        "stencil_plain": (lambda: L.Stencil((20, 24), [k0, k1], [4, 2],
+                                            mode="reflect"), False),
+        "gaussian": (lambda: L.Gaussian((20, 24), sigma=1.5,
+                                        mode="symmetric"), False),
+        "gradient": (lambda: L.Gradient((20, 24), mode="symmetric"), False),
+        "radon": (lambda: radon("interp"), False),
+        "pad": (lambda: L.Pad((7, 9), ((1, 2), (3, 0)), mode="reflect"),
+                False),
+    })
+    return {k: (build(), widens) for k, (build, widens) in fams.items()}
+
+
+def _dt_sweep(st, nu):
+    """Phase 21 (a): every family and dtype of ``tests/test_torch_dtypes.py``
+    on the card against the port on the CPU, apply and adjoint: the same
+    dtype (a widening family's the NUFFT compute dtype), and values within
+    that file's tolerances: float32 2e-4 and float64 1e-8 of max(1,
+    max|y|), a 2-byte result one ulp (eps max|y|) of the CPU's (the same
+    float32 sums in another order, one rounding).  Each kernel's launches
+    are counted by the dtype it ran at (the NUFFT's plan dtype, the
+    stencil's storage)."""
+    import zlib
+
+    import numpy as np
+    counters = [nu.nufft_spread2, nu.nufft_interp2, nu.nufft_spread3,
+                nu.nufft_interp3, st.separable_correlate2d]
+    names = ["nufft_spread2", "nufft_interp2", "nufft_spread3",
+             "nufft_interp3", "stencil"]
+    by_dtype = {n: {} for n in names}
+    fams = {dev: _dt_families(dev) for dev in ("cuda", "cpu")}
+    n_cases, worst = 0, {}
+    for fam, (op, widens) in fams["cuda"].items():
+        cpu_op = fams["cpu"][fam][0]
+        rng = np.random.default_rng(zlib.crc32(fam.encode()))
+        ins = (rng.standard_normal(op.dim_shape),
+               rng.standard_normal(op.codim_shape))
+        for dname, tdt in DT_NAMES.items():
+            for direction, a in zip(("apply", "adjoint"), ins):
+                t_in = torch.from_numpy(a).to(tdt)
+                before = [c.launches for c in counters]
+                got = getattr(op, direction)(t_in.cuda())
+                torch.cuda.synchronize()
+                for n, c, b in zip(names, counters, before):
+                    k = (str(nu.compute_dtype(tdt)) if n != "stencil"
+                         else str(tdt)).replace("torch.", "")
+                    if c.launches > b:
+                        by_dtype[n][k] = by_dtype[n].get(k, 0) + \
+                            c.launches - b
+                want = getattr(cpu_op, direction)(t_in)
+                assert got.dtype == want.dtype, (fam, dname, direction,
+                                                 got.dtype, want.dtype)
+                if widens:
+                    assert got.dtype == nu.compute_dtype(tdt), (fam, dname)
+                scale = float(want.double().abs().max())
+                if got.dtype in st.NARROW:
+                    tol = torch.finfo(got.dtype).eps * scale
+                else:
+                    tol = (1e-8 if got.dtype == torch.float64 else 2e-4) \
+                        * max(1.0, scale)
+                err = float((got.cpu().double() - want.double()).abs().max())
+                if err > tol:
+                    raise SystemExit(f"[dtype] {fam} {dname} {direction}: "
+                                     f"card vs CPU {err:.3e} > {tol:.3e}")
+                w = worst.setdefault(dname, [0.0, ""])
+                if err / max(tol, 1e-300) > w[0]:
+                    w[:] = [err / max(tol, 1e-300), f"{fam} {direction}"]
+                n_cases += 1
+    print(f"[dtype] sweep: {n_cases} cases ({len(fams['cuda'])} families x "
+          f"{len(DT_NAMES)} dtypes x apply/adjoint) card vs CPU, same dtype,"
+          f" within tolerance; largest err/tol by dtype "
+          f"{ {k: (round(v[0], 4), v[1]) for k, v in worst.items()} }; "
+          f"launches by kernel and dtype {by_dtype}", flush=True)
+    for n in names:
+        assert by_dtype[n], (n, by_dtype)
+    assert set(by_dtype["stencil"]) == {"bfloat16", "float16", "float32",
+                                        "float64"}, by_dtype["stencil"]
+    for n in names[:4]:
+        assert set(by_dtype[n]) == {"float32", "float64"}, (n, by_dtype[n])
+    return dict(cases=n_cases, launches=by_dtype)
+
+
+def _dt_counts(nu, st):
+    return {"nufft_spread2": nu.nufft_spread2.launches,
+            "nufft_interp2": nu.nufft_interp2.launches,
+            "stencil": st.separable_correlate2d.launches}
+
+
+def _dt_fit(slv, fit, MaxIter, n, schedule=None):
+    """A fit of ``n`` iterations (under ``schedule``) on the host clock:
+    (seconds, iterations run)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slv.fit(stop_crit=MaxIter(n), max_iter=n, precision_schedule=schedule,
+            **fit)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if schedule is None:
+        its = _last_iteration(slv)
+    else:
+        its = sum(p["iterations"] for p in slv.phase_log)
+    assert its == n, (its, n)
+    return dt, its
+
+
+def _dt_schedule(kind, nu, st, build, MaxIter):
+    """Phase 21 (b, c): ``build`` at full size under ``[(bf16, n),
+    (f32, None)]``, 2 n iterations: the set-up, a warm float32 fit of n,
+    a bf16 fit of n twice (the bf16 phase's it/s from the second), a
+    float32 fit of n (the float32 phase's it/s), the schedule of 2 n and a
+    float32 fit of 2 n, each fit's kernel launches asserted; the
+    schedule's objective (which must fall) printed against the float32
+    fit's.
+    Then the benches' size on the card against the CPU
+    (``DT_FIT_TOL``)."""
+    (size, n, total) = DT_SCHED[kind]
+    B, F = torch.bfloat16, torch.float32
+    sched = [(B, n), (F, None)]
+    _reset([nu.nufft_spread2, nu.nufft_interp2, st.separable_correlate2d])
+    t0 = time.perf_counter()
+    slv, fit, ex = build(*size, "cuda", n)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    steps = [("set-up", _dt_counts(nu, st))]
+    _reset([nu.nufft_spread2, nu.nufft_interp2, st.separable_correlate2d])
+    _dt_fit(slv, fit, MaxIter, n)
+    steps.append(("warm f32", _dt_counts(nu, st)))
+    rates, stencil_dt = {}, {}
+    for label, schedule, m in (("bf16 first", [(B, n)], n),
+                               ("bf16", [(B, n)], n), ("f32", None, n),
+                               ("schedule", sched, total),
+                               ("f32 total", None, total)):
+        _reset([nu.nufft_spread2, nu.nufft_interp2, st.separable_correlate2d])
+        sec, its = _dt_fit(slv, fit, MaxIter, m, schedule)
+        steps.append((label, _dt_counts(nu, st)))
+        rates[label] = its / sec
+        if label == "schedule":
+            assert [p["dtype"] for p in slv.phase_log] == ["bfloat16",
+                                                           "float32"]
+            xs = slv.solution()
+            obj_s = float(slv.objective_func(slv._mstate))
+        if label == "f32 total":
+            obj_f = float(slv.objective_func(slv._mstate))
+    # (an objective evaluation applies A: after the counts)
+    obj0 = float(slv.objective_func({"x": fit["x0"]}))
+    # RI: the iterations run FFTs only; the set-up builds the two Toeplitz
+    # grams (2 spreads) and y (1 interp); A^H y, the loss's constant
+    # gradient, is computed once a dtype: in the warm float32 fit and in the
+    # first bf16 fit (widened, on the float32 plan).  CT: the set-up's 4
+    # spreads and 1 interp, A^T y the same way, and 4 stencils an
+    # iteration in either phase (the bf16 phase's D^T z runs at bf16, its
+    # D(x + ut - u) at float32: f's gradient widens)
+    per = {"ri": (0, 0), "ct": (4, 4)}[kind]
+    setup_w = {"ri": (2, 1), "ct": (4, 1)}[kind]
+
+    def want(spread, interp, st32_its, st16_its):
+        return {"nufft_spread2": spread, "nufft_interp2": interp,
+                "stencil": per[0] * st32_its + per[1] * st16_its}
+    expect = [("set-up", want(*setup_w, 0, 0)),
+              ("warm f32", want(1, 0, n, 0)),
+              ("bf16 first", want(1, 0, 0, n)),
+              ("bf16", want(0, 0, 0, n)), ("f32", want(0, 0, n, 0)),
+              ("schedule", want(0, 0, n, n)),
+              ("f32 total", want(0, 0, total, 0))]
+    print(f"[dtype] {kind} {size}: launches by step {steps}", flush=True)
+    assert steps == expect, (steps, expect)
+    assert xs.dtype == F and bool(torch.isfinite(xs).all())
+    ratio = obj_s / obj_f
+    print(f"[dtype] {kind} {size}: set-up {setup:.4f} s; bf16 phase "
+          f"{rates['bf16']:.2f} it/s, f32 phase {rates['f32']:.2f} it/s "
+          f"(bf16/f32 {rates['bf16'] / rates['f32']:.3f}); schedule "
+          f"[(bf16, {n}), (f32, None)] {total} iterations "
+          f"{rates['schedule']:.2f} it/s, f32 {total} iterations "
+          f"{rates['f32 total']:.2f} it/s; objective {obj0:.6e} -> "
+          f"schedule {obj_s:.6e}, f32 {obj_f:.6e} (ratio {ratio:.4f})",
+          flush=True)
+    assert obj_s < obj0 and obj_f < obj0, (obj0, obj_s, obj_f)
+    del slv, fit, ex
+    (ssize, sn) = DT_SMALL[kind]
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        s, f, _ = build(*ssize, dev, sn)
+        s.fit(stop_crit=MaxIter(2 * sn), max_iter=2 * sn,
+              precision_schedule=[(B, sn), (F, None)], **f)
+        sols[dev] = s.solution().cpu()
+    diff = float((sols["cuda"] - sols["cpu"]).abs().max())
+    tol = DT_FIT_TOL * float(sols["cpu"].abs().max())
+    print(f"[dtype] {kind} {ssize} [(bf16, {sn}), (f32, None)] card vs "
+          f"CPU: max_abs_diff={diff:.3e} (tol {tol:.3e})", flush=True)
+    assert diff <= tol, (diff, tol)
+    return dict(setup_s=setup, bf16_it_per_s=rates["bf16"],
+                f32_it_per_s=rates["f32"],
+                schedule_it_per_s=rates["schedule"],
+                f32_total_it_per_s=rates["f32 total"], objective=obj_s,
+                f32_objective=obj_f, launches=dict(steps),
+                card_vs_cpu=diff)
+
+
+def dtype_phase(st, nu, radio_interferometry, sparse_view_ct, p, MaxIter):
+    """Phase 21: input dtypes.  (a) the sweep of
+    ``tests/test_torch_dtypes.py`` on the card against the CPU; (b) RI
+    1024^2 / 10^6 visibilities and (c) Fourier CT 512^2 / 60 views under a
+    bf16 ``precision_schedule``; (d) the stencil kernel on float16 storage
+    at 2160x3840 and 2153x3833 (the workload's 9+9 taps; odd rows load by
+    plain 2-byte loads) against its plain version, one f16 ulp of max|y|,
+    timed against its byte bound (4 bytes a pixel) beside the bf16 and f32
+    launches on the same values and one f16 ``conv2d`` (cuDNN)."""
+    out = {"sweep": _dt_sweep(st, nu)}
+    _mark("dtype sweep")
+
+    def ri(shape, n_vis, dev, rate):
+        return radio_interferometry(shape, n_vis=n_vis, device=dev,
+                                    stop_rate=rate)
+
+    def ct(shape, n_angles, dev, rate):
+        return sparse_view_ct(shape, n_angles=n_angles, method="fourier",
+                              device=dev, stop_rate=rate)
+    out["ri"] = _dt_schedule("ri", nu, st, ri, MaxIter)
+    _mark("dtype RI schedule")
+    out["ct"] = _dt_schedule("ct", nu, st, ct, MaxIter)
+    _mark("dtype CT schedule")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    f16 = {}
+    for s in (SHAPE, ODD_SHAPE):
+        x = torch.rand(s, generator=gen, device="cuda")
+        tag = f"{s[0]}x{s[1]}"
+        f16[tag] = _st_variants(st, p, x.half(), f" f16 {tag}",
+                                plain_timed=s == SHAPE)
+        if s == SHAPE:
+            f16[tag + " beside"] = {
+                dn: {k: v["ms"] for k, v in _st_variants(
+                    st, p, x.to(dt), f" {dn} {tag} (beside f16)",
+                    plain_timed=False, verbose=False).items()}
+                for dn, dt in (("bf16", torch.bfloat16),
+                               ("f32", torch.float32))}
+            print(f"[dtype] stencil {tag}: f16 ms "
+                  f"{ {k: round(v['ms'], 4) for k, v in f16[tag].items()} } "
+                  f"beside {f16[tag + ' beside']} (bound "
+                  f"{f16[tag]['symmetric']['bound_ms']:.4f} ms at 2 bytes)",
+                  flush=True)
+            out["f16_library_ms"], err = _conv2d_ms(st, x.half(), p)
+            print(f"[kernel] stencil f16 {tag} conv2d library_ms="
+                  f"{out['f16_library_ms']:.4f} (max_abs_diff to the kernel "
+                  f"{err:.3e})", flush=True)
+    out["f16"] = f16
+    _mark("dtype f16 stencil")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4370,7 +4703,14 @@ def main() -> int:
     ad = autodiff_phase(st, nu, ex["K"]._taps)
     _mark("autodiff, bf16 and big batches")
 
+    # ---- phase 21: input dtypes -----------------------------------------
+    dts = dtype_phase(st, nu, radio_interferometry, sparse_view_ct,
+                      ex["K"]._taps, MaxIter)
+    _mark("input dtypes")
+
     bf16_4k = f"{SHAPE[0]}x{SHAPE[1]}"
+    f16_4k = dts["f16"][bf16_4k]
+
     kernels = []
     for kname, replaces, n_steps in (
             ("tv_step", "pyxu_tpu/ops/fused_tv.py:390", 1),
@@ -4457,6 +4797,22 @@ def main() -> int:
                             if k.startswith("stencil")},
         "big_batch_launches": {k: ad["big"][k] for k in (
             "stencil", "stencil_members")},
+        # phase 21: float16 storage (the LASSO path's mix at 4K, then every
+        # variant), the dtypes the kernel ran at and its launches by dtype
+        # in the sweep, and by step in the CT schedule
+        "f16": {
+            "ms": statistics.fmean(f16_4k[t]["ms"] for t in (
+                "symmetric", "symmetric-adjoint")),
+            "plain_ms": statistics.fmean(f16_4k[t]["plain_ms"] for t in (
+                "symmetric", "symmetric-adjoint")),
+            "bound_ms": f16_4k["symmetric"]["bound_ms"],
+            "max_abs_err": max(v["max_abs_err"] for k, s in dts["f16"].items()
+                               if "beside" not in k for v in s.values()),
+            "library_ms": dts["f16_library_ms"], "variants": dts["f16"]},
+        "dtypes": sorted(dts["sweep"]["launches"]["stencil"]),
+        "dtype_launches": {"sweep": dts["sweep"]["launches"]["stencil"],
+                           "ct": {k: v["stencil"] for k, v in
+                                  dts["ct"]["launches"].items()}},
     })
     # the RI 1024^2 path spreads twice on the Toeplitz grid and once (A^H y)
     # on A's; it interpolates once (y) on A's grid.  The MRI 128^3 path
@@ -4517,6 +4873,14 @@ def main() -> int:
                                                 "max_abs_err", "phases")
                              if f in v}
                          for k, v in rs.items()},
+            # phase 21: the plan dtypes the kernel ran at and its launches
+            # by dtype in the sweep (2-D: and by step in the schedules)
+            "dtypes": sorted(dts["sweep"]["launches"][kname]),
+            "dtype_launches": {
+                "sweep": dts["sweep"]["launches"][kname],
+                **({w: {k: v[kname] for k, v in
+                        dts[w]["launches"].items()} for w in ("ri", "ct")}
+                   if kname.endswith("2") else {})},
         })
     print(json.dumps({"kernels": kernels, "path_it_per_s": rate,
                       "fused_it_per_s": rates[True],
@@ -4552,6 +4916,10 @@ def main() -> int:
                           "expdeblur", "ri_exp", "interop_launches",
                           "interop_small", "big")},
                       "parallel": par,
+                      "ri_1024_bf16_it_per_s": dts["ri"]["bf16_it_per_s"],
+                      "ct_512_bf16_it_per_s": dts["ct"]["bf16_it_per_s"],
+                      "dtype": {"sweep_cases": dts["sweep"]["cases"],
+                                "ri": dts["ri"], "ct": dts["ct"]},
                       "engine": engine}),
           flush=True)
     print(smi, flush=True)

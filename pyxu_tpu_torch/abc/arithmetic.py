@@ -32,6 +32,7 @@ from pyxu_tpu_torch.abc.operator import (
     Property as P,
     QuadraticFunc,
     _autograd_grad,
+    _t_dtype,
     infer_operator_class,
 )
 
@@ -282,8 +283,10 @@ def argshift(op: Operator, shift) -> Operator:
         Q, c, t = op._quad_spec()
         Qs = Q.apply(shift)
         c_new = add(c, ExplicitLinFunc(Qs))
-        # t stays a 0-d tensor on the data's device (no host sync)
+        # t stays a 0-d tensor on the data's device (no host sync), of
+        # the JAX package's dtype (a bfloat16 shift keeps a float32 t)
         t_new = 0.5 * torch.sum(shift * Qs) + c.apply(shift) + t
+        t_new = t_new.to(torch.promote_types(t_new.dtype, _t_dtype(t)))
         return QuadraticFunc(op.dim_shape, Q=Q, c=c_new, t=t_new)
     return _make(ArgShiftMixin, _argshift_properties(op), op, shift)
 

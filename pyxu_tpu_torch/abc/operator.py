@@ -406,6 +406,14 @@ class ProxDiffFunc(ProxFunc, DiffFunc):
         return ProxFunc.properties() | DiffFunc.properties()
 
 
+def _t_dtype(t) -> torch.dtype:
+    """The dtype a quadratic's constant ``t`` promotes with: its own, or
+    for a number the default width's.  The JAX package holds ``t`` as a
+    0-d array, which promotes a narrower input (a bfloat16 ``x`` gives a
+    float32 value), where a 0-d torch tensor would not."""
+    return t.dtype if isinstance(t, torch.Tensor) else default_fdtype()
+
+
 class QuadraticFunc(ProxDiffFunc):
     r"""f(x) = (1/2) <x, Qx> + <c, x> + t with Q positive semi-definite.
 
@@ -442,7 +450,8 @@ class QuadraticFunc(ProxDiffFunc):
 
     def apply(self, arr):
         quad = 0.5 * _sum_core(arr * self._Q.apply(arr), self.dim_rank)
-        return quad + self._c.apply(arr) + self._t
+        out = quad + self._c.apply(arr) + self._t
+        return out.to(torch.promote_types(out.dtype, _t_dtype(self._t)))
 
     def grad(self, arr):
         return self._Q.apply(arr) + self._c.grad(arr)

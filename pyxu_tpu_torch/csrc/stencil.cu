@@ -100,7 +100,10 @@
 // 2.4x slower on the H100 (chip_smoke.py's [bf16 geometry] lines, PERF.md
 // section 6).  cp.async copies 4, 8 or 16 bytes: a bf16 row that is not
 // 16-byte aligned (an odd width) loads through the scalar edge routine by
-// plain loads.  Bound: 4 bytes a pixel, 0.0099 ms at 2160x3840.
+// plain loads.  Bound: 4 bytes a pixel, 0.0099 ms at 2160x3840.  float16
+// storage (the JAX Stencil's float16 inputs) takes the same path as
+// bfloat16: taps rounded to float16 on the host, float32 products and
+// sums, one rounding on store (st_pack2 / st_unpack2 convert pairs).
 //
 // Reads never leave the image plane: rows and columns map through the
 // boundary into [0, n), and halo columns beyond h of the image are never
@@ -110,6 +113,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -154,8 +158,8 @@ __device__ unsigned long long st_stray_reads;
 struct StArgs {
   double k0[ST_MAXL];
   double k1[ST_MAXL];
-  float k0f[ST_MAXL];  // the taps rounded to float (to bf16 for bf16
-  float k1f[ST_MAXL];  // storage), for float arithmetic
+  float k0f[ST_MAXL];  // the taps rounded to float (to bf16 or f16 for
+  float k1f[ST_MAXL];  // 2-byte storage), for float arithmetic
   int L0, L1, c0, c1;  // tap counts and centres (rows, cols)
   int h0, h1;          // halo per side (rows, cols)
   int H, W;
@@ -184,7 +188,7 @@ __host__ __device__ __forceinline__ int st_cdiv(int a, int b) {
   return (a + b - 1) / b;
 }
 
-// The arithmetic type of a storage type: bf16 computes in float.
+// The arithmetic type of a storage type: bf16 and f16 compute in float.
 template <typename T>
 struct StAcc {
   using type = T;
@@ -193,16 +197,24 @@ template <>
 struct StAcc<__nv_bfloat16> {
   using type = float;
 };
+template <>
+struct StAcc<__half> {
+  using type = float;
+};
 
 __device__ __forceinline__ float st_wide(float v) { return v; }
 __device__ __forceinline__ double st_wide(double v) { return v; }
 __device__ __forceinline__ float st_wide(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float st_wide(__half v) { return __half2float(v); }
 __device__ __forceinline__ void st_store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st_store(double* p, double v) { *p = v; }
 __device__ __forceinline__ void st_store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void st_store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 template <typename T>
 __device__ __forceinline__ T st_zero() {
@@ -211,6 +223,36 @@ __device__ __forceinline__ T st_zero() {
 template <>
 __device__ __forceinline__ __nv_bfloat16 st_zero<__nv_bfloat16>() {
   return __ushort_as_bfloat16((unsigned short)0);
+}
+template <>
+__device__ __forceinline__ __half st_zero<__half>() {
+  return __ushort_as_half((unsigned short)0);
+}
+
+// Two 2-byte storage values packed in 32 bits, widened to two floats, and
+// two floats rounded into such a pair.
+__device__ __forceinline__ float2 st_unpack2(unsigned u, __nv_bfloat16) {
+  __nv_bfloat162 b;
+  memcpy(&b, &u, 4);
+  return __bfloat1622float2(b);
+}
+__device__ __forceinline__ float2 st_unpack2(unsigned u, __half) {
+  __half2 b;
+  memcpy(&b, &u, 4);
+  return __half22float2(b);
+}
+__device__ __forceinline__ unsigned st_pack2(float lo, float hi,
+                                             __nv_bfloat16) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  unsigned u;
+  memcpy(&u, &b, 4);
+  return u;
+}
+__device__ __forceinline__ unsigned st_pack2(float lo, float hi, __half) {
+  const __half2 b = __floats2half2_rn(lo, hi);
+  unsigned u;
+  memcpy(&u, &b, 4);
+  return u;
 }
 
 // Tap t of axis 0 or 1 in the arithmetic type A, read from the kernel's
@@ -266,7 +308,7 @@ __device__ __forceinline__ void st_cp16(void* dst, const void* src) {
                "l"(src));
 }
 
-// one element; cp.async has no 2-byte copy, so bf16 loads and stores
+// one element; cp.async has no 2-byte copy, so bf16 and f16 load and store
 template <typename T>
 __device__ __forceinline__ void st_cp1(T* dst, const T* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -300,9 +342,7 @@ __device__ __forceinline__ void st_get(const T* p, A* w) {
       const unsigned u[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int h = 0; h < 4; ++h) {
-        __nv_bfloat162 b;
-        memcpy(&b, &u[h], 4);
-        const float2 f = __bfloat1622float2(b);
+        const float2 f = st_unpack2(u[h], T());
         w[e + 2 * h] = f.x;
         w[e + 2 * h + 1] = f.y;
       }
@@ -311,10 +351,7 @@ __device__ __forceinline__ void st_get(const T* p, A* w) {
 #pragma unroll
     for (int e = 0; e < RV; e += 4) {
       const uint2 v = *reinterpret_cast<const uint2*>(p + e);
-      __nv_bfloat162 b0, b1;
-      memcpy(&b0, &v.x, 4);
-      memcpy(&b1, &v.y, 4);
-      const float2 f0 = __bfloat1622float2(b0), f1 = __bfloat1622float2(b1);
+      const float2 f0 = st_unpack2(v.x, T()), f1 = st_unpack2(v.y, T());
       w[e] = f0.x; w[e + 1] = f0.y; w[e + 2] = f1.x; w[e + 3] = f1.y;
     }
   } else if constexpr (sizeof(T) == 2) {
@@ -344,23 +381,16 @@ __device__ __forceinline__ void st_put(T* p, const A* w) {
     for (int e = 0; e < RV; e += 8) {
       unsigned u[4];
 #pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const __nv_bfloat162 b =
-            __floats2bfloat162_rn(w[e + 2 * h], w[e + 2 * h + 1]);
-        memcpy(&u[h], &b, 4);
-      }
+      for (int h = 0; h < 4; ++h)
+        u[h] = st_pack2(w[e + 2 * h], w[e + 2 * h + 1], T());
       *reinterpret_cast<uint4*>(p + e) = make_uint4(u[0], u[1], u[2], u[3]);
     }
   } else if constexpr (sizeof(T) == 2 && RV % 4 == 0) {
 #pragma unroll
-    for (int e = 0; e < RV; e += 4) {
-      const __nv_bfloat162 b0 = __floats2bfloat162_rn(w[e], w[e + 1]);
-      const __nv_bfloat162 b1 = __floats2bfloat162_rn(w[e + 2], w[e + 3]);
-      uint2 v;
-      memcpy(&v.x, &b0, 4);
-      memcpy(&v.y, &b1, 4);
-      *reinterpret_cast<uint2*>(p + e) = v;
-    }
+    for (int e = 0; e < RV; e += 4)
+      *reinterpret_cast<uint2*>(p + e) =
+          make_uint2(st_pack2(w[e], w[e + 1], T()),
+                     st_pack2(w[e + 2], w[e + 3], T()));
   } else if constexpr (sizeof(T) == 2) {
 #pragma unroll
     for (int e = 0; e < RV; ++e) st_store(p + e, w[e]);
@@ -830,16 +860,19 @@ static float st_round_bf16(float v) {
   return v;
 }
 
+// v rounded to the nearest f16 (ties to even, subnormals kept), as a float
+static float st_round_f16(float v) { return __half2float(__float2half_rn(v)); }
+
 // Bytes of a storage element and of an arithmetic value for the storage
-// type's code (0 float, 1 double, 2 bf16; st_args refuses others).
-static size_t st_elem(int dt) { return dt == 1 ? 8 : (dt == 2 ? 2 : 4); }
+// type's code (0 float, 1 double, 2 bf16, 3 f16; st_args refuses others).
+static size_t st_elem(int dt) { return dt == 1 ? 8 : (dt >= 2 ? 2 : 4); }
 static size_t st_aelem(int dt) { return dt == 1 ? 8 : 4; }
 
 static int st_args(StArgs* a, int H, int W, const double* k0, int L0,
                    int c0, const double* k1, int L1, int c1, int reflect,
                    int fold, int dt) {
   if (L0 < 1 || L0 > ST_MAXL || L1 < 1 || L1 > ST_MAXL || c0 < 0 ||
-      c0 >= L0 || c1 < 0 || c1 >= L1 || H < 1 || W < 1 || dt < 0 || dt > 2)
+      c0 >= L0 || c1 < 0 || c1 >= L1 || H < 1 || W < 1 || dt < 0 || dt > 3)
     return (int)cudaErrorInvalidValue;
   for (int t = 0; t < ST_MAXL; ++t) {
     a->k0[t] = k0 && t < L0 ? k0[t] : 0.0;
@@ -849,6 +882,9 @@ static int st_args(StArgs* a, int H, int W, const double* k0, int L0,
     if (dt == 2) {
       a->k0f[t] = st_round_bf16(a->k0f[t]);
       a->k1f[t] = st_round_bf16(a->k1f[t]);
+    } else if (dt == 3) {
+      a->k0f[t] = st_round_f16(a->k0f[t]);
+      a->k1f[t] = st_round_f16(a->k1f[t]);
     }
   }
   a->L0 = L0; a->L1 = L1; a->c0 = c0; a->c1 = c1;
@@ -868,8 +904,9 @@ extern "C" {
 
 // y = one separable correlation of each of the B contiguous (H, W) images
 // of x (B <= 65535: the wrapper cuts larger batches).  dt: the storage
-// type, 0 float, 1 double, 2 bf16 (float arithmetic).  reflect / fold as
-// in StArgs.  Returns cudaGetLastError() after the launch.
+// type, 0 float, 1 double, 2 bf16, 3 f16 (2 and 3: float arithmetic).
+// reflect / fold as in StArgs.  Returns cudaGetLastError() after the
+// launch.
 int stencil_launch(const void* x, void* y, int B, int H, int W, int dt,
                    const double* k0, int L0, int c0, const double* k1, int L1,
                    int c1, int reflect, int fold, void* stream) {
@@ -886,6 +923,7 @@ int stencil_launch(const void* x, void* y, int B, int H, int W, int dt,
   if (dt == 1) return st_launch_taps<double, false>(x, y, B, a, g, smem, s);
   if (dt == 2)
     return st_launch_taps<__nv_bfloat16, false>(x, y, B, a, g, smem, s);
+  if (dt == 3) return st_launch_taps<__half, false>(x, y, B, a, g, smem, s);
   return st_launch_taps<float, false>(x, y, B, a, g, smem, s);
 }
 
@@ -917,6 +955,7 @@ int stencil_launch_members(const void* x, void* y, int B, int H, int W,
   if (dt == 1) return st_launch_taps<double, true>(x, y, B, a, g, smem, s);
   if (dt == 2)
     return st_launch_taps<__nv_bfloat16, true>(x, y, B, a, g, smem, s);
+  if (dt == 3) return st_launch_taps<__half, true>(x, y, B, a, g, smem, s);
   return st_launch_taps<float, true>(x, y, B, a, g, smem, s);
 }
 

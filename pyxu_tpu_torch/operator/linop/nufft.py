@@ -24,9 +24,16 @@ in the JAX package), the plain versions on either device.  The decision is
 static (d and a float32/float64 plan) and is recorded on the operator as
 ``kernel_path`` (``"kernel"`` or ``"plain"``).  The FFTs are ``torch.fft``.
 
-The JAX package's global x64 switch becomes the ``dtype`` given at plan
-time: the plan's offsets and the inputs it takes are of that dtype.  The
-public API is real-valued with a trailing size-2 axis
+Dtypes follow the JAX package's rule: an input computes in
+``promote(its dtype, float32)`` (:func:`pyxu_tpu_torch.ops.nufft.
+compute_dtype`): bfloat16 and float16 are widened once, at the
+operator's entry, and give float32; float32 gives float32 and float64
+gives float64, at that dtype's accuracy.  An operator keeps one plan (and
+its deconvolution factors, phases or Toeplitz spectrum) for each compute
+dtype, built once on first use from the float64 points it holds.  The
+``dtype`` given at construction (the JAX package's global x64 switch)
+names the plan built then and the precision ``eps`` is checked against.
+The public API is real-valued with a trailing size-2 axis
 (:mod:`pyxu_tpu_torch.utils.complex`).
 
 :class:`_NUFFTToeplitz` is the normal operator ``A^H A`` of a type-2
@@ -43,6 +50,7 @@ from __future__ import annotations
 import collections as _collections
 import contextlib as _contextlib
 import math as _math
+import types as _types
 import warnings as _warnings
 
 import numpy as np
@@ -147,6 +155,11 @@ def _plan_dtype(dtype) -> torch.dtype:
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype {dtype}: want float32 or float64")
     return dtype
+
+
+def _widen(a: torch.Tensor) -> torch.Tensor:
+    """``a`` in its compute dtype (a no-op for float32 and float64)."""
+    return a.to(_kern.compute_dtype(a.dtype))
 
 
 def _kernels(d: int):
@@ -308,13 +321,19 @@ class _NUFFT12(_NUFFTDiagnostics, LinOp):
                 shape = [1] * d
                 shape[ax] = N[ax]
                 ph = ph * f.reshape(shape)
-            self._phihat = torch.from_numpy(1.0 / ph).to(device=dev,
-                                                         dtype=dtype)
+            inv = torch.from_numpy(1.0 / ph).to(dev)
+            self._phihats = _kern.PerDtype(inv.to)
+            self._phihats(dtype)
         with _span("plan"):
-            self._plan = plan(xh, self._nf, w, beta, dtype)
+            self._plans = _kern.PerDtype(
+                lambda dt: plan(xh, self._nf, w, beta, dt))
+            self._plans(dtype)
         super().__init__((M,) if real_in else (M, 2), N + (2,))
         self._lipschitz = float(np.sqrt(np.prod(N) * M))
         self._name = f"NUFFT1[d={d}]"
+
+    # the construction dtype's plan
+    _plan = property(lambda self: self._plans(self._dtype))
 
     def _dense_complex(self) -> np.ndarray:
         """(prod(N), M) type-1 matrix exp(i s <k, x_j>)."""
@@ -353,21 +372,22 @@ class _NUFFT12(_NUFFTDiagnostics, LinOp):
             ghat = torch.fft.ifftn(g, dim=dims, norm="forward")
         else:
             ghat = torch.fft.fftn(g, dim=dims)
-        return self._extract(ghat) * self._phihat
+        return self._extract(ghat) * self._phihats(g.real.dtype)
 
     def _modes_to_grid(self, f):
         """Centered modes (B, *N) complex -> the fine grid ready for interp
         (transpose of :meth:`_grid_to_modes`)."""
         dims = tuple(range(1, self._d + 1))
-        g = self._embed(f * self._phihat)
+        g = self._embed(f * self._phihats(f.real.dtype))
         if self._isign > 0:
             return torch.fft.fftn(g, dim=dims)
         return torch.fft.ifftn(g, dim=dims, norm="forward")
 
     def _t1(self, c):
-        """Strengths (B, M, 2) -> modes (B, *N) complex."""
+        """Strengths (B, M, 2) in a compute dtype -> modes (B, *N)
+        complex."""
         with _span("spread"):
-            g = self._spread(c.contiguous(), self._plan)
+            g = self._spread(c.contiguous(), self._plans(c.dtype))
         with _span("fft"):
             return self._grid_to_modes(view_as_complex(g))
 
@@ -376,10 +396,11 @@ class _NUFFT12(_NUFFTDiagnostics, LinOp):
         with _span("fft"):
             g = view_as_real(self._modes_to_grid(f)).contiguous()
         with _span("interp"):
-            return self._interp(g, self._plan)
+            return self._interp(g, self._plans(g.dtype))
 
     # -- LinOp interface (real views) ----------------------------------------
     def apply(self, arr):
+        arr = _widen(arr)
         if self._real_in:
             def single(a):
                 return view_as_real(self._t1(
@@ -394,7 +415,8 @@ class _NUFFT12(_NUFFTDiagnostics, LinOp):
         def single(a):
             c = self._t2(view_as_complex(a))
             return c[..., 0] if self._real_in else c
-        return self._map_batched(single, arr, self._d + 1, self.dim_shape)
+        return self._map_batched(single, _widen(arr), self._d + 1,
+                                 self.dim_shape)
 
     def cogram(self) -> "SelfAdjointOp":
         """A A^H on the mode grid by Toeplitz/circulant embedding (two FFTs
@@ -509,21 +531,40 @@ class _NUFFTToeplitz(SelfAdjointOp):
         self._scale = float(scale)
         self._P = tuple(next_fast_len(2 * n - 1) for n in N)
         super().__init__(N if real_in else N + (2,))
+        self._xh, self._shift = xh, shift
+        if weights is None:
+            self._w64 = None
+            self._wsum = float(M)
+        else:
+            self._w64 = torch.as_tensor(weights, dtype=torch.float64)
+            self._wsum = float(self._w64.sum())
+            self._w64 = self._w64.to(xh.device)
+        self._dtype = dtype
+        self._spectra = _kern.PerDtype(self._build)
+        self._spectra(dtype)
+        # the largest circulant eigenvalue bounds the section's norm
+        with _span("lipschitz read"):
+            self._lipschitz = float(self._that.abs().max()
+                                    if self._spec_complex
+                                    else self._that.max())
+        self._name = f"NUFFTGram[d={d}]"
+
+    def _build(self, dtype):
+        """``(that, that_half)`` in ``dtype``: T by one type-1 NUFFT of the
+        weights at that dtype's eps (``min(eps, 1e-9)`` for float64), then
+        its circulant spectrum."""
+        N, d, M, shift = self._N, self._d, self._M, self._shift
+        xh, eps = self._xh, self._eps
         Nbig = tuple(2 * (n + abs(sh)) - 1 for n, sh in zip(N, shift))
         eps_T = min(eps, 1e-9) if dtype == torch.float64 else eps
         upsampfac = 1.25 if (d == 3 and eps_T >= 5e-5) else 2.0
         with _span("type-1 plan"):
             t1 = _NUFFT12(xh, Nbig, isign=self._isign, eps=eps_T,
                           upsampfac=upsampfac, dtype=dtype, device=xh.device)
-        self._build_params = t1.params()
+        if dtype == self._dtype:
+            self._build_params = t1.params()
         c = torch.zeros((M, 2), dtype=dtype, device=xh.device)
-        if weights is None:
-            c[:, 0] = 1.0
-            self._wsum = float(M)
-        else:
-            w = torch.as_tensor(weights, dtype=torch.float64)
-            c[:, 0] = w.to(device=xh.device, dtype=dtype)
-            self._wsum = float(w.sum())
+        c[:, 0] = 1.0 if self._w64 is None else self._w64.to(dtype)
         T = view_as_complex(t1.apply(c))               # (*Nbig) complex
         with _span("pad, roll, fftn"):
             # index i of the build grid holds lag i - Nbig//2: keep the lags
@@ -538,32 +579,30 @@ class _NUFFTToeplitz(SelfAdjointOp):
             T = torch.roll(T, shifts=tuple(-(n - 1) for n in N),
                            dims=tuple(range(d)))
             half = self._P[-1] // 2 + 1
-            self._that_half = None
+            that_half = None
             if self._spec_complex:
                 # the spectrum of Re(T), complex
-                self._that = self._scale * torch.fft.fftn(T.real)
-                self._that_half = self._that[..., :half].contiguous()
+                that = self._scale * torch.fft.fftn(T.real)
+                that_half = that[..., :half].contiguous()
             else:
-                self._that = self._scale * torch.fft.fftn(T).real \
-                    .contiguous()
-                if real_in:
-                    neg = self._that
+                that = self._scale * torch.fft.fftn(T).real.contiguous()
+                if self._real_in:
+                    neg = that
                     for ax in range(d):
                         neg = torch.roll(torch.flip(neg, (ax,)), 1, ax)
-                    lam_sym = 0.5 * (self._that + neg)
-                    self._that_half = lam_sym[..., :half].contiguous()
-        # the largest circulant eigenvalue bounds the section's norm
-        with _span("lipschitz read"):
-            self._lipschitz = float(self._that.abs().max()
-                                    if self._spec_complex
-                                    else self._that.max())
-        self._name = f"NUFFTGram[d={d}]"
+                    lam_sym = 0.5 * (that + neg)
+                    that_half = lam_sym[..., :half].contiguous()
+        return that, that_half
+
+    # the construction dtype's spectrum
+    _that = property(lambda self: self._spectra(self._dtype)[0])
 
     def _conv(self, F):
         """Circulant-embedded linear convolution of complex modes
         (B, *N)."""
         dims = tuple(range(1, self._d + 1))
-        g = torch.fft.fftn(F, s=self._P, dim=dims) * self._that
+        g = torch.fft.fftn(F, s=self._P, dim=dims) \
+            * self._spectra(F.real.dtype)[0]
         out = torch.fft.ifftn(g, dim=dims)
         for ax, n in enumerate(self._N):
             out = out.narrow(ax + 1, 0, n)
@@ -575,13 +614,15 @@ class _NUFFTToeplitz(SelfAdjointOp):
         is real), so ``irfftn`` of the product is exactly the real part of
         the full convolution."""
         dims = tuple(range(1, self._d + 1))
-        g = torch.fft.rfftn(x, s=self._P, dim=dims) * self._that_half
+        g = torch.fft.rfftn(x, s=self._P, dim=dims) \
+            * self._spectra(x.dtype)[1]
         out = torch.fft.irfftn(g, s=self._P, dim=dims)
         for ax, n in enumerate(self._N):
             out = out.narrow(ax + 1, 0, n)
         return out
 
     def apply(self, arr):
+        arr = _widen(arr)
         if self._real_in:
             return self._map_batched(self._conv_real, arr, self._d,
                                      self.codim_shape)
@@ -767,75 +808,96 @@ class _NUFFT3(_NUFFTDiagnostics, LinOp):
             raise ValueError(f"nf = {nf}: want {d} sides of at least "
                              f"{nf_min}")
         self._nf, self._gamma = nf, gamma
-        s = float(self._isign)
-        xm, zm, gamma = (torch.from_numpy(v).to(dev) for v in (xm, zm, gamma))
-        with _span("phases"):
-            cdt = complex_dtype(dtype)
-            self._ph_x = torch.exp(1j * s * (x @ zm)).to(cdt)
-            self._ph_z = torch.exp(1j * s * ((z - zm) @ xm)).to(cdt)
-        sp = (z - zm) * s * gamma
-        with _span("plans"):
-            self._plan_x = plan(torch.remainder((x - xm) / gamma, 2 * np.pi),
-                                nf, w, beta, dtype)
-            ring = torch.tensor(nf, dtype=torch.float64, device=dev)
-            self._plan_s = plan(torch.remainder(2 * np.pi * sp / ring,
-                                                2 * np.pi), nf, w, beta, dtype)
-        with _span("dx"):
-            f = [torch.from_numpy(v).to(dev) for v in _t3_dx_axes(nf, w, beta)]
-            lead = None
-            for v in f[:-1]:
-                lead = v if lead is None else lead[..., None] * v
-            self._dx_lead = None if lead is None else lead.to(dtype)
-            self._dx_last = f[-1].to(dtype)
-        with _span("ds"):
-            zq, pw = (torch.from_numpy(v).to(dev) for v in _es_quad(w, beta))
-            ds = torch.ones(K, dtype=torch.float64, device=dev)
-            for ax in range(d):
-                h = 2 * np.pi / nf[ax]
-                alpha = w * h / 2.0
-                c = torch.cos(torch.outer(sp[:, ax] * alpha, zq))
-                ds = ds * (1.0 / (alpha * (c @ pw) / h))
-            self._ds = ds.to(dtype)
+        self._plan_fn = plan
         self._x, self._z = x, z
+        self._xm, self._zm, self._g64 = (torch.from_numpy(v).to(dev)
+                                         for v in (xm, zm, gamma))
+        self._states = _kern.PerDtype(self._build)
+        self._states(dtype)
         self._dims = tuple(range(1, d + 1))
         super().__init__((M,) if real_in else (M, 2), (K, 2))
         self._lipschitz = float(np.sqrt(M * K))
         self._name = f"NUFFT3[d={d}]"
 
+    def _build(self, dtype):
+        """The plan's state in ``dtype``, from the float64 clouds: the
+        phases, the x' and s' plans, ``dx`` per axis and ``ds``."""
+        x, z, xm, zm, gamma = self._x, self._z, self._xm, self._zm, self._g64
+        nf, w, beta, d = self._nf, self._w, self._beta, self._d
+        dev, plan = x.device, self._plan_fn
+        s = float(self._isign)
+        st = _types.SimpleNamespace()
+        with _span("phases"):
+            cdt = complex_dtype(dtype)
+            st.ph_x = torch.exp(1j * s * (x @ zm)).to(cdt)
+            st.ph_z = torch.exp(1j * s * ((z - zm) @ xm)).to(cdt)
+        sp = (z - zm) * s * gamma
+        with _span("plans"):
+            st.plan_x = plan(torch.remainder((x - xm) / gamma, 2 * np.pi),
+                             nf, w, beta, dtype)
+            ring = torch.tensor(nf, dtype=torch.float64, device=dev)
+            st.plan_s = plan(torch.remainder(2 * np.pi * sp / ring,
+                                             2 * np.pi), nf, w, beta, dtype)
+        with _span("dx"):
+            f = [torch.from_numpy(v).to(dev) for v in _t3_dx_axes(nf, w, beta)]
+            lead = None
+            for v in f[:-1]:
+                lead = v if lead is None else lead[..., None] * v
+            st.dx_lead = None if lead is None else lead.to(dtype)
+            st.dx_last = f[-1].to(dtype)
+        with _span("ds"):
+            zq, pw = (torch.from_numpy(v).to(dev) for v in _es_quad(w, beta))
+            ds = torch.ones(z.shape[0], dtype=torch.float64, device=dev)
+            for ax in range(d):
+                h = 2 * np.pi / nf[ax]
+                alpha = w * h / 2.0
+                c = torch.cos(torch.outer(sp[:, ax] * alpha, zq))
+                ds = ds * (1.0 / (alpha * (c @ pw) / h))
+            st.ds = ds.to(dtype)
+        return st
+
+    # the construction dtype's plans
+    _plan_x = property(lambda self: self._states(self._dtype).plan_x)
+    _plan_s = property(lambda self: self._states(self._dtype).plan_s)
+
     def _mul_dx(self, g):
         """g (B, *nf) complex, a fresh tensor, times the pre-deconvolution
-        grid, in place: two broadcast passes."""
-        if self._dx_lead is not None:
-            g.mul_(self._dx_lead.unsqueeze(-1))
-        g.mul_(self._dx_last)
+        grid (of g's dtype), in place: two broadcast passes."""
+        st = self._states(g.real.dtype)
+        if st.dx_lead is not None:
+            g.mul_(st.dx_lead.unsqueeze(-1))
+        g.mul_(st.dx_last)
         return g
 
     def _fw(self, c):
         """Strengths (B, M) complex -> values (B, K) complex."""
-        c = c * self._ph_x
+        st = self._states(c.real.dtype)
+        c = c * st.ph_x
         with _span("spread"):
-            g = self._spread(view_as_real(c).contiguous(), self._plan_x)
+            g = self._spread(view_as_real(c).contiguous(), st.plan_x)
         g = self._mul_dx(view_as_complex(g))
         with _span("fft"):
             # the ring's spectrum with e^{+i q m h}: the unnormalised
             # inverse FFT (isign is folded into s')
             ghat = torch.fft.ifftn(g, dim=self._dims, norm="forward")
         with _span("interp"):
-            v = self._interp(view_as_real(ghat), self._plan_s)
-        return view_as_complex(v) * self._ds * self._ph_z
+            v = self._interp(view_as_real(ghat), st.plan_s)
+        return view_as_complex(v) * st.ds * st.ph_z
 
     def _bw(self, f):
         """Values (B, K) complex -> strengths (B, M) complex: the adjoint."""
-        f = f * self._ph_z.conj() * self._ds
+        st = self._states(f.real.dtype)
+        f = f * st.ph_z.conj() * st.ds
         with _span("spread"):
-            ghat = self._spread(view_as_real(f).contiguous(), self._plan_s)
+            ghat = self._spread(view_as_real(f).contiguous(), st.plan_s)
         with _span("fft"):
             g = torch.fft.fftn(view_as_complex(ghat), dim=self._dims)
         with _span("interp"):
-            v = self._interp(view_as_real(self._mul_dx(g)), self._plan_x)
-        return view_as_complex(v) * self._ph_x.conj()
+            v = self._interp(view_as_real(self._mul_dx(g)), st.plan_x)
+        return view_as_complex(v) * st.ph_x.conj()
 
     def apply(self, arr):
+        arr = _widen(arr)
         if self._real_in:
             def single(a):
                 return view_as_real(self._fw(view_as_complex(
@@ -850,7 +912,7 @@ class _NUFFT3(_NUFFTDiagnostics, LinOp):
         def single(a):
             c = view_as_real(self._bw(view_as_complex(a)))
             return c[..., 0] if self._real_in else c
-        return self._map_batched(single, arr, 2, self.dim_shape)
+        return self._map_batched(single, _widen(arr), 2, self.dim_shape)
 
     def _dense_complex(self) -> np.ndarray:
         """(K, M) type-3 matrix exp(i s <z_k, x_j>)."""
@@ -1149,23 +1211,28 @@ class _NUFFT3Chunked(_NUFFTDiagnostics, LinOp):
         ax.legend(fontsize=6, markerscale=2)
         return fig
 
+    # As in the JAX package, the output keeps the input's dtype: the blocks
+    # compute in the input's compute dtype, and each block row's sum is
+    # rounded once into the output (a bfloat16 input gives bfloat16).
     def apply(self, arr):
         def single(a):
             out = a.new_empty((a.shape[0],) + self.codim_shape)
+            a = _widen(a)
             for row, iq in zip(self._blocks, self._z_idx):
                 acc = sum(blk.apply(a.index_select(1, ip))
                           for blk, ip in zip(row, self._x_idx))
-                out.index_copy_(1, iq, acc)
+                out.index_copy_(1, iq, acc.to(out.dtype))
             return out
         return self._map_batched(single, arr, 2, self.codim_shape)
 
     def adjoint(self, arr):
         def single(a):
             out = a.new_empty((a.shape[0],) + self.dim_shape)
+            a = _widen(a)
             for pi, ip in enumerate(self._x_idx):
                 acc = sum(row[pi].adjoint(a.index_select(1, iq))
                           for row, iq in zip(self._blocks, self._z_idx))
-                out.index_copy_(1, ip, acc)
+                out.index_copy_(1, ip, acc.to(out.dtype))
             return out
         return self._map_batched(single, arr, 2, self.dim_shape)
 

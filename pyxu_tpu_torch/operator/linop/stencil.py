@@ -18,10 +18,12 @@ correlation, :func:`~pyxu_tpu_torch.ops.stencil.fwd_axis` /
 is one N-D correlation written as a weighted sum of shifted slices of the
 padded input.  Taps live on the host as numpy arrays (the fused-TV matcher
 reads them there) and are applied as Python scalars, so they take the
-input's dtype; on the kernel path a bfloat16 input computes in float32
-from taps rounded to bfloat16 and is rounded once.  The kernel path
-differentiates through the wrapper's autograd rule (its backward is the
-adjoint kernel), so ``grad``, ``jacobian`` and ``torch.func`` reach it.
+input's dtype.  A bfloat16 or float16 input keeps its dtype and is
+computed in float32 and rounded once: on the kernel path from taps rounded
+to its dtype, as the kernel does, off it from the float32 taps.  The
+kernel path differentiates through the wrapper's autograd rule (its
+backward is the adjoint kernel), so ``grad``, ``jacobian`` and
+``torch.func`` reach it.
 
 Lipschitz via Young's inequality: ``L <= L_pad * prod ||k_i||_1``.
 Closed-form trace in constant mode: ``tr = N * prod k_i[center_i]``.
@@ -187,6 +189,8 @@ class Stencil(SquareOp):
     def apply(self, arr):
         if self.kernel_path == "kernel":
             return _kern.separable_correlate2d(arr.contiguous(), self._taps)
+        if arr.dtype in _kern.NARROW:
+            return self.apply(arr.float()).to(arr.dtype)
         if self._axes is not None:
             nb = arr.ndim - self.dim_rank
             for k, c, ax in self._axes:
@@ -199,6 +203,8 @@ class Stencil(SquareOp):
         if self.kernel_path == "kernel":
             return _kern.separable_correlate2d(arr.contiguous(), self._taps,
                                                adjoint=True)
+        if arr.dtype in _kern.NARROW:
+            return self.adjoint(arr.float()).to(arr.dtype)
         if self._axes is not None:
             nb = arr.ndim - self.dim_rank
             for k, c, ax in reversed(self._axes):

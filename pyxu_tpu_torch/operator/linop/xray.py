@@ -26,7 +26,10 @@ import numpy as np
 import torch
 
 from pyxu_tpu_torch.abc.operator import LinOp, SelfAdjointOp
-from pyxu_tpu_torch.operator.linop.nufft import NUFFT, _NUFFTToeplitz, _span
+from pyxu_tpu_torch.operator.linop.nufft import (NUFFT, _NUFFTToeplitz,
+                                                 _span, _widen)
+from pyxu_tpu_torch.ops.nufft import PerDtype
+from pyxu_tpu_torch.ops import stencil as _st
 from pyxu_tpu_torch.runtime import resolve_device
 from pyxu_tpu_torch.utils.complex import complex_dtype, view_as_complex
 from pyxu_tpu_torch.utils.misc import as_canonical_shape
@@ -46,7 +49,8 @@ class RadonTransform(LinOp):
     memory is a few hundred bytes a sample of such a block and the
     operator holds only the angles and the two 1-D rulers.  ``device``
     (default ``cuda``) is where they live; ``dtype`` is accepted for the
-    other operators' signature: the weights take the input's dtype.
+    other operators' signature: the weights take the input's dtype, and a
+    bfloat16 or float16 input is computed in float32 and rounded once.
     """
 
     _CHUNK = 1 << 22          # samples whose coordinates are live at once
@@ -107,6 +111,9 @@ class RadonTransform(LinOp):
                 for a in range(0, self._n_angles, self._views))
 
     def apply(self, arr):
+        if arr.dtype in _st.NARROW:
+            return self.apply(arr.float()).to(arr.dtype)
+
         def fn(x):                                      # (B, H, W)
             B = x.shape[0]
             xf = x.reshape(B, -1)
@@ -120,6 +127,9 @@ class RadonTransform(LinOp):
         return self._map_batched(fn, arr, 2, self.codim_shape)
 
     def adjoint(self, arr):
+        if arr.dtype in _st.NARROW:
+            return self.adjoint(arr.float()).to(arr.dtype)
+
         def fn(y):                                      # (B, A, n_det)
             B = y.shape[0]
             out = y.new_zeros((B, self.dim_size))
@@ -146,7 +156,9 @@ class FourierRadon(LinOp):
     an inverse FFT along each projection; the adjoint is the conjugate
     pipeline.  ``n_det`` defaults to the power of 2 at or above 1.5 times
     the larger side.  ``dtype`` (default: the precision policy's) and
-    ``device`` (default ``cuda``) are the NUFFT plan's.
+    ``device`` (default ``cuda``) are the NUFFT plan's; an input computes
+    in its NUFFT compute dtype (bfloat16 and float16 give float32), with a
+    plan and phases a dtype.
     """
 
     def __init__(self, dim_shape, angles, n_det: int = None,
@@ -167,8 +179,9 @@ class FourierRadon(LinOp):
         t1 = self._nufft._t1op
         self.kernel_path = self._nufft.kernel_path
         ct = (n_det - 1) / 2.0
-        self._phase = torch.from_numpy(np.exp(-1j * q * ct)).to(
-            device=t1._xh.device, dtype=complex_dtype(t1._dtype))
+        phase = torch.from_numpy(np.exp(-1j * q * ct)).to(t1._xh.device)
+        self._phases = PerDtype(lambda dt: phase.to(complex_dtype(dt)))
+        self._phases(t1._dtype)
         self._lipschitz = float(_math.sqrt(self._n_angles)
                                 * _math.sqrt(H * W))
         self._name = "FourierRadon"
@@ -176,20 +189,23 @@ class FourierRadon(LinOp):
     def _fw(self, img):                                 # (B, H, W)
         B = img.shape[0]
         vis = view_as_complex(self._nufft.apply(img))   # (B, A n_det)
-        phat = vis.reshape(B, self._n_angles, self._n_det) * self._phase
+        phat = vis.reshape(B, self._n_angles, self._n_det) \
+            * self._phases(img.dtype)
         return torch.fft.ifft(phat, dim=-1).real
 
     def _bw(self, sino):                                # (B, A, n_det)
-        phat = torch.fft.fft(sino, dim=-1) * (self._phase.conj()
+        phat = torch.fft.fft(sino, dim=-1) * (self._phases(sino.dtype).conj()
                                               / self._n_det)
         vis = torch.view_as_real(phat.reshape(sino.shape[0], -1))
         return self._nufft.adjoint(vis)
 
+    # an input computes in its NUFFT compute dtype (bfloat16 and float16
+    # widen to float32), as the JAX package promotes it
     def apply(self, arr):
-        return self._map_batched(self._fw, arr, 2, self.codim_shape)
+        return self._map_batched(self._fw, _widen(arr), 2, self.codim_shape)
 
     def adjoint(self, arr):
-        return self._map_batched(self._bw, arr, 2, self.dim_shape)
+        return self._map_batched(self._bw, _widen(arr), 2, self.dim_shape)
 
     def gram(self) -> "_FourierRadonGram":
         r"""``R^T R`` as FFT-only circulant convolutions: no spread or
@@ -249,7 +265,7 @@ class _FourierRadonGram(SelfAdjointOp):
             if self._h is not None:
                 y = y - self._h.apply(torch.flip(x, (1, 2)))
             return y
-        return self._map_batched(fn, arr, 2, self.codim_shape)
+        return self._map_batched(fn, _widen(arr), 2, self.codim_shape)
 
     def adjoint(self, arr):
         return self.apply(arr)

@@ -41,10 +41,15 @@ as ``(..., 2)`` real pairs: strengths ``(B, M, 2)`` and grids ``(B, *nf,
   writes every cell once, without atomics, so it needs no zeroed grid;
   both kernels give the same bits on every launch.
 
-The kernels take float32 and float64, 2 to 16 taps and any grid size.  An
-empty point set (M = 0) launches nothing: spread gives zeros, interp an
-empty result.  A batch of more than ``MAX_BATCH`` elements runs as
-several launches, each counted.
+The kernels take float32 and float64, 2 to 16 taps and any grid size.  A
+wrapper takes an input of its plan's dtype only, on either device, and
+raises ValueError on any other: no wrapper widens.  The operators widen
+once at their entry, to :func:`compute_dtype` (the JAX package's promotion
+with float32: bfloat16 and float16 compute in float32), and keep one plan
+for each compute dtype (:class:`PerDtype`), each built from the float64
+points.  An empty point set (M = 0) launches nothing: spread gives zeros,
+interp an empty result.  A batch of more than ``MAX_BATCH`` elements runs
+as several launches, each counted.
 
 Autodiff: spread and interp on one plan are each other's exact transpose
 (the real (re, im) view has real ES weights), so each pair carries a
@@ -95,6 +100,8 @@ __all__ = [
     "nufft_spread3",
     "nufft_interp3",
     "build",
+    "compute_dtype",
+    "PerDtype",
 ]
 
 BIN = 32            # NU_BIN of csrc/nufft.cu: the 2-D bin side
@@ -113,6 +120,36 @@ GROUP = 16          # NU_GROUP: interp lanes that sum one point's taps
 INTERP_GROUP = {2: False, 3: True}  # NuInterpFrame: taps by groups of
                                     # GROUP lanes (else a thread a point)
 _DTYPES = (torch.float32, torch.float64)
+# the input dtypes the NUFFT operators take, and what each computes in
+_COMPUTE = {torch.bfloat16: torch.float32, torch.float16: torch.float32,
+            torch.float32: torch.float32, torch.float64: torch.float64}
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a NUFFT computes an input of ``dtype`` in: the JAX
+    package's promotion with float32 (bfloat16, float16 and float32 give
+    float32; float64 gives float64).  Any other dtype: ValueError."""
+    hit = _COMPUTE.get(dtype)
+    if hit is None:
+        raise ValueError(f"dtype {dtype}: the NUFFT takes bfloat16, float16, "
+                         "float32 or float64")
+    return hit
+
+
+class PerDtype:
+    """``build(dtype)`` once for each compute dtype, on first use: a
+    NUFFT operator's plans (each from its float64 points), deconvolution
+    factors or Toeplitz spectra."""
+
+    def __init__(self, build):
+        self._build = build
+        self._by = {}
+
+    def __call__(self, dtype: torch.dtype):
+        hit = self._by.get(dtype)
+        if hit is None:
+            hit = self._by[dtype] = self._build(dtype)
+        return hit
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -642,13 +679,19 @@ def build() -> str:
     return _library()[1]
 
 
-def _check(a: torch.Tensor, plan: Plan, d: int, core: tuple):
+def _dtype_check(a: torch.Tensor, plan: Plan, d: int):
+    """The wrappers' entry check on either device: the plan's ``d`` and
+    dtype."""
     _plain_check(a, plan, d)
+    if a.dtype != plan.dtype:
+        raise ValueError(f"dtype {a.dtype}: this plan takes {plan.dtype} "
+                         "only (the operators keep a plan a dtype)")
+
+
+def _check(a: torch.Tensor, plan: Plan, d: int, core: tuple):
+    _dtype_check(a, plan, d)
     if not a.is_cuda:
         raise ValueError(f"input must lie on a CUDA device, not {a.device}")
-    if a.dtype != plan.dtype:
-        raise ValueError(f"dtype {a.dtype} does not match the plan's "
-                         f"{plan.dtype}")
     if a.device != plan.device:
         raise ValueError(f"input on {a.device}, plan on {plan.device}")
     if a.ndim != 1 + len(core) or tuple(a.shape[1:]) != core:
@@ -694,7 +737,7 @@ def _launches(wrapper, fn, src, dst, plan: Plan):
 
 def _spread(wrapper, c: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
     if c.is_cpu:
-        _plain_check(c, plan, d)
+        _dtype_check(c, plan, d)
         return _spread_plain(c, plan)
     _check(c, plan, d, (plan.M, 2))
     shape = (c.shape[0],) + plan.nf + (2,)
@@ -708,7 +751,7 @@ def _spread(wrapper, c: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
 
 def _interp(wrapper, g: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
     if g.is_cpu:
-        _plain_check(g, plan, d)
+        _dtype_check(g, plan, d)
         return _interp_plain(g, plan)
     _check(g, plan, d, plan.nf + (2,))
     if g.data_ptr() % (2 * g.element_size()):

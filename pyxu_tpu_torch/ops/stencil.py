@@ -25,12 +25,14 @@ with ``m`` the boundary map of ``mode``: zero outside the image
   the taps in device memory.  ``separable_correlate2d_members.launches``
   counts its launches.
 
-The kernel takes float32, float64 and bfloat16 storage (bfloat16: the taps
-rounded to bfloat16, products and sums in float32, the result rounded
-once), constant and symmetric modes, and at most ``_MAX_TAPS`` taps per
-axis; :func:`kernel_takes` is the rule a Stencil applies once, at
-construction.  A batch of more than ``MAX_BATCH`` images runs as several
-launches (the members launch in whole groups of members), each counted.
+The kernel takes float32, float64, bfloat16 and float16 storage (the two
+2-byte types: the taps rounded to the storage type, products and sums in
+float32, the result rounded once), constant and symmetric modes, and at
+most ``_MAX_TAPS`` taps per axis; a wrapper refuses any other dtype with
+ValueError on either device; :func:`kernel_takes` is the rule a Stencil
+applies once, at construction.  A batch of more than ``MAX_BATCH`` images
+runs as several launches (the members launch in whole groups of members),
+each counted.
 :func:`launch_plan` mirrors the kernel's launch geometry (row strips,
 column bands, fold edge tiles).
 
@@ -82,8 +84,12 @@ _GEOM = {"cpt": 4, "warps": 8, "nbuf": 4, "sr": 32, "sr_min": 4,
 _EDGE_TILE = (32, 64)                # ST_TR, ST_TC
 _MAX_SMEM = 232448                   # ST_SMEM_MAX
 _MODES = ("constant", "symmetric")
-_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
-_DT_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
+_DT_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+            torch.float16: 3}
+# 2-byte storage: float32 arithmetic on taps rounded to the storage type,
+# each output rounded once
+NARROW = (torch.bfloat16, torch.float16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,14 +134,14 @@ class MemberTaps:
 
     def device_taps(self, device, dtype, adjoint: bool) -> tuple:
         """``(k0, k1)`` of the kernel's correlation on ``device`` in the
-        storage ``dtype`` (bfloat16: rounded from float32, as
-        :func:`_bf16_taps`): the adjoint's taps flipped."""
+        storage ``dtype`` (bfloat16 and float16: rounded from float32, as
+        :func:`_narrow_taps`): the adjoint's taps flipped."""
         key = (torch.device(device), dtype, adjoint)
         hit = self._dev.get(key)
         if hit is None:
             k0, k1 = ((self.k0[:, ::-1], self.k1[:, ::-1]) if adjoint
                       else (self.k0, self.k1))
-            via = torch.float32 if dtype == torch.bfloat16 else dtype
+            via = torch.float32 if dtype in NARROW else dtype
             hit = self._dev[key] = tuple(
                 torch.tensor(np.ascontiguousarray(k), dtype=via,
                              device=device).to(dtype) for k in (k0, k1))
@@ -184,21 +190,23 @@ def adj_axis(r, k, c, ax, mode):
     return pad_axis_adjoint(out, ax, c, L - 1 - c, n, mode)
 
 
-def _bf16_taps(k):
-    """Taps (host floats, or an array) rounded to bfloat16 from float32, as
-    the kernel rounds them for bfloat16 storage, as float32 values: a tuple,
-    or a float32 tensor for an array."""
-    t = torch.as_tensor(np.asarray(k, dtype=np.float32)).to(torch.bfloat16)
+def _narrow_taps(k, dtype):
+    """Taps (host floats, or an array) rounded to the 2-byte ``dtype``
+    (bfloat16 or float16) from float32, as the kernel rounds them for that
+    storage, as float32 values: a tuple, or a float32 tensor for an
+    array."""
+    t = torch.as_tensor(np.asarray(k, dtype=np.float32)).to(dtype)
     return t.float() if isinstance(k, np.ndarray) else tuple(t.tolist())
 
 
 def separable_correlate2d_plain(x, p: SepTaps, adjoint: bool = False):
     """The function of the kernel over the trailing two axes of ``x``, in
-    its dtype: rows first, then columns.  bfloat16: the kernel's
-    arithmetic, the bfloat16-rounded taps on ``x`` in float32, the result
-    rounded once."""
-    if x.dtype == torch.bfloat16:
-        q = dataclasses.replace(p, k0=_bf16_taps(p.k0), k1=_bf16_taps(p.k1))
+    its dtype: rows first, then columns.  bfloat16 and float16: the
+    kernel's arithmetic, the taps rounded to ``x``'s dtype applied to ``x``
+    in float32, the result rounded once."""
+    if x.dtype in NARROW:
+        q = dataclasses.replace(p, k0=_narrow_taps(p.k0, x.dtype),
+                                k1=_narrow_taps(p.k1, x.dtype))
         return separable_correlate2d_plain(x.float(), q, adjoint).to(x.dtype)
     a0, a1 = x.ndim - 2, x.ndim - 1
     if adjoint:
@@ -220,13 +228,14 @@ def separable_correlate2d_members_plain(x, mt: MemberTaps,
                                         adjoint: bool = False,
                                         shared_input: bool = False):
     """Member ``i``'s correlation of image ``(..., i, :, :)`` of ``x``
-    ``(..., N, H, W)``, in its dtype (bfloat16 as
+    ``(..., N, H, W)``, in its dtype (bfloat16 and float16 as
     :func:`separable_correlate2d_plain`); ``shared_input``: ``x`` is
     ``(..., H, W)``, each member's input, and the result ``(..., N, H,
     W)``."""
     x = _member_input(x, mt, shared_input)
-    if x.dtype == torch.bfloat16:
-        k0, k1 = (_bf16_taps(k.T).to(x.device) for k in (mt.k0, mt.k1))
+    if x.dtype in NARROW:
+        k0, k1 = (_narrow_taps(k.T, x.dtype).to(x.device)
+                  for k in (mt.k0, mt.k1))
         xc = x.float()
     else:
         k0, k1 = (torch.as_tensor(k.T, dtype=x.dtype, device=x.device)
@@ -352,12 +361,17 @@ def build() -> str:
     return _library()[1]
 
 
+def _dtype_check(x):
+    """The wrappers' dtype rule, the same on either device."""
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"dtype {x.dtype}: the kernel takes float32, "
+                         "float64, bfloat16 or float16")
+
+
 def _check(x, p: SepTaps):
     if not x.is_cuda:
         raise ValueError(f"x must lie on a CUDA device, not {x.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"dtype {x.dtype}: the kernel takes float32, "
-                         "float64 or bfloat16")
+    _dtype_check(x)
     if x.ndim < 2 or x.shape[-2] < 1 or x.shape[-1] < 1:
         raise ValueError(f"shape {tuple(x.shape)}: want (..., H, W)")
     if not x.is_contiguous():
@@ -451,6 +465,7 @@ def separable_correlate2d(x, p: SepTaps, adjoint: bool = False):
 
 def _correlate(x, p: SepTaps, adjoint: bool):
     if x.is_cpu:
+        _dtype_check(x)
         return separable_correlate2d_plain(x, p, adjoint)
     _check(x, p)
     return _launch(_library()[0], x, p, adjoint, separable_correlate2d)
@@ -471,6 +486,7 @@ def separable_correlate2d_members(x, mt: MemberTaps, adjoint: bool = False,
 def _correlate_members(x, mt: MemberTaps, adjoint: bool,
                        shared_input: bool):
     if x.is_cpu:
+        _dtype_check(x)
         return separable_correlate2d_members_plain(x, mt, adjoint,
                                                    shared_input)
     _check(x, mt.taps[0])

@@ -12,10 +12,12 @@
   grid: each rank runs its Q ``_NUFFT3`` plans, one ``all_reduce`` sums
   the partial results ``f[q] = sum_p A_pq c[p]``.
 
-The fine grids are complex; they are reduced as their real views, which
-NCCL and gloo both sum.  A sum over ranks changes the order of the
-owner-computes spread's sums, so sharded and unsharded results agree to
-rounding, not bit for bit.
+An input is widened once, at the entry, to its NUFFT compute dtype
+(bfloat16 and float16 give float32), and runs on each rank's plan of that
+dtype, as the unsharded operators do.  The fine grids are complex; they
+are reduced as their real views, which NCCL and gloo both sum.  A sum
+over ranks changes the order of the owner-computes spread's sums, so
+sharded and unsharded results agree to rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from torch.distributed.tensor import Replicate, Shard
 from pyxu_tpu_torch.abc.operator import LinOp
 from pyxu_tpu_torch.operator.linop.nufft import (_NUFFT3, _NUFFT12,
                                                  _es_params, _plan_dtype,
-                                                 _t3_nf_np)
+                                                 _t3_nf_np, _widen)
 from pyxu_tpu_torch.parallel.mesh import (axis_index, chunk_bounds,
                                           from_local, mesh_device, place,
                                           to_full, to_local)
@@ -121,13 +123,13 @@ class ShardedNUFFT(_MeshAxis, LinOp):
         """This rank's strengths (B, Ml, 2) -> replicated modes (B, *N, 2):
         the local spread, one all-reduce of the fine grid, the FFT."""
         op = self._op
-        g = op._spread(a.contiguous(), op._plan)
+        g = op._spread(a.contiguous(), op._plans(a.dtype))
         dist.all_reduce(g, group=self._group)
         return view_as_real(op._grid_to_modes(view_as_complex(g)))
 
     def apply(self, arr):
         nb = arr.ndim - 2
-        a = to_local(arr, self._mesh, self._plc(nb))
+        a = _widen(to_local(arr, self._mesh, self._plc(nb)))
         lo, hi = self._valid
         if hi - lo < self._Ml:      # the padded points' zero strengths
             pad = a.new_zeros(a.shape[:-2] + (self._Ml - (hi - lo), 2))
@@ -136,7 +138,7 @@ class ShardedNUFFT(_MeshAxis, LinOp):
         return self._replicated(out)
 
     def adjoint(self, arr):
-        f = to_full(arr).to(self._op._phihat.device)
+        f = _widen(to_full(arr).to(self._op._xh.device))
         lo, hi = self._valid
 
         def t2(fb):
@@ -265,12 +267,12 @@ class ShardedNUFFT3(_MeshAxis, LinOp):
         return out
 
     def apply(self, arr):
-        a = to_full(arr).to(self._x_idx.device)
+        a = _widen(to_full(arr).to(self._x_idx.device))
         return self._replicated(
             self._map_batched(self._fw, a, 2, self.codim_shape))
 
     def adjoint(self, arr):
-        f = to_full(arr).to(self._x_idx.device)
+        f = _widen(to_full(arr).to(self._x_idx.device))
         return self._replicated(
             self._map_batched(self._bw, f, 2, self.dim_shape))
 

@@ -9,10 +9,11 @@ into the batch.  Here their CPU paths (the plain versions) are held to
 then the compositions that reach them (``grad`` through the rule engine's
 autograd fallback, ``jacobian`` by JVP and VJP, ``from_torch`` /
 ``from_source``, a generic adjoint) against the JAX package on one numpy
-input (float64, 1e-9 of max|ref|; the NUFFT within its plan's eps); the
-plain bfloat16 stencil against the JAX Stencil at bfloat16 (two bf16 ulps
-of max|y|); and the fused TV step's wrapper, which still refuses.  The JAX
-side runs under one ``jax.jit``; torch on one thread.
+input (float64, 1e-9 of max|ref|; the NUFFT within its plan's eps); and
+the fused TV step's wrapper, which still refuses.  The plain 2-byte
+stencils against the JAX Stencil are held in ``tests/test_torch_dtypes.py``
+(``test_narrow_plain_stencil_matches_jax``).  The JAX side runs under one
+``jax.jit``; torch on one thread.
 """
 
 import math
@@ -365,38 +366,3 @@ def test_nufft_composition_matches_jax():
     want = np.asarray(jax.jit(fj.grad)(jnp.asarray(x)))
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert rel <= 1e-6, rel
-
-
-# -------------------------------------------------------------- bf16 --
-
-@pytest.mark.parametrize("mode", ["constant", "symmetric"])
-def test_bf16_plain_stencil_matches_jax(mode):
-    """The plain bfloat16 stencil (the kernel's arithmetic: taps rounded to
-    bfloat16, float32 sums, one rounding) against the JAX Stencil at
-    bfloat16, which rounds after each axis: within two bf16 ulps of
-    max|y|, apply and adjoint, one tap set and a member set."""
-    k0, k1 = _gauss(9, 2.0), _gauss(5, 1.0)
-    rng = np.random.default_rng(9)
-    xs = rng.standard_normal((2,) + SHAPE).astype(np.float32)
-    Kt = tlin.Stencil(SHAPE, [k0, k1], [4, 2], mode=mode)
-    Kj = jlin.Stencil(SHAPE, [jnp.asarray(k0.astype(np.float32)),
-                              jnp.asarray(k1.astype(np.float32))], [4, 2],
-                      mode=mode)
-    xb = torch.from_numpy(xs).to(torch.bfloat16)
-    xj = jnp.asarray(xs).astype(jnp.bfloat16)
-    want = jax.jit(lambda a: (Kj.apply(a), Kj.adjoint(a)))(xj)
-    got = (Kt.apply(xb), Kt.adjoint(xb))
-    mt = st.MemberTaps([Kt._taps] * 2)
-    got_m = tuple(st.separable_correlate2d_members(xb, mt, adj)
-                  for adj in (False, True))
-    for g, gm, wj in zip(got, got_m, want):
-        assert g.dtype == torch.bfloat16
-        w = np.asarray(wj.astype(jnp.float32))
-        tol = 2.0 ** -6 * float(np.abs(w).max())
-        for a in (g, gm):
-            assert float(np.abs(a.float().numpy() - w).max()) <= tol
-    # one rounding of the float32 sums of bf16-rounded taps
-    q = st.SepTaps(st._bf16_taps(Kt._taps.k0), 4,
-                   st._bf16_taps(Kt._taps.k1), 2, mode)
-    assert torch.equal(got[0], st.separable_correlate2d_plain(
-        xb.float(), q).to(torch.bfloat16))

@@ -312,7 +312,8 @@ def test_stencil_launch_covers_test_shapes_once(taps):
             if not _fits(shape, p):
                 continue
             for adjoint in (False, True):
-                for dtype in (torch.float32, torch.float64, torch.bfloat16):
+                for dtype in (torch.float32, torch.float64, torch.bfloat16,
+                              torch.float16):
                     _, n = _stencil_cover(shape, p, adjoint, dtype)
                     assert n.min() == n.max() == 1, (shape, mode, adjoint)
 
@@ -339,11 +340,12 @@ def test_stencil_ring_fits_shared_memory():
     """A block's rings (ST_NBUF rows of the band, its rounded halo and one
     16-byte piece a warp, in the storage type, and for runtime tap counts
     L0 rows of sums) and the fold's edge window (the sums and the window in
-    the arithmetic type, float32 for bfloat16 storage) fit the shared
-    memory the launch asks for, and that fits the card, for every tap
-    count and centre the kernel takes."""
+    the arithmetic type, float32 for bfloat16 and float16 storage) fit the
+    shared memory the launch asks for, and that fits the card, for every
+    tap count and centre the kernel takes."""
     gm = st._GEOM
-    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16,
+                  torch.float16):
         elem = torch.empty((), dtype=dtype).element_size()
         aelem = 8 if dtype == torch.float64 else 4
         V = 16 // elem
@@ -413,12 +415,12 @@ def test_stencil_kernel_matches_plain(cuda, shape, taps, mode, adjoint,
 def test_stencil_kernel_reads_stay_in_the_image(cuda, shape):
     """A build that counts window reads outside the image plane (and loads
     zero there instead) counts none, in a batch whose images sit back to
-    back, and agrees with the plain version: float64, and bfloat16 storage
-    (its own band of 256 columns) within one bf16 ulp of max|y|."""
+    back, and agrees with the plain version: float64, and bfloat16 and
+    float16 storage within one ulp of the storage type of max|y|."""
     lib = st._library(("ST_COUNT_STRAY_READS",))[0]
     assert lib.stencil_stray_reads() == 0
     x64 = torch.randn((3,) + shape, device=cuda, dtype=torch.float64)
-    for x in (x64, x64.to(torch.bfloat16)):
+    for x in (x64, x64.to(torch.bfloat16), x64.to(torch.float16)):
         for taps in sorted(ST_TAPS):
             for mode in ("constant", "symmetric"):
                 p = _sep(taps, mode)
@@ -429,8 +431,8 @@ def test_stencil_kernel_reads_stay_in_the_image(cuda, shape):
                     assert lib.stencil_stray_reads() == 0, (
                         taps, mode, adjoint, x.dtype)
                     err = float((got.double() - want.double()).abs().max())
-                    if x.dtype == torch.bfloat16:
-                        assert err <= 2.0 ** -7 * float(
+                    if x.dtype in st.NARROW:
+                        assert err <= torch.finfo(x.dtype).eps * float(
                             want.double().abs().max())
                     else:
                         assert err <= 1e-12 * float(x.abs().max()) * float(
@@ -449,7 +451,7 @@ def test_stencil_plan_matches_the_kernel(cuda):
                     continue
                 for adjoint in (False, True):
                     for dtype in (torch.float32, torch.float64,
-                                  torch.bfloat16):
+                                  torch.bfloat16, torch.float16):
                         got = st.kernel_plan(lib, shape, p, adjoint, dtype)
                         want = st.launch_plan(shape, p, adjoint, dtype)
                         assert got == {k: want[k] for k in got}, (
@@ -465,8 +467,8 @@ def test_stencil_kernel_batch_and_errors(cuda):
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * float(x.abs().max()) \
         * float(np.sum(np.abs(p.k0)) * np.sum(np.abs(p.k1)))
-    with pytest.raises(ValueError):
-        st.separable_correlate2d(x.half(), p)            # no f16 kernel
+    with pytest.raises(ValueError, match="float16"):
+        st.separable_correlate2d(x.int(), p)             # no integer kernel
     with pytest.raises(ValueError):
         st.separable_correlate2d(x[..., ::2], p)         # not contiguous
 
@@ -1924,10 +1926,27 @@ def test_stencil_bf16_kernel_matches_plain(cuda, shape, taps, mode, adjoint):
     """bfloat16 storage (bf16 taps, float32 sums, one rounding): the
     kernel within one bf16 ulp of max|y| of the plain version, which does
     the same arithmetic in another order; the members launch too."""
+    _narrow_kernel_matches_plain(cuda, shape, taps, mode, adjoint,
+                                 torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("mode", ["constant", "symmetric"])
+@pytest.mark.parametrize("taps", ["9x9", "3x4", "4x3off"])
+@pytest.mark.parametrize("shape", [(300, 520), (257, 389), (3, 67, 129)],
+                         ids=str)
+def test_stencil_f16_kernel_matches_plain(cuda, shape, taps, mode, adjoint):
+    """float16 storage, as bfloat16's: within one f16 ulp of max|y|."""
+    _narrow_kernel_matches_plain(cuda, shape, taps, mode, adjoint,
+                                 torch.float16)
+
+
+def _narrow_kernel_matches_plain(cuda, shape, taps, mode, adjoint, dtype):
     p = _sep(taps, mode)
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
-        cuda, torch.bfloat16)
+        cuda, dtype)
     n0 = st.separable_correlate2d.launches
     got = st.separable_correlate2d(x, p, adjoint)
     want = st.separable_correlate2d_plain(x, p, adjoint)
@@ -1938,8 +1957,8 @@ def test_stencil_bf16_kernel_matches_plain(cuda, shape, taps, mode, adjoint):
     torch.cuda.synchronize()
     assert st.separable_correlate2d.launches == n0 + 1
     for g, w in ((got, want), (got_m, want_m)):
-        assert g.dtype == torch.bfloat16 and g.shape == w.shape
-        tol = 2.0 ** -7 * float(w.float().abs().max())
+        assert g.dtype == dtype and g.shape == w.shape
+        tol = torch.finfo(dtype).eps * float(w.float().abs().max())
         assert float((g.float() - w.float()).abs().max()) <= tol
 
 
