@@ -1467,8 +1467,9 @@ def _mri_problem(pts, N, xt, noise, device, span=None):
 class _SetupTimer:
     """Named parts of a problem's set-up: host ms from a synchronise to a
     synchronise, and device ms between two CUDA events; a part's name is
-    prefixed by the parts it runs in (``G = A.gram() > plan``).  Installed
-    as ``operator.linop.nufft.SPAN`` it times the NUFFT's own parts."""
+    prefixed by the parts it runs in (``G = A.gram() > nufft.plan``).
+    Installed as ``utils.profiler.SPAN`` it times the port's own spans
+    (the NUFFT's parts, ``nufft.*``, among them)."""
 
     def __init__(self):
         self.stack, self.rows = [], []
@@ -1498,18 +1499,18 @@ def _setup_breakdown(tag, build):
     cuFFT's plan cache emptied, as a process's first problem finds it, then
     again with the plans cached; prints every part, host and device ms.
     Returns ``{"cold" | "warm": [(part, host ms, device ms), ...]}``."""
-    from pyxu_tpu_torch.operator.linop import nufft as tnu
+    from pyxu_tpu_torch.utils import profiler as tprof
     out = {}
     for run in ("cold", "warm"):
         if run == "cold":
             torch.backends.cuda.cufft_plan_cache.clear()
         timer = _SetupTimer()
-        tnu.SPAN = timer
+        tprof.SPAN = timer
         try:
             with timer("set-up"):
                 build(timer)
         finally:
-            tnu.SPAN = None
+            tprof.SPAN = None
         for name, host, dev in timer.rows:
             print(f"[setup] {tag} {run}: {name}: host {host:.2f} ms, device "
                   f"{dev:.2f} ms", flush=True)

@@ -14,7 +14,10 @@ Transpose and Cast, each with its Lipschitz estimators, ``jacobian``,
 ``svdvals``/``trace``/``asarray`` where the JAX package has them, and
 ``_expr`` for :meth:`Operator.expr`.  A rule's ``jacobian`` composes its
 parts' Jacobians, so a linear part is applied as itself, never
-differentiated through.
+differentiated through.  Each rule's constructor function runs in a span
+(:func:`~pyxu_tpu_torch.utils.profiler.span`) named after it:
+``op.scale``, ``op.argscale``, ``op.argshift``, ``op.add``, ``op.compose``,
+``op.power``, ``op.transpose``, ``op.cast``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from pyxu_tpu_torch.abc.operator import (
     _t_dtype,
     infer_operator_class,
 )
+from pyxu_tpu_torch.utils.profiler import spanned
 
 __all__ = ["add", "compose", "scale", "argscale", "argshift", "power",
            "transpose", "cast_op"]
@@ -130,6 +134,7 @@ def _scale_properties(op: Operator, cst: float) -> frozenset:
     return frozenset(p)
 
 
+@spanned("op.scale")
 def scale(op: Operator, cst: float) -> Operator:
     cst = float(cst)
     if cst == 1.0:
@@ -215,6 +220,7 @@ def _argscale_properties(op: Operator, cst: float) -> frozenset:
     return frozenset(p)
 
 
+@spanned("op.argscale")
 def argscale(op: Operator, cst: float) -> Operator:
     cst = float(cst)
     if cst == 1.0:
@@ -276,6 +282,7 @@ def _argshift_properties(op: Operator) -> frozenset:
     return frozenset(p - _LINEAR_SUBPROPS)
 
 
+@spanned("op.argshift")
 def argshift(op: Operator, shift) -> Operator:
     shift = torch.as_tensor(shift)
     if op.has(P.QUADRATIC):
@@ -385,6 +392,7 @@ def _add_properties(lhs: Operator, rhs: Operator) -> frozenset:
     return frozenset(p)
 
 
+@spanned("op.add")
 def add(lhs: Operator, rhs: Operator) -> Operator:
     if lhs.dim_shape != rhs.dim_shape or lhs.codim_shape != rhs.codim_shape:
         raise ValueError(f"shape mismatch: {lhs} + {rhs}")
@@ -529,6 +537,7 @@ def _chain_properties(lhs: Operator, rhs: Operator) -> frozenset:
     return frozenset(p)
 
 
+@spanned("op.compose")
 def compose(lhs: Operator, rhs: Operator) -> Operator:
     if rhs.codim_shape != lhs.dim_shape:
         raise ValueError(f"shape mismatch in composition: {lhs} o {rhs}")
@@ -570,6 +579,7 @@ def _homothety_cst(Q: Operator):
 
 # ===================================================================== power =
 
+@spanned("op.power")
 def power(op: Operator, k: int) -> Operator:
     """op**k for a square operator; ``k = 0`` gives the identity.  The
     normal, unitary, self-adjoint and positive-definite properties survive
@@ -629,6 +639,7 @@ class TransposeMixin:
         return A.T.reshape(self.codim_shape + self.dim_shape)
 
 
+@spanned("op.transpose")
 def transpose(op: Operator) -> Operator:
     if not op.has(P.LINEAR):
         raise ValueError("transpose requires a linear operator")
@@ -712,6 +723,7 @@ class CastMixin:
         return self._diff_lipschitz
 
 
+@spanned("op.cast")
 def cast_op(op: Operator, cast_to: type) -> Operator:
     if type(op) is cast_to or (
             isinstance(op, cast_to) and cast_to.properties() == op.properties()):

@@ -36,6 +36,7 @@ import torch
 from pyxu_tpu_torch.info.dtypes import default_fdtype
 from pyxu_tpu_torch.runtime import resolve_device
 from pyxu_tpu_torch.utils.misc import as_canonical_shape
+from pyxu_tpu_torch.utils.profiler import span
 
 __all__ = [
     "Property",
@@ -330,10 +331,11 @@ class Func(Map):
         super().__init__(dim_shape, ())
 
     def asloss(self, data=None) -> "Func":
-        """f(x) -> f(x - data)."""
+        """f(x) -> f(x - data), built in the span ``op.asloss``."""
         if data is None:
             return self
-        return self.argshift(-torch.as_tensor(data))
+        with span("op.asloss"):
+            return self.argshift(-torch.as_tensor(data))
 
 
 class DiffMap(Map):

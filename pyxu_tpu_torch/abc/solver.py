@@ -29,6 +29,13 @@ Modes: ``Mode.BLOCK`` runs to the end and returns; ``Mode.MANUAL`` returns
 a generator of states, one iteration each (``steps``); ``Mode.ASYNC`` runs
 the BLOCK loop on a worker thread (``busy``, ``stop``, ``solution``).
 
+Spans (:func:`~pyxu_tpu_torch.utils.profiler.span`): ``solver.fit`` (each
+fit, each phase of a ``precision_schedule``), ``solver.init`` (``m_init``,
+or ``_m_refresh`` where a fit skips it, with the fit's set-up),
+``solver.block`` (a block; in MANUAL mode an iteration), ``solver.check``
+(the criterion and the history row) and ``solver.host_read`` (the stop
+flag's read: the host's wait on the device).
+
 Also ported: ``warm_start``, ``update_operands``, ``precision_schedule``,
 ``track_objective``, logging (``verbosity``, ``show_progress``), and
 checkpoints (``writeback``, ``read_checkpoint``) under the ``npz`` backend,
@@ -55,6 +62,7 @@ from pyxu_tpu_torch.opt.stop import (
     _host_array,
 )
 from pyxu_tpu_torch.runtime import host_read
+from pyxu_tpu_torch.utils.profiler import span, spanned
 
 __all__ = ["Mode", "Solver", "StoppingCriterion"]
 
@@ -218,6 +226,7 @@ class Solver:
         nothing)."""
 
     # ----------------------------------------------------------------- fit --
+    @spanned("solver.fit")
     def fit(self, *, mode: Mode = Mode.BLOCK,
             stop_crit: StoppingCriterion = None, max_iter: int = 10_000,
             segment_size: int = None, track_objective: bool = False,
@@ -254,14 +263,16 @@ class Solver:
         # a later BLOCK/MANUAL fit
         self._astate["active"] = None
         self._astate["worker"] = None
-        self._fit_init(stop_crit, max_iter, segment_size, track_objective)
-        if warm_start:
-            assert self._mstate, "warm_start=True requires a previous fit"
-            assert not m_init_kwargs, \
-                "warm_start=True skips m_init; m_init kwargs have no effect"
-            self._m_refresh(self._mstate)
-        else:
-            self._mstate = self.m_init(**m_init_kwargs)
+        with span("solver.init"):
+            self._fit_init(stop_crit, max_iter, segment_size,
+                           track_objective)
+            if warm_start:
+                assert self._mstate, "warm_start=True requires a previous fit"
+                assert not m_init_kwargs, \
+                    "warm_start=True skips m_init; m_init kwargs have no effect"
+                self._m_refresh(self._mstate)
+            else:
+                self._mstate = self.m_init(**m_init_kwargs)
         if mode is Mode.BLOCK:
             self._fit_run()
             return self
@@ -304,7 +315,8 @@ class Solver:
         if warm_start:
             assert self._mstate, "warm_start=True requires a previous fit"
         else:
-            self._mstate = self.m_init(**m_init_kwargs)
+            with span("solver.init"):
+                self._mstate = self.m_init(**m_init_kwargs)
         self.phase_log = []
         used = 0
         self._dtype_lock = True
@@ -444,12 +456,15 @@ class Solver:
             try:
                 stopped = False
                 while not stopped and k < k_end:
-                    mstate = block(mstate)
+                    with span("solver.block"):
+                        mstate = block(mstate)
                     k += self._stop_rate
-                    cstate, stop_now, row = self._check(stop, cstate,
-                                                        mstate, k)
-                    hist.record(row)
-                    stopped = host_read(stop_now)
+                    with span("solver.check"):
+                        cstate, stop_now, row = self._check(stop, cstate,
+                                                            mstate, k)
+                        hist.record(row)
+                    with span("solver.host_read"):
+                        stopped = host_read(stop_now)
             except Exception as exc:
                 # the last good state (the segment's start) survives
                 mstate, cstate, k, hist.n = good
@@ -508,15 +523,19 @@ class Solver:
         records = []
         while (n is None or k < n) and k < self._max_iter:
             with torch.no_grad():
-                self._mstate = self.m_step(self._mstate)
-                cstate, stop_now, metrics = stop.update(cstate, self._mstate,
-                                                        k + 1)
+                with span("solver.block"):
+                    self._mstate = self.m_step(self._mstate)
+                with span("solver.check"):
+                    cstate, stop_now, metrics = stop.update(
+                        cstate, self._mstate, k + 1)
             k += 1
             records.append({"iteration": np.int32(k),
                             **{m: _host_array(v)[()] for m, v in
                                metrics.items()}})
             yield self._mstate
-            if host_read(stop_now) or stop.host_check():
+            with span("solver.host_read"):
+                stopped = host_read(stop_now)
+            if stopped or stop.host_check():
                 break
         self._history = _records_to_struct(records)
         self._history_pending = None

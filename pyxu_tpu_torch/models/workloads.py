@@ -103,10 +103,10 @@ def sparse_view_ct(shape=(128, 128), n_angles=30, lam=0.05, seed=0,
     ``solver_kwargs`` go to :class:`PD3O` (e.g. ``stop_rate``).  Returns
     ``(solver, fit kwargs, extras)``; x0 = 0.
     """
-    from pyxu_tpu_torch.operator.linop.nufft import _span
     from pyxu_tpu_torch.operator.linop.xray import (FourierRadon,
                                                     RadonTransform)
     from pyxu_tpu_torch.utils.misc import peaks
+    from pyxu_tpu_torch.utils.profiler import span
 
     dev = resolve_device(device)
     shape = tuple(shape)
@@ -118,13 +118,13 @@ def sparse_view_ct(shape=(128, 128), n_angles=30, lam=0.05, seed=0,
     x_true = (x_true / x_true.max()).to(device=dev, dtype=torch.float32)
     angles = np.linspace(0, np.pi, n_angles, endpoint=False)
     op = FourierRadon if method == "fourier" else RadonTransform
-    with _span("A"):
+    with span("ct.A"):
         A = op(shape, angles, dtype=torch.float32, device=dev)
-    with _span("lipschitz estimate"):
+    with span("ct.lipschitz_estimate"):
         A.estimate_lipschitz(
             maxiter=32, generator=torch.Generator(device=dev).manual_seed(
                 seed), dtype=torch.float32, device=dev)
-    with _span("y"):
+    with span("ct.y"):
         y = A.apply(x_true)
     _, _, _, D, slv = ct_pd3o(A, y, lam, **solver_kwargs)
     return (slv, dict(x0=torch.zeros(shape, dtype=torch.float32, device=dev)),
@@ -139,11 +139,11 @@ def ct_pd3o(A, y, lam, **solver_kwargs):
     from pyxu_tpu_torch.operator.func import (L21Norm, PositiveOrthant,
                                               SquaredL2Norm)
     from pyxu_tpu_torch.operator.linop import Gradient
-    from pyxu_tpu_torch.operator.linop.nufft import _span
     from pyxu_tpu_torch.opt.solver import PD3O
+    from pyxu_tpu_torch.utils.profiler import span
 
     shape = A.dim_shape
-    with _span("loss"):
+    with span("ct.loss"):
         f = 0.5 * SquaredL2Norm(A.codim_shape).asloss(y) * A
     g = PositiveOrthant(shape)
     K = Gradient(shape, mode="symmetric")

@@ -43,12 +43,19 @@ and what the rule engine builds a ``QuadraticFunc`` over for
 ``0.5 * SquaredL2Norm().asloss(y) * A``.  It takes the JAX package's
 ``scale``, ``weights`` and ``kernel_shift``, and offers T. Chan's circulant
 (``_chan_lam``) as an opt-in preconditioner (``_circulant_precond``).
+
+The parts of a plan, a Toeplitz build and a transform run in spans
+(:func:`~pyxu_tpu_torch.utils.profiler.span`): ``nufft.points``,
+``nufft.phi_hat``, ``nufft.plan``, ``nufft.spread``, ``nufft.fft``,
+``nufft.interp``, ``nufft.toeplitz_build``, ``nufft.type1_plan``,
+``nufft.lipschitz_read``, ``nufft.pad_roll_fftn``; type 3's
+``nufft.bounds_read``, ``nufft.phases``, ``nufft.plans``, ``nufft.dx``,
+``nufft.ds``.
 """
 
 from __future__ import annotations
 
 import collections as _collections
-import contextlib as _contextlib
 import math as _math
 import types as _types
 import warnings as _warnings
@@ -67,18 +74,9 @@ from pyxu_tpu_torch.utils.complex import (
     view_as_real,
 )
 from pyxu_tpu_torch.utils.misc import next_fast_len
+from pyxu_tpu_torch.utils.profiler import span
 
 __all__ = ["NUFFT", "ES_kernel", "nudft1", "nudft2", "nudft3"]
-
-# Set-up tracing: None (off), or a callable(name) returning a context
-# manager that times the named part of a plan, a Toeplitz build or a
-# transform (chip_smoke.py's set-up breakdowns).
-SPAN = None
-
-
-def _span(name: str):
-    return SPAN(name) if SPAN is not None else _contextlib.nullcontext()
-
 
 # ----------------------------------------------------------- ES kernel -----
 
@@ -285,7 +283,7 @@ class _NUFFT12(_NUFFTDiagnostics, LinOp):
                  device=None):
         dev = resolve_device(device, like=x)
         dtype = _plan_dtype(dtype)
-        with _span("points"):
+        with span("nufft.points"):
             xh = _points(x, dev)
         M, d = xh.shape
         N = (N,) * d if isinstance(N, (int, np.integer)) else tuple(
@@ -314,7 +312,7 @@ class _NUFFT12(_NUFFTDiagnostics, LinOp):
         self._nf = tuple(max(next_fast_len(int(np.ceil(upsampfac * n))),
                              2 * w + 1) for n in N)
         self._xh = xh
-        with _span("phi_hat"):
+        with span("nufft.phi_hat"):
             ph = np.ones((1,) * d)
             for ax in range(d):
                 _, f = _phi_hat(N[ax], self._nf[ax], w, beta)
@@ -324,7 +322,7 @@ class _NUFFT12(_NUFFTDiagnostics, LinOp):
             inv = torch.from_numpy(1.0 / ph).to(dev)
             self._phihats = _kern.PerDtype(inv.to)
             self._phihats(dtype)
-        with _span("plan"):
+        with span("nufft.plan"):
             self._plans = _kern.PerDtype(
                 lambda dt: plan(xh, self._nf, w, beta, dt))
             self._plans(dtype)
@@ -386,16 +384,16 @@ class _NUFFT12(_NUFFTDiagnostics, LinOp):
     def _t1(self, c):
         """Strengths (B, M, 2) in a compute dtype -> modes (B, *N)
         complex."""
-        with _span("spread"):
+        with span("nufft.spread"):
             g = self._spread(c.contiguous(), self._plans(c.dtype))
-        with _span("fft"):
+        with span("nufft.fft"):
             return self._grid_to_modes(view_as_complex(g))
 
     def _t2(self, f):
         """Modes (B, *N) complex -> values (B, M, 2), isign -s."""
-        with _span("fft"):
+        with span("nufft.fft"):
             g = view_as_real(self._modes_to_grid(f)).contiguous()
-        with _span("interp"):
+        with span("nufft.interp"):
             return self._interp(g, self._plans(g.dtype))
 
     # -- LinOp interface (real views) ----------------------------------------
@@ -425,7 +423,7 @@ class _NUFFT12(_NUFFTDiagnostics, LinOp):
         circulant kernel does not represent."""
         if self._real_in:
             return super().cogram()
-        with _span("toeplitz build"):
+        with span("nufft.toeplitz_build"):
             return _NUFFTToeplitz(self._xh, self._N, self._isign, self._eps,
                                   dtype=self._dtype)
 
@@ -437,7 +435,7 @@ class _NUFFT2(_NUFFTDiagnostics, LinOp):
     def __init__(self, x, N, isign: int = -1, eps: float = 1e-6,
                  upsampfac: float = 2.0, real_in: bool = False, dtype=None,
                  device=None):
-        with _span("type-1 plan"):
+        with span("nufft.type1_plan"):
             self._t1op = _NUFFT12(x, N, isign=-isign, eps=eps,
                                   upsampfac=upsampfac, dtype=dtype,
                                   device=device)
@@ -475,7 +473,7 @@ class _NUFFT2(_NUFFTDiagnostics, LinOp):
         """A^H A on the mode grid by Toeplitz/circulant embedding (two FFTs
         per apply, no spread or interp; see :class:`_NUFFTToeplitz`)."""
         t1 = self._t1op
-        with _span("toeplitz build"):
+        with span("nufft.toeplitz_build"):
             return _NUFFTToeplitz(t1._xh, t1._N, t1._isign, t1._eps,
                                   real_in=self._real_in, dtype=t1._dtype)
 
@@ -543,7 +541,7 @@ class _NUFFTToeplitz(SelfAdjointOp):
         self._spectra = _kern.PerDtype(self._build)
         self._spectra(dtype)
         # the largest circulant eigenvalue bounds the section's norm
-        with _span("lipschitz read"):
+        with span("nufft.lipschitz_read"):
             self._lipschitz = float(self._that.abs().max()
                                     if self._spec_complex
                                     else self._that.max())
@@ -558,7 +556,7 @@ class _NUFFTToeplitz(SelfAdjointOp):
         Nbig = tuple(2 * (n + abs(sh)) - 1 for n, sh in zip(N, shift))
         eps_T = min(eps, 1e-9) if dtype == torch.float64 else eps
         upsampfac = 1.25 if (d == 3 and eps_T >= 5e-5) else 2.0
-        with _span("type-1 plan"):
+        with span("nufft.type1_plan"):
             t1 = _NUFFT12(xh, Nbig, isign=self._isign, eps=eps_T,
                           upsampfac=upsampfac, dtype=dtype, device=xh.device)
         if dtype == self._dtype:
@@ -566,7 +564,7 @@ class _NUFFTToeplitz(SelfAdjointOp):
         c = torch.zeros((M, 2), dtype=dtype, device=xh.device)
         c[:, 0] = 1.0 if self._w64 is None else self._w64.to(dtype)
         T = view_as_complex(t1.apply(c))               # (*Nbig) complex
-        with _span("pad, roll, fftn"):
+        with span("nufft.pad_roll_fftn"):
             # index i of the build grid holds lag i - Nbig//2: keep the lags
             # [-(n-1)+sh, (n-1)+sh] of each axis
             for ax, (n, nb, sh) in enumerate(zip(N, Nbig, shift)):
@@ -788,7 +786,7 @@ class _NUFFT3(_NUFFTDiagnostics, LinOp):
         dev = resolve_device(device, like=x if isinstance(x, torch.Tensor)
                              else z)
         dtype = _plan_dtype(dtype)
-        with _span("points"):
+        with span("nufft.points"):
             x, z = _cloud(x, dev), _cloud(z, dev)
         (M, d), (K, dz) = x.shape, z.shape
         if d != dz:
@@ -800,7 +798,7 @@ class _NUFFT3(_NUFFTDiagnostics, LinOp):
         self._w, self._beta, self._eps = w, beta, float(eps)
         self._real_in = bool(real_in)
         self._dtype = dtype
-        with _span("bounds read"):
+        with span("nufft.bounds_read"):
             xm, zm, gamma, nf_min = _t3_geometry(*_host(torch.stack(
                 [x.amin(0), x.amax(0), z.amin(0), z.amax(0)])), w)
         nf = nf_min if nf is None else tuple(int(n) for n in nf)
@@ -827,25 +825,25 @@ class _NUFFT3(_NUFFTDiagnostics, LinOp):
         dev, plan = x.device, self._plan_fn
         s = float(self._isign)
         st = _types.SimpleNamespace()
-        with _span("phases"):
+        with span("nufft.phases"):
             cdt = complex_dtype(dtype)
             st.ph_x = torch.exp(1j * s * (x @ zm)).to(cdt)
             st.ph_z = torch.exp(1j * s * ((z - zm) @ xm)).to(cdt)
         sp = (z - zm) * s * gamma
-        with _span("plans"):
+        with span("nufft.plans"):
             st.plan_x = plan(torch.remainder((x - xm) / gamma, 2 * np.pi),
                              nf, w, beta, dtype)
             ring = torch.tensor(nf, dtype=torch.float64, device=dev)
             st.plan_s = plan(torch.remainder(2 * np.pi * sp / ring,
                                              2 * np.pi), nf, w, beta, dtype)
-        with _span("dx"):
+        with span("nufft.dx"):
             f = [torch.from_numpy(v).to(dev) for v in _t3_dx_axes(nf, w, beta)]
             lead = None
             for v in f[:-1]:
                 lead = v if lead is None else lead[..., None] * v
             st.dx_lead = None if lead is None else lead.to(dtype)
             st.dx_last = f[-1].to(dtype)
-        with _span("ds"):
+        with span("nufft.ds"):
             zq, pw = (torch.from_numpy(v).to(dev) for v in _es_quad(w, beta))
             ds = torch.ones(z.shape[0], dtype=torch.float64, device=dev)
             for ax in range(d):
@@ -873,14 +871,14 @@ class _NUFFT3(_NUFFTDiagnostics, LinOp):
         """Strengths (B, M) complex -> values (B, K) complex."""
         st = self._states(c.real.dtype)
         c = c * st.ph_x
-        with _span("spread"):
+        with span("nufft.spread"):
             g = self._spread(view_as_real(c).contiguous(), st.plan_x)
         g = self._mul_dx(view_as_complex(g))
-        with _span("fft"):
+        with span("nufft.fft"):
             # the ring's spectrum with e^{+i q m h}: the unnormalised
             # inverse FFT (isign is folded into s')
             ghat = torch.fft.ifftn(g, dim=self._dims, norm="forward")
-        with _span("interp"):
+        with span("nufft.interp"):
             v = self._interp(view_as_real(ghat), st.plan_s)
         return view_as_complex(v) * st.ds * st.ph_z
 
@@ -888,11 +886,11 @@ class _NUFFT3(_NUFFTDiagnostics, LinOp):
         """Values (B, K) complex -> strengths (B, M) complex: the adjoint."""
         st = self._states(f.real.dtype)
         f = f * st.ph_z.conj() * st.ds
-        with _span("spread"):
+        with span("nufft.spread"):
             ghat = self._spread(view_as_real(f).contiguous(), st.plan_s)
-        with _span("fft"):
+        with span("nufft.fft"):
             g = torch.fft.fftn(view_as_complex(ghat), dim=self._dims)
-        with _span("interp"):
+        with span("nufft.interp"):
             v = self._interp(view_as_real(self._mul_dx(g)), st.plan_x)
         return view_as_complex(v) * st.ph_x.conj()
 

@@ -27,12 +27,13 @@ import torch
 
 from pyxu_tpu_torch.abc.operator import LinOp, SelfAdjointOp
 from pyxu_tpu_torch.operator.linop.nufft import (NUFFT, _NUFFTToeplitz,
-                                                 _span, _widen)
+                                                 _widen)
 from pyxu_tpu_torch.ops.nufft import PerDtype
 from pyxu_tpu_torch.ops import stencil as _st
 from pyxu_tpu_torch.runtime import resolve_device
 from pyxu_tpu_torch.utils.complex import complex_dtype, view_as_complex
 from pyxu_tpu_torch.utils.misc import as_canonical_shape
+from pyxu_tpu_torch.utils.profiler import span
 
 __all__ = ["RadonTransform", "FourierRadon"]
 
@@ -240,7 +241,7 @@ class _FourierRadonGram(SelfAdjointOp):
         w = np.ones((na, nd))
         if even:
             w[:, nd // 2] = 0.5
-        with _span("toeplitz build"):
+        with span("xray.toeplitz_build"):
             self._t = _NUFFTToeplitz(t1._xh, t1._N, t1._isign, t1._eps,
                                      real_in=True, dtype=t1._dtype,
                                      scale=1.0 / nd, weights=w.reshape(-1))
@@ -249,7 +250,7 @@ class _FourierRadonGram(SelfAdjointOp):
             pts = t1._xh.reshape(na, nd, 2)[:, nd // 2].contiguous()
             # centred modes k(i) = i - n//2 under index reversal: offset
             # (n - 1) - 2 (n//2), -1 on an even image axis, 0 on an odd one
-            with _span("hankel build"):
+            with span("xray.hankel_build"):
                 self._h = _NUFFTToeplitz(
                     pts, t1._N, t1._isign, t1._eps, real_in=True,
                     dtype=t1._dtype, scale=0.5 / nd,

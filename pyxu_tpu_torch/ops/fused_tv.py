@@ -21,7 +21,9 @@ Each kernel has its plain PyTorch version beside it:
 * :func:`tv_step` / :func:`tv_stepk` — the wrappers.  On a CUDA tensor they
   launch the hand-written kernels of ``csrc/fused_tv.cu`` (or raise); on a
   CPU tensor they run the plain version.  ``tv_step.launches`` and
-  ``tv_stepk.launches`` count kernel launches;
+  ``tv_stepk.launches`` count kernel launches; each call runs in the span
+  ``kernel.tv_step`` or ``kernel.tv_stepk``
+  (:func:`~pyxu_tpu_torch.utils.profiler.span`);
 * :func:`normal_taps` / :func:`normal_band` — the plain expression of the
   kernels' interior form of K^T K (two symmetric bands of 2L-1 taps), and
   :func:`interior_blocks`, the kernels' rule for which blocks take it.
@@ -44,6 +46,7 @@ import torch
 from pyxu_tpu_torch.ops._build import compile_and_load
 from pyxu_tpu_torch.ops._guard import refuse_autodiff
 from pyxu_tpu_torch.ops.stencil import adj_axis, fwd_axis
+from pyxu_tpu_torch.utils.profiler import spanned
 
 __all__ = [
     "TVParams",
@@ -333,6 +336,7 @@ def _launch(entry, x, z, b, p: TVParams, *extra, defines: tuple = ()):
     return xo, zo
 
 
+@spanned("kernel.tv_step")
 def tv_step(x, z, b, p: TVParams):
     """One fused iteration: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
@@ -346,6 +350,7 @@ def tv_step(x, z, b, p: TVParams):
 tv_step.launches = 0
 
 
+@spanned("kernel.tv_stepk")
 def tv_stepk(x, z, b, p: TVParams, n_steps: int):
     """``n_steps`` (>= 2) fused iterations in one pass: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""

@@ -37,7 +37,9 @@ as ``(..., 2)`` real pairs: strengths ``(B, M, 2)`` and grids ``(B, *nf,
 * :func:`nufft_spread2` / :func:`nufft_interp2` and the ``3`` forms — the
   wrappers.  On a CUDA tensor they launch the hand-written kernels of
   ``csrc/nufft.cu`` (or raise); on a CPU tensor they run the plain
-  versions.  ``.launches`` counts kernel launches.  The spread kernel
+  versions.  ``.launches`` counts kernel launches; each call runs in the
+  span ``kernel.nufft_spread`` or ``kernel.nufft_interp``
+  (:func:`~pyxu_tpu_torch.utils.profiler.span`).  The spread kernel
   writes every cell once, without atomics, so it needs no zeroed grid;
   both kernels give the same bits on every launch.
 
@@ -77,6 +79,7 @@ import torch
 
 from pyxu_tpu_torch.ops._build import MAX_BATCH, batch_runs, compile_and_load
 from pyxu_tpu_torch.ops._guard import under_autodiff
+from pyxu_tpu_torch.utils.profiler import spanned
 
 __all__ = [
     "Plan",
@@ -735,6 +738,7 @@ def _launches(wrapper, fn, src, dst, plan: Plan):
             _launch(fn, src[lo:hi], dst[lo:hi], plan)
 
 
+@spanned("kernel.nufft_spread")
 def _spread(wrapper, c: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
     if c.is_cpu:
         _dtype_check(c, plan, d)
@@ -749,6 +753,7 @@ def _spread(wrapper, c: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
     return g
 
 
+@spanned("kernel.nufft_interp")
 def _interp(wrapper, g: torch.Tensor, plan: Plan, d: int) -> torch.Tensor:
     if g.is_cpu:
         _dtype_check(g, plan, d)

@@ -25,6 +25,10 @@ with ``m`` the boundary map of ``mode``: zero outside the image
   the taps in device memory.  ``separable_correlate2d_members.launches``
   counts its launches.
 
+Each wrapper's call, the plain version or the checks and the launches, runs
+in a span (:func:`~pyxu_tpu_torch.utils.profiler.span`): ``kernel.stencil``
+or ``kernel.stencil_members``.
+
 The kernel takes float32, float64, bfloat16 and float16 storage (the two
 2-byte types: the taps rounded to the storage type, products and sums in
 float32, the result rounded once), constant and symmetric modes, and at
@@ -59,6 +63,7 @@ import torch
 from pyxu_tpu_torch.operator.linop.pad import pad_axis, pad_axis_adjoint
 from pyxu_tpu_torch.ops._build import MAX_BATCH, batch_runs, compile_and_load
 from pyxu_tpu_torch.ops._guard import under_autodiff
+from pyxu_tpu_torch.utils.profiler import spanned
 
 __all__ = [
     "SepTaps",
@@ -463,6 +468,7 @@ def separable_correlate2d(x, p: SepTaps, adjoint: bool = False):
     return _correlate(x, p, adjoint)
 
 
+@spanned("kernel.stencil")
 def _correlate(x, p: SepTaps, adjoint: bool):
     if x.is_cpu:
         _dtype_check(x)
@@ -483,6 +489,7 @@ def separable_correlate2d_members(x, mt: MemberTaps, adjoint: bool = False,
     return _correlate_members(x, mt, adjoint, shared_input)
 
 
+@spanned("kernel.stencil_members")
 def _correlate_members(x, mt: MemberTaps, adjoint: bool,
                        shared_input: bool):
     if x.is_cpu:

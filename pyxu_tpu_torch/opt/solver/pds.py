@@ -6,6 +6,12 @@ the host at ``m_init`` from beta and ``||K||`` with the three tuning
 strategies of the reference; a constant that f or K does not declare is
 estimated there, on the state's dtype and device.
 
+Spans (:func:`~pyxu_tpu_torch.utils.profiler.span`): ``solver.step_sizes``,
+``solver.estimate_lipschitz`` (an estimate inside it), ``solver.fuse_match``
+(``CondatVu``'s fusion match), and at the operands' boundary ``op.K.apply``,
+``op.K.adjoint`` and, in ``CondatVu``'s generic iteration, ``op.f.grad``,
+``op.g.prox`` and ``op.h.fenchel_prox``.
+
 The whole family: ``CondatVu`` (with its fusion pass), ``PD3O``, ``ADMM``
 (all three x-updates), ``DouglasRachford``, and the specialisations
 ``ChambollePock``, ``ForwardBackward`` and ``ProximalPoint`` (of
@@ -26,6 +32,7 @@ from pyxu_tpu_torch.abc.solver import Solver
 from pyxu_tpu_torch.opt.stop import RelError
 from pyxu_tpu_torch.runtime import resolve_device
 from pyxu_tpu_torch.utils.misc import asarray_astype
+from pyxu_tpu_torch.utils.profiler import span, spanned
 
 __all__ = [
     "CondatVu", "CV", "PD3O", "ChambollePock", "CP", "LorisVerhoeven", "LV",
@@ -71,7 +78,8 @@ class _PrimalDualSplitting(Solver):
         ``device``) when f declares none."""
         b = self._f.diff_lipschitz
         if not _math.isfinite(b):
-            b = self._f.estimate_diff_lipschitz(**kw)
+            with span("solver.estimate_lipschitz"):
+                b = self._f.estimate_diff_lipschitz(**kw)
         return float(b)
 
     def _norm_K(self, **kw) -> float:
@@ -81,9 +89,11 @@ class _PrimalDualSplitting(Solver):
             return 1.0 if self._h is not None else 0.0
         L = self._K.lipschitz
         if not _math.isfinite(L):
-            L = self._K.estimate_lipschitz(**kw)
+            with span("solver.estimate_lipschitz"):
+                L = self._K.estimate_lipschitz(**kw)
         return float(L)
 
+    @spanned("solver.step_sizes")
     def _set_steps(self, tau, sigma, rho, tuning_strategy, **kw):
         """(tau, sigma, rho) with 1/tau - sigma ||K||^2 >= gamma; strategy
         1: gamma = beta, rho = 1; 2: gamma = beta/1.9; 3: rho = delta - 0.1.
@@ -171,10 +181,16 @@ class _PrimalDualSplitting(Solver):
         return val
 
     def _Kt(self, z):
-        return self._K.adjoint(z) if self._K is not None else z
+        if self._K is None:
+            return z
+        with span("op.K.adjoint"):
+            return self._K.adjoint(z)
 
     def _Kf(self, x):
-        return self._K.apply(x) if self._K is not None else x
+        if self._K is None:
+            return x
+        with span("op.K.apply"):
+            return self._K.apply(x)
 
 
 class CondatVu(_PrimalDualSplitting):
@@ -206,6 +222,21 @@ class CondatVu(_PrimalDualSplitting):
         self._m_refresh(mst)
         return mst
 
+    # the generic iteration's operand calls, each in its span; called
+    # inside the iteration's expressions, so that no temporary outlives
+    # the expression it is part of
+    def _grad_f(self, x):
+        with span("op.f.grad"):
+            return self._f.grad(x)
+
+    def _prox_g(self, x, tau):
+        with span("op.g.prox"):
+            return self._g.prox(x, tau)
+
+    def _fenchel_prox_h(self, z, sigma):
+        with span("op.h.fenchel_prox"):
+            return self._h.fenchel_prox(z, sigma)
+
     def _m_refresh(self, mst):
         from pyxu_tpu_torch.ops.fused_tv import match_fused_tv, match_fused_tv2
         self._fused, self.fused_path = None, None
@@ -213,14 +244,16 @@ class CondatVu(_PrimalDualSplitting):
         if not self._fuse:
             return
         x, z = mst["x"], mst.get("z")
-        fused = match_fused_tv(self._f, self._g, self._h, self._K,
-                               tau=self._tau, sigma=self._sigma,
-                               rho=self._rho, x=x, z=z)
+        with span("solver.fuse_match"):
+            fused = match_fused_tv(self._f, self._g, self._h, self._K,
+                                   tau=self._tau, sigma=self._sigma,
+                                   rho=self._rho, x=x, z=z)
+            n = None if fused is None else match_fused_tv2(fused,
+                                                           tuple(x.shape))
         if fused is None:
             return
         self._fused = fused
         self.fused_path = "kernel" if x.is_cuda else "plain"
-        n = match_fused_tv2(fused, tuple(x.shape))
         if n is not None:
             def step2(s, _n=n):
                 xn, zn = fused.stepk(s["x"], s["z"], _n)
@@ -240,8 +273,8 @@ class CondatVu(_PrimalDualSplitting):
         # generic path: compute at the primal precision, store each variable
         # back at its own dtype
         zc = z.to(x.dtype)
-        xp = self._g.prox(x - tau * self._f.grad(x) - tau * self._Kt(zc), tau)
-        zp = self._h.fenchel_prox(zc + sigma * self._Kf(2 * xp - x), sigma)
+        xp = self._prox_g(x - tau * self._grad_f(x) - tau * self._Kt(zc), tau)
+        zp = self._fenchel_prox_h(zc + sigma * self._Kf(2 * xp - x), sigma)
         return {"x": (x + rho * (xp - x)).to(x.dtype),
                 "z": (zc + rho * (zp - zc)).to(z.dtype)}
 
